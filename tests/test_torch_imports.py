@@ -1,0 +1,65 @@
+"""bwameme_tpu_torch imports no JAX, directly or through what it imports.
+
+Checked in a subprocess, because this suite's conftest imports jax: an
+import hook there refuses every jax module, then every module of the port
+(and chip_smoke.py) is imported and a few reads are aligned on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"jax is blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, NoJax())
+
+import numpy as np
+import bwameme_tpu_torch
+import chip_smoke  # noqa: F401
+
+names = [m.name for m in pkgutil.walk_packages(bwameme_tpu_torch.__path__,
+                                                "bwameme_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+
+from bwameme_tpu.index import bntseq
+from bwameme_tpu.index.build import build_index
+from bwameme_tpu.io.fastq import Read
+from bwameme_tpu_torch.pipeline import Aligner
+
+rng = np.random.default_rng(5)
+code = rng.integers(0, 4, 20000).astype(np.uint8)
+bns = bntseq.BntSeq(l_pac=len(code),
+                    contigs=[bntseq.Contig("chrT", "", 0, len(code), 0)],
+                    ambs=[], code=code)
+idx = build_index(bns, rmi_bits=10)
+reads = [Read(f"r{i}", "".join("ACGT"[c] for c in idx.text[s: s + 151]),
+              "I" * 151, None)
+         for i, s in enumerate((100, 5000, 12000, 30000))]
+sam = Aligner(idx, device="cpu").align_batch(reads)
+# the last read lies on the reverse-complement half: forward position
+# 2*l_pac - (30000 + 151), on the reverse strand
+got = [ln.split("\t")[1:4] for ln in sam]
+assert got == [["0", "chrT", "101"], ["0", "chrT", "5001"],
+               ["0", "chrT", "12001"], ["16", "chrT", "9850"]], got
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+assert not loaded, loaded
+print("OK", len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "BWAMEME_PLATFORM"}
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
