@@ -1,13 +1,15 @@
 """bwameme_tpu_torch — the PyTorch + CUDA port of bwameme_tpu.
 
-A second package beside the JAX reference: it reuses the reference's
-JAX-free host code (io, index build, P-RMI training, chaining, the native
-C++ host kernels, the host seeding engine) by import, and replaces what ran
-on the TPU with PyTorch and hand-written CUDA kernels for Hopper (sm_90a).
-This slice runs single-end ``mem --engine host``: host seeding and chaining,
-banded-SW extension on the GPU, native finalization. It imports no JAX.
+A second package beside the JAX reference that stands on its own: it keeps
+its own copy of the host code (io, index build, P-RMI training, chaining,
+the ctypes wrapper of native/*.cpp, the host seeding engine) under the same
+sub-package and file names as bwameme_tpu, and replaces what ran on the TPU
+with PyTorch and hand-written CUDA kernels for Hopper (sm_90a). It runs
+single-end ``mem``: learned-index seeding on the device (or the host engine),
+native chaining, banded-SW extension on the GPU, native finalization. It
+imports neither JAX nor any module of bwameme_tpu.
 """
 
 __version__ = "0.1.0"
 
-from bwameme_tpu.utils.config import MemOptions  # noqa: F401,E402
+from bwameme_tpu_torch.utils.config import MemOptions  # noqa: F401,E402

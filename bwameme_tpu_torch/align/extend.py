@@ -28,8 +28,8 @@ import math
 import numpy as np
 import torch
 
-from bwameme_tpu.align import native
-from bwameme_tpu.align.chain import Chain, cal_max_gap, clamp_to_contig
+from bwameme_tpu_torch.align import native
+from bwameme_tpu_torch.align.chain import Chain, cal_max_gap, clamp_to_contig
 from bwameme_tpu_torch.ops import banded_sw as bsw
 
 MAX_BAND_TRY = 2

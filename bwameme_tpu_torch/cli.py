@@ -1,12 +1,13 @@
 """Command-line interface of the port: ``index`` and ``mem``.
 
 ``python -m bwameme_tpu_torch.cli index ref.fa`` builds the same learned
-index as bwameme_tpu (it is the same host code). ``python -m
-bwameme_tpu_torch.cli mem PREFIX reads.fq --engine host`` aligns single-end
-reads: host seeding and chaining, extension in the CUDA kernel, native
-finalization; it writes the same SAM header and records as bwameme_tpu.
-The flags are bwameme_tpu's; what is not ported yet exits 1 naming its
-ROADMAP item.
+index as bwameme_tpu (the port's own copy of the host code). ``python -m
+bwameme_tpu_torch.cli mem PREFIX reads.fq`` aligns single-end reads:
+learned-index seeding on the device (``--engine device``, the default; the
+host engine with ``--engine host``), native chaining, extension in the CUDA
+kernel, native finalization; it writes the same SAM header and records as
+bwameme_tpu. The flags are bwameme_tpu's (bwa-mem's single-letter names);
+what is not ported yet exits 1 naming its ROADMAP item.
 
 The device is CUDA unless BWAMEME_PLATFORM=cpu asks for the CPU (where the
 kernels' plain PyTorch versions run). A missing CUDA device is an error,
@@ -15,21 +16,173 @@ never a silent move to the CPU.
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
 
-from bwameme_tpu.cli import build_parser, cmd_index
 from bwameme_tpu_torch import __version__
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="bwameme-tpu-torch", add_help=False)
+    p.add_argument("--help", action="help")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pi = sub.add_parser("index", help="build the learned (P-RMI) index", add_help=False)
+    pi.add_argument("--help", action="help")
+    pi.add_argument("fasta")
+    pi.add_argument("-a", dest="algo",
+                    choices=["meme", "mem2", "ert", "all"],
+                    default="meme",
+                    help="index type: meme = learned P-RMI (default), "
+                    "mem2 = also build the FM-index, ert = also persist the "
+                    "ERT k-mer root table (otherwise rebuilt at load in "
+                    "O(n)), all = everything")
+    pi.add_argument("-p", "--prefix", default=None, help="index prefix")
+    pi.add_argument("--rmi-bits", type=int, default=None)
+    pi.add_argument("--no-isa", action="store_true",
+                    help="skip the inverse suffix array (MODE<3 semantics)")
+
+    pv = sub.add_parser("version", help="print version and build configuration",
+                        add_help=False)
+    pv.add_argument("--help", action="help")
+
+    pm = sub.add_parser("mem", help="align reads, print SAM on stdout", add_help=False)
+    pm.add_argument("--help", action="help")
+    pm.add_argument("prefix", help="index prefix (from `index`)")
+    pm.add_argument("reads1")
+    pm.add_argument("reads2", nargs="?", default=None)
+    pm.add_argument("-t", type=int, default=1, help="threads (accepted for "
+                    "compatibility; device batching replaces host threads)")
+    pm.add_argument("-k", type=int, default=None, help="min seed length")
+    pm.add_argument("-w", type=int, default=100, help="band width")
+    pm.add_argument("-d", type=int, default=None, help="Z-dropoff")
+    pm.add_argument("-r", type=float, default=None, help="reseed trigger")
+    pm.add_argument("-c", type=int, default=500, help="max occurrences")
+    pm.add_argument("-A", type=int, default=None, help="match score")
+    pm.add_argument("-B", type=int, default=None, help="mismatch penalty")
+    pm.add_argument("-O", type=int, default=None, help="gap open penalty")
+    pm.add_argument("-E", type=int, default=None, help="gap extension penalty")
+    pm.add_argument("-L", type=int, default=None, help="clipping penalty")
+    pm.add_argument("-U", type=int, default=None, help="unpaired penalty")
+    pm.add_argument("-T", type=int, default=None, help="min score to output")
+    pm.add_argument("-K", type=int, default=None,
+                    help="chunk size in bp (reproducibility knob)")
+    pm.add_argument("-R", default=None, help="read group header line")
+    pm.add_argument("-o", "-f", dest="outfile", default=None,
+                    help="output SAM file (default: stdout)")
+    pm.add_argument("-H", dest="hdr_insert", action="append", default=None,
+                    help="insert STR to the SAM header (@-prefixed string "
+                    "or a file of lines)")
+    pm.add_argument("-C", dest="copy_comment", action="store_true",
+                    help="append FASTA/FASTQ comment to SAM output")
+    pm.add_argument("-x", dest="preset", default=None,
+                    help="read type preset: pacbio, ont2d, intractg "
+                    "(changes unset options; short-read tuning remains the "
+                    "design point)")
+    pm.add_argument("-I", dest="insert_spec", default=None,
+                    help="mean[,std[,max[,min]]]: fix the FR insert-size "
+                    "distribution instead of inferring it per chunk")
+    pm.add_argument("-Y", action="store_true", help="use soft clipping for "
+                    "supplementary alignments")
+    pm.add_argument("-a", action="store_true", help="output all alignments")
+    pm.add_argument("-5", dest="primary5", action="store_true",
+                    help="always take the leftmost alignment as primary")
+    pm.add_argument("-p", dest="smartpe", action="store_true",
+                    help="smart pairing: reads1 is interleaved paired-end")
+    pm.add_argument("-P", dest="nopairing", action="store_true",
+                    help="skip pairing; mate rescue only")
+    pm.add_argument("-S", dest="norescue", action="store_true",
+                    help="skip mate rescue")
+    pm.add_argument("-M", dest="nomulti", action="store_true",
+                    help="mark shorter split hits as secondary")
+    pm.add_argument("-q", dest="keepsuppmapq", action="store_true",
+                    help="don't modify mapq of supplementary alignments")
+    pm.add_argument("-V", dest="refhdr", action="store_true",
+                    help="output the reference header in the XR tag")
+    pm.add_argument("-j", dest="ignore_alt", action="store_true",
+                    help="treat ALT contigs as part of the primary assembly")
+    pm.add_argument("-s", dest="split_width", type=int, default=10,
+                    help="reseed if there are fewer than INT hits")
+    pm.add_argument("-D", dest="drop_ratio", type=float, default=0.50,
+                    help="drop chains shorter than FLOAT of the longest")
+    pm.add_argument("-W", dest="min_chain_weight", type=int, default=None,
+                    help="discard chains with seeded bases shorter than INT")
+    pm.add_argument("-m", dest="max_matesw", type=int, default=50,
+                    help="perform at most INT rounds of mate rescue")
+    pm.add_argument("-G", dest="max_chain_gap", type=int, default=10000,
+                    help="max chaining gap")
+    pm.add_argument("-N", dest="max_chain_extend", type=int,
+                    default=1 << 30, help="max chain extension")
+    pm.add_argument("-X", dest="mask_level", type=float, default=0.50,
+                    help="mask level")
+    pm.add_argument("-h", dest="xa_hits", default=None,
+                    help="INT[,INT] max XA hits (non-ALT[,ALT])")
+    pm.add_argument("-y", dest="max_mem_intv", type=int, default=20,
+                    help="seed occurrence threshold for the 3rd round")
+    pm.add_argument("-v", dest="verbose", type=int, default=3,
+                    help="verbosity level")
+    pm.add_argument("--engine", choices=["device", "host"], default="device")
+    pm.add_argument("-7", dest="learned", action="store_true",
+                    help="use the learned (P-RMI) seeding backend (default)")
+    pm.add_argument("-Z", dest="ert", action="store_true",
+                    help="use the ERT (k-mer-root) seeding backend")
+    pm.add_argument("--backend", choices=["learned", "fmi", "ert"],
+                    default="learned",
+                    help="seeding backend: learned index (P-RMI, the -7 "
+                    "path), FM-index (the reference's default backend), or "
+                    "ERT (k-mer-root, the -Z path)")
+    pm.add_argument("--batch", type=int, default=4096,
+                    help="reads per device batch (4096 amortizes the "
+                    "per-dispatch floor; 8192 measured flat)")
+    pm.add_argument("--profile", dest="profile_dir", default=None,
+                    metavar="DIR",
+                    help="capture a profiler trace of the run into DIR (not "
+                    "ported)")
+    pm.add_argument("--mode", type=int, choices=[1, 2, 3, 4], default=None,
+                    help="device memory tier of the index (reference MODE "
+                    "axis): 4=fused rank rows, 16 B/suffix, sub-2^31 texts "
+                    "(the default, and the only one ported); 3=positions"
+                    "+ktext, 2=positions+rank keys, 1=positions only")
+    pm.add_argument("--shards", type=int, default=1,
+                    help="shard the suffix-array index by key range over N "
+                    "devices (not ported); 1 = single device")
+    pm.add_argument("--dp-shards", type=int, default=1,
+                    help="data-parallel rows over N devices (not ported); "
+                    "1 = no data parallelism")
+    return p
+
+
+def cmd_index(args) -> int:
+    from bwameme_tpu_torch.index.build import build_from_fasta, save_index
+
+    if args.algo != "meme":
+        print(f"[index] -a {args.algo}: the FM-index and the persisted ERT "
+              "root are not ported yet (ROADMAP Queue 1 items 11-12)",
+              file=sys.stderr)
+        return 1
+    prefix = args.prefix or args.fasta
+    t0 = time.time()
+    idx = build_from_fasta(
+        args.fasta, with_isa=not args.no_isa, rmi_bits=args.rmi_bits
+    )
+    print(f"[index] built in {time.time()-t0:.1f}s: l_pac={idx.l_pac} "
+          f"n_sa={idx.n_sa} rmi_bits={idx.rmi_bits} max_err={idx.max_err}",
+          file=sys.stderr)
+    save_index(idx, prefix)
+    print(f"[index] saved to {prefix}.meme/ (+ .pac/.ann/.amb)",
+          file=sys.stderr)
+    return 0
 
 
 def _not_ported(args) -> str | None:
     if args.reads2 is not None or args.smartpe:
         return ("paired-end alignment is not ported yet "
                 "(ROADMAP Queue 1 item 9)")
-    if args.engine != "host":
-        return ("--engine device is not ported yet (ROADMAP Queue 1 items "
-                "5-7); use --engine host")
+    if args.engine == "device" and args.mode not in (None, 4):
+        return (f"--mode {args.mode} is not ported yet: the device engine "
+                "holds the index in mode 4 only (ROADMAP Queue 1 item 10)")
     if args.ert or args.backend != "learned":
         return ("the ERT and FM-index backends are not ported yet (ROADMAP "
                 "Queue 1 items 11-12)")
@@ -43,7 +196,7 @@ def _not_ported(args) -> str | None:
 def mem_options(args):
     """MemOptions from the mem flags, exactly as bwameme_tpu.cli.cmd_mem
     assembles them; None for an unknown -x preset."""
-    from bwameme_tpu.utils.config import (
+    from bwameme_tpu_torch.utils.config import (
         MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ, MEM_F_NO_MULTI, MEM_F_NO_RESCUE,
         MEM_F_NOPAIRING, MEM_F_PE, MEM_F_PRIMARY5, MEM_F_REF_HDR,
         MEM_F_SMARTPE, MEM_F_SOFTCLIP, MemOptions, fill_scmat,
@@ -158,9 +311,9 @@ def select_device():
 
 
 def cmd_mem(args) -> int:
-    from bwameme_tpu.index.build import load_index
-    from bwameme_tpu.io import fastq, sam
-    from bwameme_tpu.utils.timer import TPROF, StageTimer
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.io import fastq, sam
+    from bwameme_tpu_torch.utils.timer import TPROF, StageTimer
     from bwameme_tpu_torch.pipeline import Aligner
 
     msg = _not_ported(args)
@@ -191,8 +344,21 @@ def cmd_mem(args) -> int:
         for f in rg_line.split("\t"):
             if f.startswith("ID:"):
                 rg_id = f[3:]
-    aligner = Aligner(idx, opt, rg_id=rg_id, copy_comment=args.copy_comment,
-                      device=device)
+    engine = None
+    if args.engine == "device":
+        from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+
+        if idx.isa is None:
+            print("[mem] the index has no inverse suffix array (built with "
+                  "--no-isa): the device engine's mode 4 needs it, and the "
+                  "modes without it are not ported yet (ROADMAP Queue 1 "
+                  "item 10); use --engine host", file=sys.stderr)
+            return 1
+        with timer.stage("index_upload"):
+            engine = DeviceSeedingEngine(idx, opt, lanes=args.batch,
+                                         device=device, mode=args.mode)
+    aligner = Aligner(idx, opt, seeding_engine=engine, rg_id=rg_id,
+                      copy_comment=args.copy_comment, device=device)
     extra_hdr = None
     if args.hdr_insert:
         hdr_lines = []

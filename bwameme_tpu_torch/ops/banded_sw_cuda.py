@@ -1,99 +1,40 @@
 """ctypes wrappers of the Hopper banded-SW kernels (csrc/banded_sw.cu).
 
-Each wrapper checks device, dtype, shape and contiguity and raises on
-anything else, allocates outputs and scratch with ``torch.empty``, launches on
-the current CUDA stream without synchronising, and raises if the launch was
-refused. ``stats.launches`` counts launches per kernel, so a run can show
-that its main path went through the kernels; with ``stats.events`` set to a
-list, each launch also appends a (start, end) pair of CUDA events.
-
-The plain PyTorch versions live in ops/banded_sw.py, which dispatches to
-these wrappers for CUDA tensors only.
+Checks, launch and launch counts are those of ops/launch.py (``stats`` is
+re-exported here). The plain PyTorch versions live in ops/banded_sw.py, which
+dispatches to these wrappers for CUDA tensors only.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import torch
 
-from bwameme_tpu_torch.ops import build
+from bwameme_tpu_torch.ops.launch import check as _check
+from bwameme_tpu_torch.ops.launch import cuda_device
+from bwameme_tpu_torch.ops.launch import launch as _launch
+from bwameme_tpu_torch.ops.launch import library, stats  # noqa: F401
 
 SW_RESULT_ORDER = ("score", "qle", "tle", "gtle", "gscore", "max_off")
 
 
-@dataclasses.dataclass
-class KernelStats:
-    launches: dict[str, int] = dataclasses.field(
-        default_factory=lambda: {"banded_sw_pairs": 0, "banded_sw_coord": 0})
-    events: list | None = None
-
-    def reset(self) -> None:
-        for k in self.launches:
-            self.launches[k] = 0
-        if self.events is not None:
-            self.events.clear()
-
-    def device_ms(self) -> float:
-        """Summed device time of the recorded launches (synchronises)."""
-        torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in self.events or ())
-
-
-stats = KernelStats()
-_lib = None
+def _declare(lib) -> None:
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.banded_sw_pairs_launch.argtypes = [
+        P, P, I, I, I, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P]
+    lib.banded_sw_pairs_launch.restype = I
+    lib.banded_sw_coord_launch.argtypes = [
+        P, LL, P, I, I, P, I, P, I, I, I, P, I, I, I, I, I, I, P, P, P, P]
+    lib.banded_sw_coord_launch.restype = I
 
 
 def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build.build().path)
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.banded_sw_pairs_launch.argtypes = [
-            P, P, I, I, I, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P]
-        lib.banded_sw_pairs_launch.restype = I
-        lib.banded_sw_coord_launch.argtypes = [
-            P, LL, P, I, I, P, I, P, I, I, I, P, I, I, I, I, I, I, P, P, P, P]
-        lib.banded_sw_coord_launch.restype = I
-        _lib = lib
-    return _lib
+    return library("banded_sw", _declare)
 
 
-def _check(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if len(shape) != x.dim() or any(
-            s is not None and s != d for s, d in zip(shape, x.shape)):
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _launch(name: str, fn, *args) -> None:
-    ev = None
-    if stats.events is not None:
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
-    if ev is not None:
-        ev[1].record()
-        stats.events.append(ev)
-    stats.launches[name] += 1
-
-
-def _cuda_device(x: torch.Tensor) -> torch.device:
-    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
-        raise ValueError("the CUDA banded-SW kernels take CUDA tensors only")
-    return x.device
+def _cuda_device(x) -> torch.device:
+    return cuda_device(x, "the CUDA banded-SW kernels")
 
 
 def banded_sw_pairs(q, t, qlen, tlen, h0, ws, mat, o_del: int, e_del: int,

@@ -1,10 +1,11 @@
-"""Build the port's CUDA kernels with nvcc into a shared library with a plain
-C interface, bound with ctypes (no PyTorch headers: the build takes seconds,
+"""Build the port's CUDA kernels with nvcc into shared libraries with a plain
+C interface, bound with ctypes (no PyTorch headers: a build takes seconds,
 not minutes).
 
-The library is built at first use into ``bwameme_tpu_torch/build/`` (listed
-in .gitignore) and rebuilt when a source is newer than it. Nothing here runs
-at import time, so the CPU tests import every module without nvcc.
+One library per source under ``csrc/``, all compiled at the same time at
+first use into ``bwameme_tpu_torch/build/`` (listed in .gitignore), each
+rebuilt when its source is newer than it. Nothing here runs at import time,
+so the CPU tests import every module without nvcc. A failed build raises.
 """
 
 from __future__ import annotations
@@ -16,20 +17,33 @@ import subprocess
 import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(PKG_DIR, "csrc", "banded_sw.cu"),)
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-LIBRARY = os.path.join(BUILD_DIR, "libbwameme_kernels.so")
 
-# sm_90a keeps Hopper-only instructions available to later kernels; no
-# --use_fast_math: the band clamp's f32 division must round to nearest
+# sm_90a keeps Hopper-only instructions available; no --use_fast_math: the
+# band clamp's f32 division must round to nearest
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# per-source flags. seed_smem: the P-RMI prediction must round its multiply
+# and its add separately (the source also uses __fmul_rn/__fadd_rn)
+SOURCES = {
+    "banded_sw": (),
+    "gather_bench": (),
+    "seed_smem": ("-fmad=false",),
+}
+
+
+def source_path(name: str) -> str:
+    return os.path.join(PKG_DIR, "csrc", f"{name}.cu")
+
+
+def library_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"libbwameme_{name}.so")
 
 
 @dataclasses.dataclass(frozen=True)
 class BuildResult:
-    path: str
-    seconds: float  # 0.0 when the library was already up to date
+    paths: dict     # kernel source name -> shared library
+    seconds: float  # 0.0 when every library was already up to date
     log: str        # nvcc's output (ptxas registers, spills, shared memory)
 
 
@@ -46,24 +60,41 @@ def find_nvcc() -> str:
     return found
 
 
-def nvcc_command(nvcc: str, out: str) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", out, *SOURCES]
+def nvcc_command(nvcc: str, name: str, out: str) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, *SOURCES[name], "-o", out, source_path(name)]
+
+
+def _stale(name: str) -> bool:
+    lib = library_path(name)
+    return (not os.path.exists(lib)
+            or os.path.getmtime(lib) < os.path.getmtime(source_path(name)))
 
 
 def build() -> BuildResult:
-    """Compile the kernels unless the library is newer than every source."""
-    newest = max(os.path.getmtime(s) for s in SOURCES)
-    if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= newest:
-        return BuildResult(LIBRARY, 0.0, "")
+    """Compile every stale library, one nvcc per source, all at once."""
+    paths = {name: library_path(name) for name in SOURCES}
+    todo = [name for name in SOURCES if _stale(name)]
+    if not todo:
+        return BuildResult(paths, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(nvcc_command(find_nvcc(), tmp), capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    # atomic: a concurrent build never loads half a file
-    os.replace(tmp, LIBRARY)
-    return BuildResult(LIBRARY, time.perf_counter() - t0,
-                       proc.stdout + proc.stderr)
+    procs = []
+    for name in todo:
+        tmp = f"{paths[name]}.{os.getpid()}.tmp"
+        procs.append((name, tmp, subprocess.Popen(
+            nvcc_command(nvcc, name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for name, tmp, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {name}.cu\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu ({proc.returncode})")
+        else:
+            # atomic: a concurrent build never loads half a file
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                           + "\n".join(log))
+    return BuildResult(paths, time.perf_counter() - t0, "\n".join(log))

@@ -1,0 +1,169 @@
+"""ctypes wrappers of the Hopper seeding kernels (csrc/seed_smem.cu).
+
+Checks, launch and launch counts are those of ops/launch.py. The plain
+PyTorch versions live in ops/seed_smem.py and ops/sa_search.py;
+ops/seed_smem.py dispatches to these wrappers for CUDA tensors only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from bwameme_tpu_torch.index.device import DeviceIndex
+from bwameme_tpu_torch.ops.launch import check, cuda_device, launch, library
+
+_WHAT = "the CUDA seeding kernels"
+
+
+def _declare(lib) -> None:
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    index = [P, P, LL, P, I, I, I]
+    lib.seed_round1_launch.argtypes = index + [
+        P, I, P, P, P, I, P, I, I, I, P, P, P, P, P]
+    lib.seed_round2_launch.argtypes = index + [
+        P, I, P, P, I, P, I, P, P, I, I, I, I, I, P, P, P, P, P]
+    lib.seed_round3_launch.argtypes = index + [
+        P, I, P, I, P, I, I, I, I, P, P, P, P, P]
+    lib.prmi_window_launch.argtypes = index + [P, P, I, P, P, P]
+    lib.sa_query_launch.argtypes = index + [P, I, P, P, P, P, I, P, P, P]
+    for fn in (lib.seed_round1_launch, lib.seed_round2_launch,
+               lib.seed_round3_launch, lib.prmi_window_launch,
+               lib.sa_query_launch):
+        fn.restype = I
+
+
+def _load():
+    return library("seed_smem", _declare)
+
+
+def _index_args(di: DeviceIndex, dev: torch.device) -> tuple:
+    check(di.rk, "rk", torch.int32, (di.n_sa, 4), dev)
+    check(di.text32, "text32", torch.int32, (None,), dev)
+    check(di.params, "params", torch.int32, (None, 6), dev)
+    if di.rk.data_ptr() % 16:
+        raise ValueError("rk: rank rows must be 16-byte aligned")
+    return (di.rk.data_ptr(), di.text32.data_ptr(), di.text32.numel(),
+            di.params.data_ptr(), di.params.shape[0], di.bits, di.n_sa)
+
+
+def _query_args(qbuf, tables, lens, dev) -> tuple:
+    """Checks the packed query buffer (2R, W), the (R, Lp) tables and the
+    read lengths; returns (R, W, Lp)."""
+    check(lens, "lens", torch.int32, (None,), dev)
+    R = lens.shape[0]
+    check(qbuf, "qbuf", torch.int32, (2 * R, None), dev)
+    Lp = tables[0].shape[1] if tables[0].dim() == 2 else None
+    for t in tables:
+        check(t, "table", torch.int32, (R, Lp), dev)
+    return R, qbuf.shape[1], Lp
+
+
+def _outputs(R: int, M: int, dev):
+    return (torch.empty((4, R, M), dtype=torch.int32, device=dev),
+            torch.empty((R,), dtype=torch.int32, device=dev),
+            torch.empty((R,), dtype=torch.int32, device=dev))
+
+
+def _sectors_ptr(sectors, n: int, dev):
+    """``sectors``, where given, is an (n,) int32 tensor the kernel fills
+    with the 32-byte index sectors each thread read (rank rows and 64-base
+    text segments): the work this batch's data needed."""
+    if sectors is None:
+        return None
+    check(sectors, "sectors", torch.int32, (n,), dev)
+    return sectors.data_ptr()
+
+
+def seed_round1(di: DeviceIndex, qbuf, nf, nr, nvf, lens, minseed: int,
+                M: int, sectors=None):
+    """Kernel form of seed_smem.seed_round1_torch."""
+    dev = cuda_device(qbuf, _WHAT)
+    R, W, Lp = _query_args(qbuf, (nf, nr, nvf), lens, dev)
+    slots, nsm, dropped = _outputs(R, M, dev)
+    sec = _sectors_ptr(sectors, R, dev)
+    if R:
+        with torch.cuda.device(dev):
+            launch("seed_round1", _load().seed_round1_launch,
+                   *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
+                   nr.data_ptr(), nvf.data_ptr(), Lp, lens.data_ptr(), R,
+                   minseed, M, slots.data_ptr(), nsm.data_ptr(),
+                   dropped.data_ptr(), sec)
+    return slots, nsm, dropped
+
+
+def seed_round2(di: DeviceIndex, qbuf, nf, nr, lens, slots1, nsm1,
+                split_len: int, split_width: int, minseed: int, M: int,
+                sectors=None):
+    """Kernel form of seed_smem.seed_round2_torch."""
+    dev = cuda_device(qbuf, _WHAT)
+    R, W, Lp = _query_args(qbuf, (nf, nr), lens, dev)
+    check(slots1, "slots1", torch.int32, (4, R, None), dev)
+    check(nsm1, "nsm1", torch.int32, (R,), dev)
+    slots, nsm, dropped = _outputs(R, M, dev)
+    sec = _sectors_ptr(sectors, R, dev)
+    if R:
+        with torch.cuda.device(dev):
+            launch("seed_round2", _load().seed_round2_launch,
+                   *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
+                   nr.data_ptr(), Lp, lens.data_ptr(), R, slots1.data_ptr(),
+                   nsm1.data_ptr(), slots1.shape[2], split_len, split_width,
+                   minseed, M, slots.data_ptr(), nsm.data_ptr(),
+                   dropped.data_ptr(), sec)
+    return slots, nsm, dropped
+
+
+def seed_round3(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
+                min_seed: int, M: int, sectors=None):
+    """Kernel form of seed_smem.seed_round3_torch."""
+    dev = cuda_device(qbuf, _WHAT)
+    R, W, Lp = _query_args(qbuf, (nf,), lens, dev)
+    slots, nsm, dropped = _outputs(R, M, dev)
+    sec = _sectors_ptr(sectors, R, dev)
+    if R:
+        with torch.cuda.device(dev):
+            launch("seed_round3", _load().seed_round3_launch,
+                   *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
+                   Lp, lens.data_ptr(), R, min_intv, min_seed, M,
+                   slots.data_ptr(), nsm.data_ptr(), dropped.data_ptr(),
+                   sec)
+    return slots, nsm, dropped
+
+
+def prmi_window(di: DeviceIndex, khi, klo):
+    """The P-RMI window alone: khi, klo (n,) int32 storage of uint32 key
+    words; returns (lo, hi), (n,) int32."""
+    dev = cuda_device(khi, _WHAT)
+    check(khi, "khi", torch.int32, (None,), dev)
+    n = khi.shape[0]
+    check(klo, "klo", torch.int32, (n,), dev)
+    lo = torch.empty((n,), dtype=torch.int32, device=dev)
+    hi = torch.empty_like(lo)
+    if n:
+        with torch.cuda.device(dev):
+            launch("prmi_window", _load().prmi_window_launch,
+                   *_index_args(di, dev), khi.data_ptr(), klo.data_ptr(), n,
+                   lo.data_ptr(), hi.data_ptr())
+    return lo, hi
+
+
+def sa_query(di: DeviceIndex, qbuf, row, pivot, v, min_intv, sectors=None):
+    """sa_query alone over n jobs: qbuf (rows, W) int32 storage, row, pivot,
+    v, min_intv (n,) int32 with row in [0, rows) and pivot >= 0; returns
+    (3, n) int32 mlen, lb, cnt."""
+    dev = cuda_device(qbuf, _WHAT)
+    check(qbuf, "qbuf", torch.int32, (None, None), dev)
+    check(row, "row", torch.int32, (None,), dev)
+    n = row.shape[0]
+    for name, x in (("pivot", pivot), ("v", v), ("min_intv", min_intv)):
+        check(x, name, torch.int32, (n,), dev)
+    out = torch.empty((3, n), dtype=torch.int32, device=dev)
+    sec = _sectors_ptr(sectors, n, dev)
+    if n:
+        with torch.cuda.device(dev):
+            launch("sa_query", _load().sa_query_launch,
+                   *_index_args(di, dev), qbuf.data_ptr(), qbuf.shape[1],
+                   row.data_ptr(), pivot.data_ptr(), v.data_ptr(),
+                   min_intv.data_ptr(), n, out.data_ptr(), sec)
+    return out

@@ -3,14 +3,17 @@
 Port of bwameme_tpu/pipeline.py for single-end reads (reference:
 src/bwamem.cpp:1920-1971 mem_process_seqs):
 
-  kernel 1: seeding (SMEMs) on the host engine, chaining in C++  [worker_bwt]
+  kernel 1: seeding (SMEMs) on the device engine (or the host
+            engine), chaining in C++                             [worker_bwt]
   kernel 2: banded-SW extension on the device                   [worker_aln]
   kernel 3: dedup, primary marking, mapq, CIGAR, SAM in C++     [worker_sam]
 
-Kernel 2 goes through the flat path whenever seed re-scoring is a no-op
-(short reads), against the packed text resident on the device, and through
-the dataclass path otherwise. Finalization needs the native host library;
-without it the Aligner raises rather than take a slower path.
+With a device seeding engine the index's packed text is on the device once:
+extension reads the engine's ``di.text32``. Kernel 2 goes through the flat
+path whenever seed re-scoring is a no-op (short reads) and through the
+dataclass path otherwise. Finalization needs the native host library;
+without it the Aligner raises rather than take a slower path, and a kernel
+that fails to build or launch is an error, never a reason to change tier.
 """
 
 from __future__ import annotations
@@ -20,14 +23,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from bwameme_tpu.align import chain as chain_mod
-from bwameme_tpu.align import native
-from bwameme_tpu.index.build import MemeIndex
-from bwameme_tpu.index.packing import NT4_TABLE
-from bwameme_tpu.io.fastq import Read
-from bwameme_tpu.seeding.host_engine import HostSeedingEngine
-from bwameme_tpu.utils.config import MemOptions
-from bwameme_tpu.utils.timer import tstage
+from bwameme_tpu_torch.align import chain as chain_mod
+from bwameme_tpu_torch.align import native
+from bwameme_tpu_torch.index.build import MemeIndex
+from bwameme_tpu_torch.index.packing import NT4_TABLE
+from bwameme_tpu_torch.io.fastq import Read
+from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine
+from bwameme_tpu_torch.utils.config import MemOptions
+from bwameme_tpu_torch.utils.timer import tstage
 from bwameme_tpu_torch.align import extend as extend_mod
 from bwameme_tpu_torch.index.device import DeviceText
 
@@ -58,7 +61,13 @@ class Aligner:
         self.rg_id = rg_id
         self.copy_comment = copy_comment
         self.n_processed = 0
-        self.text = DeviceText.from_host(idx, self.device)
+        # one copy of the packed text on the device: the seeding engine's
+        di = getattr(self.engine, "di", None)
+        if di is not None and di.device.type != self.device.type:
+            raise ValueError(f"seeding engine on {di.device}, aligner on "
+                             f"{self.device}")
+        self.text = di if di is not None else DeviceText.from_host(
+            idx, self.device)
 
     def _encode(self, read: Read) -> ReadRec:
         codes = NT4_TABLE[np.frombuffer(read.seq.encode(), dtype=np.uint8)]
@@ -66,9 +75,25 @@ class Aligner:
         return ReadRec(read.name, codes, read.qual, comment)
 
     def collect_smems(self, recs: list[ReadRec]):
-        """Kernel-1 seeding for a batch on the host engine."""
+        """Kernel-1 seeding for a batch. A device engine returns the flat
+        compacted struct (FlatSmems), which chaining consumes as it is, or
+        per-read lists when the batch outgrew the packed buffer."""
         with tstage("seed.collect"):
+            if hasattr(self.engine, "submit_batch"):
+                return self._finish_seed(self._submit_seed(recs))
             return [self.engine.sorted_smems(r.codes) for r in recs]
+
+    def _submit_seed(self, recs):
+        with tstage("seed.submit"):
+            return self.engine.submit_batch([r.codes for r in recs])
+
+    def _finish_seed(self, token):
+        with tstage("seed.finish"):
+            smems = self.engine.finish_batch_flat(token)
+            if smems is None:
+                smems = [sorted(sm, key=lambda s: (s.start, s.end))
+                         for sm in self.engine.finish_batch(token)]
+            return smems
 
     def _kernel2_submit(self, recs, smems_per_read):
         """Chaining and the launch of the extension; returns a token for
@@ -128,9 +153,43 @@ class Aligner:
 
     def align_stream(self, batches):
         """Align an iterable of read batches, yielding SAM blocks per batch
-        in order. The host seeds batch k+1 while the device extends batch k:
-        extension is launched, not awaited, before the next batch's seeding.
-        """
+        in order. With a device engine the device runs
+
+          seed(k) . extend(k) . seed(k+1) . extend(k+1) . ...
+
+        For batch k the host waits on seed(k), chains, launches extend(k)
+        and only then submits seed(k+1), so extension is never queued behind
+        the next batch's seeding, and the host's retry ladder and
+        finalization of batch k overlap seed(k+1) on the device. With the
+        host engine the host seeds batch k+1 while the device extends
+        batch k."""
+        if not hasattr(self.engine, "submit_batch"):
+            yield from self._align_stream_host_seeding(batches)
+            return
+        pending = None
+        for reads in batches:
+            recs = [self._encode(r) for r in reads]
+            if pending is None:
+                pending = (recs, self._submit_seed(recs))
+                continue
+            sam, token = self._finish_stream(pending, recs)
+            yield sam
+            pending = (recs, token)
+        if pending is not None:
+            yield self._finish_stream(pending, None)[0]
+
+    def _finish_stream(self, item, next_recs):
+        """One pipelined batch: returns its SAM blocks and the seeding token
+        of next_recs, submitted between this batch's extension launch and
+        its finish."""
+        recs, token = item
+        smems = self._finish_seed(token)
+        with tstage("extend.submit"):
+            k2 = self._kernel2_submit(recs, smems)
+        next_token = self._submit_seed(next_recs) if next_recs else None
+        return self._finish(recs, k2), next_token
+
+    def _align_stream_host_seeding(self, batches):
         pending = None
         for reads in batches:
             recs = [self._encode(r) for r in reads]

@@ -3,24 +3,39 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card; imports no JAX. Phases, each of which ends the run with
-a non-zero exit and no result line when it fails:
+Needs one CUDA card; imports neither JAX nor the JAX package. Phases, each
+of which ends the run with a non-zero exit and no result line when it fails:
 
 1. card: the card's name and power limit (nvidia-smi); the kernels built
-   from csrc/ with nvcc, and the build's time.
-2. kernel vs plain: each CUDA kernel against its plain PyTorch version on
-   the card, on random jobs at the main path's shapes plus edge cases, all
-   outputs exactly equal; 64 jobs against the scalar contract
-   (align/sw_scalar.py); the median times of both versions.
-3. end to end: ``bwameme_tpu_torch.cli mem --engine host`` on single-end
-   151 bp reads against a synthetic genome (bench.py's generator, seed 2024,
-   index cached under .bench_cache/) through the flat path, on 1 kbp reads
-   through the dataclass path, and on reads with two deletions under -w 20
-   through the band-retry ladder. Every kernel's launch count, reset just
-   before, must have risen; at least 95% of the short reads map to their
-   source; the SAM records of the first 256 short reads, of the long reads
+   from csrc/ with nvcc (one nvcc a source, all at once), and the build's
+   time.
+2. banded SW, kernel vs plain: each extension kernel against its plain
+   PyTorch version on the card, on random jobs at the main path's shapes
+   plus edge cases, all outputs exactly equal; 64 jobs against the scalar
+   contract (align/sw_scalar.py); the median times of both versions.
+3. gathers: the three row-gather kernels against their plain versions, all
+   words equal, at 128-word and 4-word rows over a 1 GiB table, for 4096 and
+   65536 lanes; then the microbenchmark itself (ops/gather_bench.microbench):
+   ns per row, us per dependent round, GB/s, and one library call's time.
+   The kernels' line reads the 4-word, 4096-lane case, counted on its own.
+4. search: on the bench genome's index (100 Mbp, built at first use under
+   .bench_cache/), the P-RMI window of 2^20 keys and sa_query of >= 10^5
+   jobs cut from simulated reads, kernel == plain exactly; the three seeding
+   rounds on 4096 reads (mutated, reverse-complemented, with N, from the
+   planted repeats), kernel == plain exactly and, through the engine,
+   == the port's HostSeedingEngine on 256 of them.
+5. end to end: ``bwameme_tpu_torch.cli mem`` with its default engine (the
+   device engine) on 8192 single-end 151 bp reads in batches of 4096, on
+   reads with two deletions under -w 20 (the band-retry ladder), and with
+   --engine host on 1 kbp reads (the dataclass path) and on the first 256
+   short reads. Each of these runs starts with every launch count at 0 and
+   is read just after: the default run must launch each seeding round once
+   a batch and the extension kernel, the long reads the pair form, the
+   deletion reads the retries; at least 95% of the short
+   reads map to their source; the SAM records of the first 256 short reads
    and of the deletion reads are byte-identical to a CPU run of the plain
-   version.
+   versions, those of the first 256 short reads also to --engine host, and
+   those of the long reads to their CPU run.
 
 Prints a JSON line of per-kernel numbers, then, last, {"ok": true, ...}.
 Exits 2 with no result when no CUDA device is visible or the port is not
@@ -38,17 +53,57 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(ROOT, ".bench_cache")
-KERNEL_SOURCE = "bwameme_tpu_torch/csrc/banded_sw.cu"
-REPLACES = "bwameme_tpu/ops/banded_sw_pallas.py:199"
+CSRC = "bwameme_tpu_torch/csrc/"
+# name -> (source, the TPU program it replaces)
+KERNELS = {
+    "banded_sw_coord": ("banded_sw.cu", "bwameme_tpu/ops/banded_sw_pallas.py:199"),
+    "banded_sw_pairs": ("banded_sw.cu", "bwameme_tpu/ops/banded_sw_pallas.py:199"),
+    "gather_flat": ("gather_bench.cu", "tools/microbench_pallas_gather.py:107"),
+    "gather_window": ("gather_bench.cu", "tools/microbench_pallas_gather.py:144"),
+    "gather_chain": ("gather_bench.cu", "tools/microbench_pallas_gather.py:203"),
+    "prmi_window": ("seed_smem.cu", "bwameme_tpu/ops/sa_search.py:563"),
+    "sa_query": ("seed_smem.cu", "bwameme_tpu/ops/sa_search.py:1083"),
+    "seed_round1": ("seed_smem.cu", "bwameme_tpu/seeding/engine.py:1081"),
+    "seed_round2": ("seed_smem.cu", "bwameme_tpu/seeding/engine.py:823"),
+    "seed_round3": ("seed_smem.cu", "bwameme_tpu/seeding/engine.py:1281"),
+}
+# the one run whose launches a kernel's "launches" counts, from 0
+MEM_PATH = "mem, default engine, 151 bp reads"
+LAUNCH_PATH = {
+    "banded_sw_coord": MEM_PATH, "seed_round1": MEM_PATH,
+    "seed_round2": MEM_PATH, "seed_round3": MEM_PATH,
+    "banded_sw_pairs": "mem --engine host, 1 kbp reads",
+    "gather_flat": "gather microbenchmark, 4-word rows, 4096 lanes",
+    "gather_window": "gather microbenchmark, 4-word rows, 4096 lanes",
+    "gather_chain": "gather microbenchmark, 4-word rows, 4096 lanes",
+    "prmi_window": "the search entry points, one call each",
+    "sa_query": "the search entry points, one call each",
+}
 SW_KEYS = ("score", "qle", "tle", "gtle", "gscore", "max_off")
+# published peaks of one H100 SXM: HBM bytes/s; int32 operations/s outside
+# the tensor cores, taken as half the 67 TFLOP/s float32 rate (an SM has half
+# as many int32 lanes as float32 lanes)
+HBM_BPS = 3.35e12
+INT32_OPS = 33.5e12
+SECTOR = 32
 # phase 2 workloads: pair jobs (B, Q, T) and coordinate jobs (reads, alnregs)
 PAIRS_SHAPE = (4096, 151, 512)
 COORD_SHAPE = (1024, 4096)
-# phase 3: genome size (the bench's; the smoke's time limit allows a cut to
-# no less than 10 Mbp), 151 bp reads, 1 kbp reads
+# phase 3: a 1 GiB table at both row widths; lanes; window rows; chain rounds
+GATHER_BYTES = 1 << 30
+GATHER_WIDTHS = (128, 4)
+GATHER_LANES = (4096, 65536)
+GATHER_WINDOW = 16
+GATHER_ROUNDS = 15
+# phases 4-5: genome size (the bench's; the smoke's time limit allows a cut
+# to no less than 10 Mbp), 151 bp reads in batches, 1 kbp reads
 GENOME_MBP = 100
-N_READS = 1024
+BATCH = 4096
+N_READS = 8192
+N_CMP = 256
 N_LONG = 16
+N_KEYS = 1 << 20
+JOBS_PER_READ = 26
 
 
 class SmokeFailure(RuntimeError):
@@ -93,14 +148,16 @@ def phase_card():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(f"card: {smi}")
     res = build.build()
-    log(f"kernel build: {res.seconds:.1f} s -> {os.path.relpath(res.path, ROOT)}")
+    libs = ", ".join(os.path.relpath(p, ROOT) for p in res.paths.values())
+    log(f"kernel build: {res.seconds:.1f} s -> {libs}")
     for line in res.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or line.startswith("==")):
             log(f"  nvcc: {line.strip()}")
     return smi
 
 
-# ------------------------------------------------- phase 2: kernel vs plain
+# ---------------------------------------- phase 2: banded SW, kernel vs plain
 
 
 def random_pairs(rng, B: int, Q: int, T: int, w: int):
@@ -150,9 +207,33 @@ def tie_pairs(rng, B: int):
     return q, t, qlen, tlen, h0, ws
 
 
+def sw_bound(qlen, ws, res, n_bytes: int) -> dict:
+    """The least time the card could take for a batch of extension jobs: the
+    bytes it must move over the HBM rate, or the int32 operations of the
+    cells this run's data needed over the int32 rate - the rows that
+    certainly ran (up to the reported target ends) times the band's cells in
+    a row, at about 12 operations a cell (three maxima, the score lookup,
+    the gap updates, the row maximum)."""
+    import numpy as np
+
+    rows = np.maximum(np.maximum(res["tle"].cpu().numpy(),
+                                 res["gtle"].cpu().numpy()), 1)
+    cells = int((rows.astype(np.int64)
+                 * np.minimum(qlen, 2 * ws.astype(np.int64) + 1)).sum())
+    by_ops, by_bytes = 12 * cells / INT32_OPS * 1e3, n_bytes / HBM_BPS * 1e3
+    return dict(bound_ms=max(by_ops, by_bytes),
+                bound_by="operations" if by_ops >= by_bytes else "bytes")
+
+
+def abs_err(got, want) -> int:
+    """Largest absolute difference of two integer tensors of one shape."""
+    check(got.shape == want.shape, f"shapes {tuple(got.shape)} and "
+          f"{tuple(want.shape)} differ")
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
 def max_err(a: dict, b: dict) -> int:
-    return max(int((a[k].long() - b[k].long()).abs().max()) if a[k].numel()
-               else 0 for k in a)
+    return max(abs_err(a[k], b[k]) for k in a)
 
 
 def compare_pairs(opt, arrays, zdrop: int, dev):
@@ -177,8 +258,8 @@ def coord_workload(opt, rng, n_reads: int, n_regs: int, read_len: int):
     path makes them (target window = query part + cal_max_gap)."""
     import numpy as np
 
-    from bwameme_tpu.align.chain import cal_max_gap
-    from bwameme_tpu.index.packing import pack_words
+    from bwameme_tpu_torch.align.chain import cal_max_gap
+    from bwameme_tpu_torch.index.packing import pack_words
 
     n = 4_000_000
     text = rng.integers(0, 4, n).astype(np.uint8)
@@ -231,8 +312,8 @@ def phase_kernels(dev):
     import numpy as np
     import torch
 
-    from bwameme_tpu.align.sw_scalar import sw_extend
-    from bwameme_tpu.utils.config import MemOptions
+    from bwameme_tpu_torch.align.sw_scalar import sw_extend
+    from bwameme_tpu_torch.utils.config import MemOptions
     from bwameme_tpu_torch.ops import banded_sw as bsw
     from bwameme_tpu_torch.ops import banded_sw_cuda
 
@@ -271,8 +352,9 @@ def phase_kernels(dev):
     plain_ms = cuda_ms(lambda: bsw.sw_core_torch(*args), 3)
     log(f"banded_sw_pairs: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
         f"({B} jobs, Q={Q}, T={T}; median)")
-    report["banded_sw_pairs"] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms)
+    report["banded_sw_pairs"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **sw_bound(qlen, ws, got, 4 * (B * (Q + T) + 10 * B)))
 
     # coordinate form: one left and one right job per alnreg
     n_reads, n_regs = COORD_SHAPE
@@ -301,12 +383,349 @@ def phase_kernels(dev):
     log(f"banded_sw_coord: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
         f"(one round: {n_regs} left + {n_regs} right jobs, 151 bp reads; "
         f"median)")
-    report["banded_sw_coord"] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms)
+    bounds = [sw_bound(j[3].cpu().numpy(), j[6].cpu().numpy(),
+                       dict(tle=r[2], gtle=r[3]),
+                       4 * 15 * n_regs + cd.numel() // 2
+                       + int(j[5].sum()) // 4)
+              for j, r in ((lj, k_l), (rj, k_r))]
+    by_ops = sum(b["bound_ms"] for b in bounds if b["bound_by"] == "operations")
+    by_bytes = sum(b["bound_ms"] for b in bounds if b["bound_by"] == "bytes")
+    report["banded_sw_coord"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=by_ops + by_bytes,
+        bound_by="operations" if by_ops >= by_bytes else "bytes")
     return report
 
 
-# ---------------------------------------------------- phase 3: end to end
+# ------------------------------------------------------- phase 3: gathers
+
+
+def phase_gather(dev):
+    """K2-K4 against their plain versions (all words equal), then the
+    microbenchmark. The kernels' line reads the rank-row case (4-word rows,
+    a batch's lanes): its launches are counted on their own, from 0."""
+    import torch
+
+    from bwameme_tpu_torch.ops import gather_bench as gb
+    from bwameme_tpu_torch.ops.launch import stats
+
+    names = ("gather_flat", "gather_window", "gather_chain")
+    errs = dict.fromkeys(names, 0)
+    results = []
+    for width in GATHER_WIDTHS:
+        n_rows = GATHER_BYTES // (4 * width)
+        src = gb.make_table(n_rows, width, dev, seed=width)
+        for lanes in GATHER_LANES:
+            idx = gb.make_lanes(n_rows, lanes, dev, seed=lanes)
+            idxw = idx.clamp(max=n_rows - GATHER_WINDOW)
+            pairs = (
+                ("gather_flat", gb.gather_flat(src, idx),
+                 gb.gather_flat_torch(src, idx)),
+                ("gather_window", gb.gather_window(src, idxw, GATHER_WINDOW),
+                 gb.gather_window_torch(src, idxw, GATHER_WINDOW)),
+                ("gather_chain", gb.gather_chain(src, idx, GATHER_ROUNDS),
+                 gb.gather_chain_torch(src, idx, GATHER_ROUNDS)))
+            torch.cuda.synchronize()
+            for name, got, want in pairs:
+                err = abs_err(got, want)
+                check(err == 0, f"{name} differs from its plain version at "
+                      f"width {width}, {lanes} lanes: {err}")
+                errs[name] = max(errs[name], err)
+            del pairs, got, want
+            results.append((src, idx, idxw, width, lanes))
+        log(f"gather_flat/window/chain == plain at {width}-word rows, "
+            f"{n_rows} rows, lanes {GATHER_LANES} (max abs err "
+            f"{max(errs.values())})")
+    # the microbenchmark proper, the rank-row case last and counted alone
+    main_case = next(r for r in results if r[3] == 4 and r[4] == BATCH)
+    results.sort(key=lambda r: r is main_case)      # stable: the others first
+    for case in results:
+        src, idx, idxw, width, lanes = case
+        if case is main_case:
+            stats.reset()
+        r = gb.microbench(src, idx, GATHER_WINDOW, GATHER_ROUNDS)
+        log(f"gather {width:3d}-word rows, {lanes:5d} lanes: flat "
+            f"{r['flat_ns_per_row']:.2f} ns/row ({r['flat_gbs']:.0f} GB/s), "
+            f"window {r['window_ns_per_row']:.2f} ns/row "
+            f"({r['window_gbs']:.0f} GB/s), chain {r['chain_ms']:.4f} ms for "
+            f"{GATHER_ROUNDS} rounds, {r['chain_us_per_round']:.3f} us a "
+            f"dependent round (from a {64 * GATHER_ROUNDS}-round chain)")
+    chain_us = r["chain_us_per_round"]
+    launches = {k: stats.launches[k] for k in names}
+    log(f"launches of the {width}-word, {lanes}-lane microbenchmark: "
+        f"{launches}")
+
+    # bounds: sectors moved over the HBM rate. The chain's byte bound says
+    # little: it is K dependent loads, so the measured time of one dependent
+    # round times K stands beside it as its latency bound
+    src, idx, idxw, width, lanes = main_case
+    row_sectors = -(-4 * width // SECTOR) * SECTOR
+    win = GATHER_WINDOW
+    win_sectors = (-(-4 * width * win // SECTOR) + 1) * SECTOR
+    flat_idx = (idxw.long()[:, None]
+                + torch.arange(win, device=dev)).reshape(-1)
+    cases = {
+        "gather_flat": (
+            lambda: gb.gather_flat(src, idx),
+            lambda: gb.gather_flat_torch(src, idx),
+            lambda: torch.index_select(src, 0, idx),
+            lanes * (row_sectors + 4 * width + 4)),
+        "gather_window": (
+            lambda: gb.gather_window(src, idxw, win),
+            lambda: gb.gather_window_torch(src, idxw, win),
+            lambda: torch.index_select(src, 0, flat_idx),
+            lanes * (win_sectors + 4 * width * win + 4)),
+        "gather_chain": (
+            lambda: gb.gather_chain(src, idx, GATHER_ROUNDS),
+            lambda: gb.gather_chain_torch(src, idx, GATHER_ROUNDS),
+            None, lanes * (GATHER_ROUNDS * SECTOR + 8)),
+    }
+    report = {}
+    for name, (kern, plain, lib, n_bytes) in cases.items():
+        report[name] = dict(
+            max_abs_err=errs[name], ms=cuda_ms(kern, 20),
+            plain_ms=cuda_ms(plain, 5),
+            library_ms=cuda_ms(lib, 20) if lib else None,
+            bound_ms=n_bytes / HBM_BPS * 1e3, bound_by="bytes",
+            launches=launches[name])
+        check(launches[name] > 0, f"{name} was not launched by the benchmark")
+    report["gather_chain"]["latency_bound_ms"] = GATHER_ROUNDS * chain_us / 1e3
+    return report, chain_us
+
+
+# -------------------------------------------------------- phase 4: search
+
+
+def simulated_reads(text, l_pac: int, n: int, read_len: int, rng,
+                    repeats=()):
+    """Reads as users send them: Poisson(1) substitutions, every other one
+    reverse-complemented, one in eight with an N, one in sixteen from a
+    planted repeat where ``repeats`` lists any. Returns the code arrays."""
+    import numpy as np
+
+    reads = []
+    for i in range(n):
+        if repeats and i % 16 == 7:
+            lo, ln = repeats[int(rng.integers(0, len(repeats)))]
+            st = int(lo + rng.integers(0, max(ln - read_len, 1)))
+            st = min(st, l_pac - read_len - 1)
+        else:
+            st = int(rng.integers(0, l_pac - read_len - 1))
+        c = np.array(text[st: st + read_len])
+        for _ in range(rng.poisson(1.0)):
+            p = int(rng.integers(0, read_len))
+            c[p] = (c[p] + rng.integers(1, 4)) % 4
+        if i % 8 == 3:
+            c[int(rng.integers(0, read_len))] = 4
+        if i % 2:
+            c = np.where(c < 4, 3 - c, c)[::-1].astype(np.uint8)
+        reads.append(c)
+    return reads
+
+
+def planted_repeats(mbp: float):
+    """(destination, length) of the bench genome's planted repeats: the
+    generator of get_index, replayed."""
+    import numpy as np
+
+    rng = np.random.default_rng(2024)
+    n = int(mbp * 1e6)
+    rng.integers(0, 4, n)
+    out = []
+    for _ in range(200):
+        int(rng.integers(0, n - 5000))
+        dst = int(rng.integers(0, n - 5000))
+        out.append((dst, int(rng.integers(300, 3000))))
+    return out
+
+
+def round_err(a, b) -> int:
+    """Largest absolute difference of two rounds' results: the counts, the
+    dropped counts, and the slots either side used."""
+    import torch
+
+    used = (torch.arange(a[0].shape[2], device=a[0].device)[None, :]
+            < torch.maximum(a[1], b[1])[:, None])
+    return max(abs_err(a[1], b[1]), abs_err(a[2], b[2]),
+               abs_err(a[0][:, used], b[0][:, used]))
+
+
+def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
+                 chain_us: float):
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
+    from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+    from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    report = {}
+    idx = load_index(get_index(mbp))
+    opt = MemOptions()
+    t0 = time.perf_counter()
+    eng = DeviceSeedingEngine(idx, opt, lanes=n_reads, device=dev)
+    torch.cuda.synchronize()
+    di = eng.di
+    plane_gib = sum(t.numel() * 4 for t in (di.rk, di.text32, di.params)) / 2**30
+    log(f"device index: {plane_gib:.2f} GiB (rank rows {di.rk.shape[0]} x 16 B,"
+        f" {di.params.shape[0]} leaves, widest window {di.max_width}) built "
+        f"and uploaded in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(17)
+
+    # P-RMI windows: stored keys, and keys cut to 19..31 bases and padded
+    # with zeros / ones as interval_at and find_longest pad them
+    ranks = rng.integers(0, idx.n_sa, n_keys)
+    khi = np.asarray(idx.key_hi)[ranks].astype(np.uint32)
+    klo = np.asarray(idx.key_lo)[ranks].astype(np.uint32)
+    keep = rng.integers(19, 33, n_keys)
+    mh = ~(np.uint64(0xFFFFFFFF) >> np.minimum(keep * 2, 32).astype(np.uint64))
+    ml = ~(np.uint64(0xFFFFFFFF) >> np.maximum(keep * 2 - 32, 0).astype(np.uint64))
+    mh, ml = mh.astype(np.uint32), ml.astype(np.uint32)
+    third = n_keys // 3
+    khi[:third] &= mh[:third]
+    klo[:third] &= ml[:third]
+    khi[third: 2 * third] = (khi & mh | ~mh)[third: 2 * third]
+    klo[third: 2 * third] = (klo & ml | ~ml)[third: 2 * third]
+    kh = torch.from_numpy(khi.view(np.int32)).to(dev)
+    kl = torch.from_numpy(klo.view(np.int32)).to(dev)
+    got = seed_smem_cuda.prmi_window(di, kh, kl)
+    want = seed_smem.prmi_window_torch(di, kh, kl)
+    torch.cuda.synchronize()
+    err = max(abs_err(got[0], want[0]), abs_err(got[1], want[1]))
+    check(err == 0, f"prmi_window differs from its plain version: {err}")
+    exact = 2 * third
+    lo, hi = got[0][exact:].cpu().numpy(), got[1][exact:].cpu().numpy()
+    # a window holds its key's lower bound: the key's own rank too, unless
+    # the key repeats (the planted repeats)
+    inside = ((lo <= ranks[exact:]) & (ranks[exact:] <= hi)).mean()
+    check(inside >= 0.99, f"only {inside:.4f} of the stored keys' ranks lie "
+          "inside their windows")
+    log(f"prmi_window == plain on {n_keys} keys (max abs err {err}; a third "
+        f"zero-padded, a third one-padded; {100 * inside:.3f}% of the stored keys' ranks inside "
+        f"their windows, mean width {float((hi - lo).mean()):.1f})")
+    report["prmi_window"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: seed_smem_cuda.prmi_window(
+            di, kh, kl), 20),
+        plain_ms=cuda_ms(lambda: seed_smem.prmi_window_torch(di, kh, kl), 5),
+        library_ms=None,
+        bound_ms=n_keys * (SECTOR + 16) / HBM_BPS * 1e3, bound_by="bytes")
+
+    # reads, prepared on the card as the engine prepares them
+    reads = simulated_reads(idx.text, idx.l_pac, n_reads, 151, rng,
+                            planted_repeats(mbp))
+    mat, lens_np, _ = eng._batch_matrix(reads)
+    lens = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
+    qbuf, nf, nr, nvf = seed_smem.prepare_reads(
+        torch.from_numpy(mat).to(dev), lens)
+    R = n_reads
+
+    # sa_query jobs cut from the reads: both strands, whole windows and cut
+    # ones, min_intv from 1 up
+    J = JOBS_PER_READ
+    rd = np.repeat(np.arange(R), J)
+    piv = rng.integers(0, 151, R * J)
+    rev = rng.integers(0, 2, R * J)
+    nf_h, nr_h = nf.cpu().numpy(), nr.cpu().numpy()
+    full = np.where(rev == 1, nr_h[rd, piv], nf_h[rd, piv]) - piv
+    v = np.where(rng.random(R * J) < 0.7, full,
+                 (rng.random(R * J) * (full + 1)).astype(np.int64))
+    mi = rng.choice([1, 1, 1, 2, 3, 11, 21, 501], R * J)
+    jobs = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (rd + rev * R, piv, v, mi)]
+    sectors = torch.zeros(R * J, dtype=torch.int32, device=dev)
+    got = seed_smem_cuda.sa_query(di, qbuf, *jobs, sectors=sectors)
+    want = seed_smem.sa_query_torch(di, qbuf, *jobs)
+    torch.cuda.synchronize()
+    err = abs_err(got, want)
+    check(err == 0, f"sa_query differs from its plain version: {err}")
+    n_sec, worst = int(sectors.sum()), int(sectors.max())
+    log(f"sa_query == plain on {R * J} jobs (max abs err {err}; longest "
+        f"match {int(got[0].max())}, {int((got[0] > 48).sum())} past 48 "
+        f"bases; {n_sec / (R * J):.1f} index sectors a job, at most {worst})")
+    report["sa_query"] = dict(
+        max_abs_err=err, latency_bound_ms=worst * chain_us / 1e3,
+        ms=cuda_ms(lambda: seed_smem_cuda.sa_query(di, qbuf, *jobs), 10),
+        plain_ms=cuda_ms(lambda: seed_smem.sa_query_torch(di, qbuf, *jobs), 1),
+        library_ms=None,
+        bound_ms=(n_sec * SECTOR + R * J * 28) / HBM_BPS * 1e3,
+        bound_by="bytes")
+
+    # the three rounds: kernel == plain on the whole batch
+    M, M2 = eng.max_smems, eng.max_reseeds
+    sec = [torch.zeros(R, dtype=torch.int32, device=dev) for _ in range(3)]
+    r1 = lambda fn, **kw: fn(di, qbuf, nf, nr, nvf, lens, opt.min_seed_len,
+                             M, **kw)
+    k1 = r1(seed_smem_cuda.seed_round1, sectors=sec[0])
+    r2 = lambda fn, **kw: fn(di, qbuf, nf, nr, lens, k1[0], k1[1],
+                             opt.split_len, opt.split_width,
+                             opt.min_seed_len, M2, **kw)
+    r3 = lambda fn, **kw: fn(di, qbuf, nf, lens, opt.max_mem_intv,
+                             opt.min_seed_len + 1, M, **kw)
+    k2 = r2(seed_smem_cuda.seed_round2, sectors=sec[1])
+    k3 = r3(seed_smem_cuda.seed_round3, sectors=sec[2])
+    plain = (seed_smem.seed_round1_torch, seed_smem.seed_round2_torch,
+             seed_smem.seed_round3_torch)
+    table_bytes = 4 * (qbuf.numel() + 3 * nf.numel() + R)
+    for name, run, kern, res, pl, sc in (
+            ("seed_round1", r1, seed_smem_cuda.seed_round1, k1, plain[0], sec[0]),
+            ("seed_round2", r2, seed_smem_cuda.seed_round2, k2, plain[1], sec[1]),
+            ("seed_round3", r3, seed_smem_cuda.seed_round3, k3, plain[2], sec[2])):
+        t0 = time.perf_counter()
+        want = run(pl)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = round_err(res, want)
+        check(err == 0, f"{name} differs from its plain version: {err}")
+        check(int(res[2].sum()) == 0, f"{name} ran out of emission slots")
+        n_sec, worst = int(sc.sum()), int(sc.max())
+        ms = cuda_ms(lambda: run(kern), 10)
+        log(f"{name} == plain on {R} reads (max abs err {err}): "
+            f"{int(res[1].sum())} SMEMs; "
+            f"{n_sec / R:.0f} index sectors a read, at most {worst} "
+            f"(x {chain_us:.3f} us a dependent load = {worst * chain_us / 1e3:.3f}"
+            f" ms for the slowest read); kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.0f} ms (one run)")
+        report[name] = dict(
+            max_abs_err=err, latency_bound_ms=worst * chain_us / 1e3,
+            ms=ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=(n_sec * SECTOR + table_bytes + 4 * int(res[1].sum()) * 4)
+            / HBM_BPS * 1e3, bound_by="bytes")
+
+    # through the engine, against the scalar oracle
+    host = HostSeedingEngine(idx, opt)
+    t0 = time.perf_counter()
+    want = [[(s.start, s.end, s.sa_lo, s.hitcount)
+             for s in host.sorted_smems(c)] for c in reads[:n_cmp]]
+    host_s = time.perf_counter() - t0
+    flat = eng.sorted_smems_batch_flat(reads)
+    check(flat is not None, "the packed SMEM buffer overflowed")
+    got = [[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
+           for lst in flat.to_lists()[:n_cmp]]
+    check(got == want, "device SMEMs differ from the HostSeedingEngine's")
+    lists = eng.sorted_smems_batch(reads[:n_cmp])
+    check([[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
+           for lst in lists] == want, "device SMEM lists differ from the "
+          "HostSeedingEngine's")
+    log(f"device SMEMs == HostSeedingEngine on {n_cmp} reads "
+        f"({sum(map(len, want))} SMEMs; the oracle took {host_s:.1f} s); "
+        f"{int(flat.off[-1])} SMEMs in the batch of {R}")
+
+    # the primitives have no caller on the mem path (the rounds inline
+    # them): their path is this run of the two entry points, counted from 0
+    stats.reset()
+    seed_smem_cuda.prmi_window(di, kh, kl)
+    seed_smem_cuda.sa_query(di, qbuf, *jobs)
+    torch.cuda.synchronize()
+    for name in ("prmi_window", "sa_query"):
+        report[name]["launches"] = stats.launches[name]
+        check(report[name]["launches"] > 0, f"{name} was not launched")
+    return report
+
+
+# ---------------------------------------------------- phase 5: end to end
 
 
 def get_index(mbp: float) -> str:
@@ -314,10 +733,10 @@ def get_index(mbp: float) -> str:
     repeats), built once and cached under .bench_cache/."""
     import numpy as np
 
-    from bwameme_tpu.index import bntseq
-    from bwameme_tpu.index.build import build_index, save_index
+    from bwameme_tpu_torch.index import bntseq
+    from bwameme_tpu_torch.index.build import build_index, save_index
 
-    prefix = os.path.join(CACHE, f"bench_{int(mbp)}mbp")
+    prefix = os.path.join(CACHE, f"bench_{mbp:g}mbp")
     if os.path.isdir(prefix + ".meme"):
         log(f"index: cached {os.path.relpath(prefix, ROOT)}")
         return prefix
@@ -396,32 +815,40 @@ def mapped_to_source(records: list[str]) -> tuple[int, int]:
 
 
 def run_mem(cli, prefix: str, reads: str, out: str, device: str,
-            flags=()) -> float:
-    """cli.main mem on one device; returns its wall time."""
+            flags=()) -> tuple[float, dict]:
+    """cli.main mem on one device (the default engine unless the flags say
+    otherwise), with every kernel's launch count set to 0 just before;
+    returns its wall time and the counts read just after."""
+    from bwameme_tpu_torch.ops.launch import stats
+
     old = os.environ.pop("BWAMEME_PLATFORM", None)
     if device == "cpu":
         os.environ["BWAMEME_PLATFORM"] = "cpu"
     try:
+        stats.reset()
         t0 = time.perf_counter()
-        rc = cli.main(["mem", *flags, prefix, reads, "--engine", "host",
-                       "-o", out])
+        rc = cli.main(["mem", *flags, prefix, reads, "-o", out])
         wall = time.perf_counter() - t0
+        launches = dict(stats.launches)
     finally:
         os.environ.pop("BWAMEME_PLATFORM", None)
         if old is not None:
             os.environ["BWAMEME_PLATFORM"] = old
     check(rc == 0, f"mem on {device} exited {rc}")
-    return wall
+    check(device != "cpu" or not any(launches.values()),
+          f"a CPU run launched kernels: {launches}")
+    return wall, launches
 
 
-def phase_end_to_end(mbp: float, n_reads: int, n_long: int):
+def phase_end_to_end(mbp: float, n_reads: int, n_long: int, batch: int,
+                     n_cmp: int):
     import numpy as np
     import torch
 
-    from bwameme_tpu.index.build import load_index
-    from bwameme_tpu.utils.timer import TPROF
     from bwameme_tpu_torch import cli
-    from bwameme_tpu_torch.ops import banded_sw_cuda
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.utils.timer import TPROF
 
     prefix = get_index(mbp)
     idx = load_index(prefix)
@@ -434,36 +861,53 @@ def phase_end_to_end(mbp: float, n_reads: int, n_long: int):
     write_reads(long_fq, idx.text, idx.l_pac, n_long, 1000, rng)
     del_fq = os.path.join(work, "deletions.fq")
     write_deletion_reads(del_fq, idx.text, idx.l_pac, 64, rng)
-    n_cmp = min(256, n_reads)
+    n_cmp = min(n_cmp, n_reads)
     head_fq = os.path.join(work, "short_head.fq")
     with open(short_fq) as f, open(head_fq, "w") as g:
         g.writelines(f.readlines()[: 4 * n_cmp])
     del idx
 
-    stats = banded_sw_cuda.stats
-    stats.reset()
+    # each path is driven with the counts at 0 and read just after (run_mem)
+    seeding = ("seed_round1", "seed_round2", "seed_round3")
     stats.events = []
     TPROF.totals.clear()
     TPROF.counts.clear()
     torch.cuda.reset_peak_memory_stats()
-    wall = run_mem(cli, prefix, short_fq, os.path.join(work, "short.gpu.sam"),
-                   "cuda")
+    sam = lambda name: os.path.join(work, name)
+    by_path = {}
+    wall, by_path["device"] = run_mem(
+        cli, prefix, short_fq, sam("short.gpu.sam"), "cuda",
+        ("--batch", str(batch)))
     gpu_ms = stats.device_ms()
     stages = dict(TPROF.totals)
+    peak = torch.cuda.max_memory_allocated()
     stats.events = None
-    wall_long = run_mem(cli, prefix, long_fq,
-                        os.path.join(work, "long.gpu.sam"), "cuda")
-    before = stats.launches["banded_sw_coord"]
-    run_mem(cli, prefix, del_fq, os.path.join(work, "deletions.gpu.sam"),
-            "cuda", ("-w", "20"))
-    retry = stats.launches["banded_sw_coord"] - before - 2
+    n_batches = -(-n_reads // batch)
+    got = by_path["device"]
+    for name in seeding:
+        check(got[name] == n_batches, f"{name}: {got[name]} launches for "
+              f"{n_batches} batches of the default mem path")
+    check(got["banded_sw_coord"] >= 2 * n_batches, "banded_sw_coord: "
+          f"{got['banded_sw_coord']} launches for {n_batches} batches")
+    wall_long, by_path["host_long"] = run_mem(
+        cli, prefix, long_fq, sam("long.gpu.sam"), "cuda", ("--engine", "host"))
+    check(by_path["host_long"]["banded_sw_pairs"] > 0,
+          "banded_sw_pairs was not launched on the long reads' path")
+    _, by_path["deletions"] = run_mem(
+        cli, prefix, del_fq, sam("deletions.gpu.sam"), "cuda", ("-w", "20"))
+    retry = by_path["deletions"]["banded_sw_coord"] - 2
     check(retry > 0, "the band-retry ladder launched nothing on the card")
-    launches = dict(stats.launches)
-    log(f"kernel launches in the end-to-end run: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    _, by_path["host_short"] = run_mem(
+        cli, prefix, head_fq, sam("short_head.host.sam"), "cuda",
+        ("--engine", "host"))
+    check(by_path["host_short"]["banded_sw_coord"] > 0 and not any(
+        by_path["host_short"][k] for k in seeding),
+        f"--engine host on short reads launched {by_path['host_short']}")
+    for path, counts in by_path.items():
+        log(f"kernel launches, {path}: "
+            f"{ {k: v for k, v in counts.items() if v} }")
 
-    recs = sam_records(os.path.join(work, "short.gpu.sam"))
+    recs = sam_records(sam("short.gpu.sam"))
     names = [ln.split("\t")[0] for ln in recs
              if not int(ln.split("\t")[1]) & 0x900]
     check(len(names) == n_reads and len(set(names)) == n_reads,
@@ -472,34 +916,46 @@ def phase_end_to_end(mbp: float, n_reads: int, n_long: int):
     check(ok >= 0.95 * n, f"only {ok}/{n} reads mapped to their source")
     log(f"short reads: {n} primary records, {ok} ({100 * ok / n:.1f}%) at "
         f"their source")
-    log(f"end to end ({mbp:g} Mbp, {n_reads} x 151 bp, host seeding): "
-        f"{n_reads / wall:.1f} reads/s over {wall:.2f} s wall, kernel "
-        f"device time {gpu_ms:.2f} ms = {100 * gpu_ms / (wall * 1e3):.3f}% "
-        f"of the wall; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    kernel_ms = sum(gpu_ms.values())
+    log(f"end to end ({mbp:g} Mbp, {n_reads} x 151 bp in batches of {batch}, "
+        f"device seeding): {n_reads / wall:.1f} reads/s over {wall:.2f} s "
+        f"wall (index load and upload included), kernel device time "
+        f"{kernel_ms:.2f} ms = {100 * kernel_ms / (wall * 1e3):.3f}% of the "
+        f"wall; peak device memory {peak / 2**20:.1f} MiB")
+    log("kernel device ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(gpu_ms.items())))
     log("stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in
                                    sorted(stages.items(), key=lambda kv: -kv[1])))
-    log(f"long reads: {n_long} x 1000 bp in {wall_long:.2f} s")
+    align_s = sum(v for k, v in stages.items() if k in (
+        "seed.submit", "seed.finish", "extend.submit", "extend.finish",
+        "finalize"))
+    if align_s:
+        log(f"aligning alone (seed, chain, extend, finalize stages): "
+            f"{n_reads / align_s:.1f} reads/s")
+    log(f"long reads (--engine host): {n_long} x 1000 bp in {wall_long:.2f} s")
 
-    cpu_head = os.path.join(work, "short_head.cpu.sam")
-    run_mem(cli, prefix, head_fq, cpu_head, "cpu")
     gpu_head = [ln for ln in recs if int(ln.split("_")[0][1:]) < n_cmp]
-    check(gpu_head == sam_records(cpu_head),
+    run_mem(cli, prefix, head_fq, sam("short_head.cpu.sam"), "cpu",
+            ("--batch", str(batch)))
+    check(gpu_head == sam_records(sam("short_head.cpu.sam")),
           f"GPU SAM differs from CPU SAM on the first {n_cmp} reads")
-    cpu_long = os.path.join(work, "long.cpu.sam")
-    run_mem(cli, prefix, long_fq, cpu_long, "cpu")
-    check(sam_records(os.path.join(work, "long.gpu.sam"))
-          == sam_records(cpu_long), "GPU SAM differs from CPU SAM on long reads")
-    ok_l, n_l = mapped_to_source(sam_records(cpu_long))
-    cpu_del = os.path.join(work, "deletions.cpu.sam")
-    run_mem(cli, prefix, del_fq, cpu_del, "cpu", ("-w", "20"))
-    check(sam_records(os.path.join(work, "deletions.gpu.sam"))
-          == sam_records(cpu_del),
+    check(gpu_head == sam_records(sam("short_head.host.sam")),
+          f"device-engine SAM differs from --engine host SAM on the first "
+          f"{n_cmp} reads")
+    run_mem(cli, prefix, long_fq, sam("long.cpu.sam"), "cpu",
+            ("--engine", "host"))
+    check(sam_records(sam("long.gpu.sam")) == sam_records(sam("long.cpu.sam")),
+          "GPU SAM differs from CPU SAM on long reads")
+    ok_l, n_l = mapped_to_source(sam_records(sam("long.cpu.sam")))
+    run_mem(cli, prefix, del_fq, sam("deletions.cpu.sam"), "cpu", ("-w", "20"))
+    check(sam_records(sam("deletions.gpu.sam"))
+          == sam_records(sam("deletions.cpu.sam")),
           "GPU SAM differs from CPU SAM on the band-retry reads")
-    log(f"GPU SAM == CPU SAM (plain version) on the first {n_cmp} short "
-        f"reads, all {n_long} long reads ({ok_l}/{n_l} long at source) and "
-        f"64 two-deletion reads at -w 20 ({retry} band-retry launches)")
-    return launches
+    log(f"GPU SAM (device engine) == CPU SAM (plain versions) == --engine "
+        f"host SAM on the first {n_cmp} short reads; GPU == CPU on all "
+        f"{n_long} long reads ({ok_l}/{n_l} long at source) and 64 "
+        f"two-deletion reads at -w 20 ({retry} band-retry launches)")
+    return by_path
 
 
 def main() -> int:
@@ -518,13 +974,28 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     t0 = time.perf_counter()
-    phase_card()
+    smi = phase_card()
     report = phase_kernels(dev)
-    launches = phase_end_to_end(GENOME_MBP, N_READS, N_LONG)
+    gather, chain_us = phase_gather(dev)
+    report.update(gather)
+    torch.cuda.empty_cache()
+    report.update(phase_search(dev, GENOME_MBP, BATCH, N_CMP, N_KEYS,
+                               chain_us))
+    torch.cuda.empty_cache()
+    by_path = phase_end_to_end(GENOME_MBP, N_READS, N_LONG, BATCH, N_CMP)
+    # the default mem run's counts; the pair form runs on the long reads' path
+    for name in ("banded_sw_coord", "seed_round1", "seed_round2",
+                 "seed_round3"):
+        report[name]["launches"] = by_path["device"][name]
+    report["banded_sw_pairs"]["launches"] = by_path["host_long"][
+        "banded_sw_pairs"]
     log(f"smoke passed in {time.perf_counter() - t0:.1f} s")
-    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                    replaces=REPLACES, launches=launches[name], **report[name])
-               for name in ("banded_sw_coord", "banded_sw_pairs")]
+    kernels = [dict(name=name, route="cuda", source=CSRC + src, replaces=repl,
+                    launch_path=LAUNCH_PATH[name], **report[name])
+               for name, (src, repl) in KERNELS.items()]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was launched by no path")
+    log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,6 +8,8 @@ side runs its XLA kernel and its Pallas kernel in interpret mode, as the
 JAX package's own CPU tests do.
 """
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -231,13 +233,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                        torch.zeros((7, 2), dtype=torch.int32),
                                        v, torch.zeros((5, 5), dtype=torch.int32),
                                        6, 1, 6, 1, 5, 100, True, True)
-    assert banded_sw_cuda.stats.launches == {"banded_sw_pairs": 0,
-                                             "banded_sw_coord": 0}
+    launches = banded_sw_cuda.stats.launches
+    assert launches["banded_sw_pairs"] == launches["banded_sw_coord"] == 0
 
 
 def test_build_command_targets_hopper_without_fast_math():
-    cmd = build.nvcc_command("nvcc", "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "--use_fast_math" not in cmd and "-use_fast_math" not in cmd
-    assert all(src.endswith(".cu") and src.startswith(build.PKG_DIR)
-               for src in build.SOURCES)
+    for name in build.SOURCES:          # one library, one nvcc, a source
+        cmd = build.nvcc_command("nvcc", name, "lib.so")
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "--use_fast_math" not in cmd and "-use_fast_math" not in cmd
+        src = build.source_path(name)
+        assert cmd[-1] == src and src.endswith(".cu")
+        assert src.startswith(build.PKG_DIR) and os.path.isfile(src)
+    # the P-RMI prediction must not contract its multiply and add
+    assert "-fmad=false" in build.nvcc_command("nvcc", "seed_smem", "lib.so")

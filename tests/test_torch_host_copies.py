@@ -1,0 +1,250 @@
+"""The port keeps its own copy of the host modules it uses, under the same
+sub-package and file names as bwameme_tpu. One cheap parity check per copy,
+so that a later drift between the two shows."""
+
+import dataclasses
+import io as _io
+
+import numpy as np
+import pytest
+
+import bwameme_tpu.align.chain as j_chain
+import bwameme_tpu.align.native as j_native
+import bwameme_tpu.align.sw_scalar as j_sw
+import bwameme_tpu.index.bntseq as j_bntseq
+import bwameme_tpu.index.build as j_build
+import bwameme_tpu.index.packing as j_packing
+import bwameme_tpu.index.suffix_array as j_sa
+import bwameme_tpu.io.fastq as j_fastq
+import bwameme_tpu.io.sam as j_sam
+import bwameme_tpu.models.prmi as j_prmi
+import bwameme_tpu.seeding.host_engine as j_host
+import bwameme_tpu.utils.config as j_config
+import bwameme_tpu.utils.timer as j_timer
+import bwameme_tpu_torch.align.chain as t_chain
+import bwameme_tpu_torch.align.native as t_native
+import bwameme_tpu_torch.align.sw_scalar as t_sw
+import bwameme_tpu_torch.index.bntseq as t_bntseq
+import bwameme_tpu_torch.index.build as t_build
+import bwameme_tpu_torch.index.formats as t_formats
+import bwameme_tpu_torch.index.packing as t_packing
+import bwameme_tpu_torch.index.suffix_array as t_sa
+import bwameme_tpu_torch.io.fastq as t_fastq
+import bwameme_tpu_torch.io.sam as t_sam
+import bwameme_tpu_torch.models.prmi as t_prmi
+import bwameme_tpu_torch.seeding.host_engine as t_host
+import bwameme_tpu_torch.utils.config as t_config
+import bwameme_tpu_torch.utils.fallbacks as t_fallbacks
+import bwameme_tpu_torch.utils.timer as t_timer
+
+PLANES = ("text", "sa", "isa", "key_hi", "key_lo", "text32", "rmi_leaf_start",
+          "rmi_alpha", "rmi_beta", "rmi_err_lo", "rmi_err_hi")
+
+
+def _code(seed=3, n=20000):
+    rng = np.random.default_rng(seed)
+    code = rng.integers(0, 4, n).astype(np.uint8)
+    code[5000:5300] = np.tile(code[5000:5050], 6)
+    return code
+
+
+@pytest.fixture(scope="module")
+def indexes():
+    out = []
+    for bntseq, build in ((j_bntseq, j_build), (t_bntseq, t_build)):
+        code = _code()
+        bns = bntseq.BntSeq(
+            l_pac=len(code),
+            contigs=[bntseq.Contig("c1", "", 0, 12000, 0),
+                     bntseq.Contig("c2", "", 12000, len(code) - 12000, 0)],
+            ambs=[], code=code)
+        out.append(build.build_index(bns, rmi_bits=10))
+    return out
+
+
+@pytest.fixture(scope="module")
+def reads(indexes):
+    idx = indexes[0]
+    rng = np.random.default_rng(4)
+    out = []
+    for i in range(12):
+        st = int(rng.integers(0, idx.l_pac - 151))
+        c = idx.text[st: st + 151].copy()
+        for _ in range(int(rng.integers(0, 3))):
+            p = int(rng.integers(0, 151))
+            c[p] = (c[p] + rng.integers(1, 4)) % 4
+        if i % 2:
+            c = (3 - c[::-1]).astype(np.uint8)
+        out.append(c)
+    out.append(idx.text[5000:5151].copy())
+    return out
+
+
+@pytest.mark.parametrize("plane", PLANES)
+def test_build_index_planes(indexes, plane):
+    a, b = (np.asarray(getattr(i, plane)) for i in indexes)
+    assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def test_build_index_scalars(indexes):
+    a, b = indexes
+    assert (a.n_sa, a.l_pac, a.rmi_bits, a.max_err) == (
+        b.n_sa, b.l_pac, b.rmi_bits, b.max_err)
+
+
+def test_save_and_load_index(indexes, tmp_path):
+    a, b = indexes
+    j_build.save_index(a, str(tmp_path / "j"))
+    t_build.save_index(b, str(tmp_path / "t"))
+    # each package loads what the other wrote
+    la = t_build.load_index(str(tmp_path / "j"))
+    lb = j_build.load_index(str(tmp_path / "t"))
+    for plane in PLANES:
+        assert np.asarray(getattr(la, plane)).tobytes() == np.asarray(
+            getattr(lb, plane)).tobytes()
+    assert [c.name for c in la.bns.contigs] == ["c1", "c2"]
+
+
+def test_packing():
+    code = _code(7, 1000)
+    assert (j_packing.pack_words(code, pad_code=3)
+            == t_packing.pack_words(code, pad_code=3)).all()
+    assert (j_packing.NT4_TABLE == t_packing.NT4_TABLE).all()
+    pos = np.arange(0, 1000, 7)         # the last keys run into the padding
+    assert (j_packing.extract_key64(code, pos)
+            == t_packing.extract_key64(code, pos)).all()
+
+
+def test_suffix_array():
+    code = _code(8, 3000)
+    assert (j_sa.build_suffix_array(code) == t_sa.build_suffix_array(code)).all()
+
+
+def test_prmi_training(indexes):
+    """Retrain at other leaf bits on copies: same model, same windows."""
+    a, b = (dataclasses.replace(i) for i in indexes)
+    j_prmi.train_prmi(a, 8)
+    t_prmi.train_prmi(b, 8)
+    assert a.rmi_bits == b.rmi_bits == 8
+    for plane in PLANES[6:]:
+        assert np.asarray(getattr(a, plane)).tobytes() == np.asarray(
+            getattr(b, plane)).tobytes()
+    pa = j_prmi.predict_np(a, a.key_hi[::9], a.key_lo[::9])
+    pb = t_prmi.predict_np(b, b.key_hi[::9], b.key_lo[::9])
+    for x, y in zip(pa, pb):
+        assert (np.asarray(x) == np.asarray(y)).all()
+
+
+def test_sw_extend_and_align():
+    rng = np.random.default_rng(5)
+    mat = j_config.MemOptions().mat
+    assert (mat == t_config.MemOptions().mat).all()
+    for _ in range(20):
+        q = rng.integers(0, 4, int(rng.integers(5, 60))).astype(np.uint8)
+        t = np.concatenate([q[: len(q) // 2],
+                            rng.integers(0, 4, 3).astype(np.uint8),
+                            q[len(q) // 2:]])
+        args = (q, t, mat, 6, 1, 6, 1, 30, 5, 100, 20)
+        assert dataclasses.astuple(j_sw.sw_extend(*args)) == \
+            dataclasses.astuple(t_sw.sw_extend(*args))
+
+
+def test_native_library_and_sw(indexes):
+    assert j_native.available() and t_native.available()
+    rng = np.random.default_rng(6)
+    mat = t_config.MemOptions().mat
+    q = rng.integers(0, 4, 80).astype(np.uint8)
+    t = np.concatenate([q[:40], q[43:], rng.integers(0, 4, 9).astype(np.uint8)])
+    args = (q, t, mat, 6, 1, 6, 1, 40, 5, 100, 25)
+    got = t_native.sw_extend_native(*args).tolist()
+    assert got == j_native.sw_extend_native(*args).tolist()
+    assert tuple(got) == dataclasses.astuple(t_sw.sw_extend(*args))
+
+
+def test_host_seeding_engine(indexes, reads):
+    a = j_host.HostSeedingEngine(indexes[0], j_config.MemOptions())
+    b = t_host.HostSeedingEngine(indexes[1], t_config.MemOptions())
+    for c in reads:
+        assert ([dataclasses.astuple(s) for s in a.sorted_smems(c)]
+                == [dataclasses.astuple(s) for s in b.sorted_smems(c)])
+
+
+def test_chains_from_chain_and_filter_raw(indexes, reads):
+    ja, tb = indexes
+    jo, to = j_config.MemOptions(), t_config.MemOptions()
+    sj = [j_host.HostSeedingEngine(ja, jo).sorted_smems(c) for c in reads]
+    st = [t_host.HostSeedingEngine(tb, to).sorted_smems(c) for c in reads]
+    def used(raw):
+        """The filled part of the flat chain arrays."""
+        (chain_off, pos, rid, alt, w, kept, frep, seed_off, rbeg, qbeg, ln,
+         n) = raw
+        nc = int(chain_off[len(reads)])
+        ns = int(seed_off[nc])
+        return ([chain_off, seed_off[: nc + 1]]
+                + [a[:nc] for a in (pos, rid, alt, w, kept, frep)]
+                + [a[:ns] for a in (rbeg, qbeg, ln)] + [np.int64(n)])
+
+    raw_j = used(j_chain.chain_and_filter_raw(jo, ja.bns, reads, sj, ja.sa))
+    raw_t = used(t_chain.chain_and_filter_raw(to, tb.bns, reads, st, tb.sa))
+    assert int(raw_t[-1]) > 0
+    for x, y in zip(raw_j, raw_t):
+        assert np.asarray(x).tobytes() == np.asarray(y).tobytes()
+    # the flat struct gives the same chains as the lists
+    flat = t_host.FlatSmems(
+        np.cumsum([0] + [len(s) for s in st]).astype(np.int32),
+        *(np.array([getattr(s, k) for lst in st for s in lst], dt)
+          for k, dt in (("start", np.int32), ("end", np.int32),
+                        ("sa_lo", np.int64), ("hitcount", np.int64))))
+    raw_f = used(t_chain.chain_and_filter_raw(to, tb.bns, reads, flat, tb.sa))
+    for x, y in zip(raw_f, raw_t):
+        assert np.asarray(x).tobytes() == np.asarray(y).tobytes()
+    assert j_chain.cal_max_gap(jo, 77) == t_chain.cal_max_gap(to, 77)
+
+
+def test_sam_header_and_pg_line(indexes):
+    ja, tb = indexes
+    kw = dict(rg_line="@RG\tID:x\tSM:y", extra_hdr="@CO\thello",
+              pg_line=j_sam.make_pg_line("1.0", "mem a b"))
+    assert j_sam.make_pg_line("1.0", "mem a b") == t_sam.make_pg_line(
+        "1.0", "mem a b")
+    assert j_sam.sam_header(ja.bns, **kw) == t_sam.sam_header(tb.bns, **kw)
+
+
+def test_fastq_reader(tmp_path):
+    p = tmp_path / "r.fq"
+    p.write_text("@a c1\nACGT\n+\nIIII\n@b\nNNAC\n+\nIIII\n@c\nAC\n+\nII\n")
+    for keep in (False,):
+        a = list(j_fastq.read_chunks(str(p), None, 6, keep_pairs=keep))
+        b = list(t_fastq.read_chunks(str(p), None, 6, keep_pairs=keep))
+        assert [[dataclasses.astuple(r) for r in ch] for ch in a] == [
+            [dataclasses.astuple(r) for r in ch] for ch in b]
+        assert sum(map(len, b)) == 3
+
+
+def test_config_defaults():
+    assert dataclasses.asdict(j_config.MemOptions()).keys() == \
+        dataclasses.asdict(t_config.MemOptions()).keys()
+    a, b = j_config.MemOptions(w=33, b=5), t_config.MemOptions(w=33, b=5)
+    for k, v in dataclasses.asdict(a).items():
+        assert np.all(np.asarray(v) == np.asarray(getattr(b, k))), k
+    assert (j_config.fill_scmat(2, 7) == t_config.fill_scmat(2, 7)).all()
+
+
+def test_timer_and_fallbacks():
+    buf_j, buf_t = _io.StringIO(), _io.StringIO()
+    for mod, buf in ((j_timer, buf_j), (t_timer, buf_t)):
+        tm = mod.StageTimer()
+        with tm.stage("a"):
+            pass
+        tm.report(buf)
+        with mod.tstage("x.y"):
+            pass
+        assert "x.y" in mod.TPROF.totals
+    assert buf_j.getvalue().split()[0] == buf_t.getvalue().split()[0]
+    assert t_fallbacks.summary() == {} or isinstance(t_fallbacks.summary(),
+                                                     dict)
+
+
+def test_formats_module_is_the_ports_own():
+    assert t_formats.__name__ == "bwameme_tpu_torch.index.formats"
+    assert hasattr(t_formats, "import_reference_index")

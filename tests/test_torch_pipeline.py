@@ -3,7 +3,9 @@ the same reads through bwameme_tpu_torch's Aligner (plain PyTorch banded SW)
 and bwameme_tpu's Aligner (XLA banded SW), both seeding on the host engine,
 must give byte-identical SAM; so must the port's CLI on the golden SE
 configs, which the JAX package reproduces byte for byte
-(tests/test_golden_sam.py)."""
+(tests/test_golden_sam.py), with the host engine and with the device engine
+(the default), and the port's device engine against bwameme_tpu's on the
+shared multi-device workload."""
 
 import gzip
 import os
@@ -20,6 +22,7 @@ from bwameme_tpu.utils.config import MemOptions
 from bwameme_tpu_torch import cli
 from bwameme_tpu_torch.ops import banded_sw_cuda
 from bwameme_tpu_torch.pipeline import Aligner
+from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden")
 SE_CONFIGS = [
@@ -165,6 +168,42 @@ def test_align_stream_matches_align_batch(genome):
     assert streamed == whole
 
 
+def test_device_engine_matches_host_engine(genome):
+    """Short reads through the port's device engine (flat SMEMs, the
+    engine's text on the device): the SAM of the host-engine run; streamed
+    batches give the same as one batch. Reads past the learned path's
+    500 bp cap are refused, as the reference refuses them."""
+    idx, short, long_ = genome
+    opt = MemOptions()
+    eng = DeviceSeedingEngine(idx, opt, device="cpu")
+    dev = Aligner(idx, opt, seeding_engine=eng, device="cpu")
+    assert dev.text is eng.di          # one copy of the packed text
+    host = Aligner(idx, opt, device="cpu")
+    want = host.align_batch(short)
+    assert dev.align_batch(short) == want
+    batches = [short[i: i + 16] for i in range(0, len(short), 16)]
+    dev2 = Aligner(idx, opt, seeding_engine=eng, device="cpu")
+    assert [blk for sam in dev2.align_stream(batches) for blk in sam] == want
+    with pytest.raises(ValueError, match="ceiling"):
+        dev.align_batch(long_[:1])
+
+
+def test_device_engine_matches_jax_device_engine(par_workload):
+    """The shared multi-device workload's single-end reads: the port's
+    Aligner over its device engine against bwameme_tpu's Aligner over its
+    device engine, byte for byte."""
+    from bwameme_tpu.seeding.engine import DeviceSeedingEngine as JaxEngine
+
+    idx, se_reads, _pe = par_workload
+    opt = MemOptions()
+    want = JaxAligner(idx, opt, seeding_engine=JaxEngine(
+        idx, opt, lanes=len(se_reads))).align_batch(se_reads)
+    eng = DeviceSeedingEngine(idx, opt, lanes=len(se_reads), device="cpu")
+    got = Aligner(idx, opt, seeding_engine=eng,
+                  device="cpu").align_batch(se_reads)
+    assert got == want
+
+
 def test_align_pairs_is_not_ported(genome):
     idx, short, _ = genome
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
@@ -198,10 +237,54 @@ def test_golden_se_through_port_cli(golden_dir, tmp_path, monkeypatch, name,
     assert sum(banded_sw_cuda.stats.launches.values()) == 0
 
 
+@pytest.mark.parametrize("name,flags", SE_CONFIGS,
+                         ids=[c[0] for c in SE_CONFIGS])
+def test_golden_se_through_port_cli_device_engine(golden_dir, tmp_path,
+                                                  monkeypatch, name, flags):
+    """No --engine flag: the default is the device engine; --batch is
+    honoured (the reads go through in several batches)."""
+    monkeypatch.setenv("BWAMEME_PLATFORM", "cpu")
+    out = tmp_path / f"{name}.sam"
+    rc = cli.main(["mem", "-K", "100000000", *flags, str(golden_dir / "idx"),
+                   str(golden_dir / "reads_se.fq"), "--batch", "48",
+                   "-o", str(out)])
+    assert rc == 0
+    got = [ln for ln in out.read_text().splitlines() if not ln.startswith("@")]
+    with gzip.open(os.path.join(GOLD, name + ".sam.gz"), "rt") as f:
+        assert got == f.read().splitlines()
+    assert sum(banded_sw_cuda.stats.launches.values()) == 0
+
+
+def test_cli_default_engine_is_the_device_engine(golden_dir, tmp_path,
+                                                 monkeypatch):
+    import bwameme_tpu_torch.seeding.engine as engine_mod
+
+    made = []
+    real = engine_mod.DeviceSeedingEngine
+
+    class Spy(real):
+        def __init__(self, *a, **kw):
+            made.append(kw)
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(engine_mod, "DeviceSeedingEngine", Spy)
+    monkeypatch.setenv("BWAMEME_PLATFORM", "cpu")
+    fq = tmp_path / "two.fq"
+    with open(golden_dir / "reads_se.fq") as f:
+        fq.write_text("".join(f.readlines()[:8]))
+    args = ["mem", str(golden_dir / "idx"), str(fq), "-o",
+            str(tmp_path / "o.sam")]
+    assert cli.main(args + ["--batch", "7", "--mode", "4"]) == 0
+    assert len(made) == 1 and made[0]["lanes"] == 7 and made[0]["mode"] == 4
+    assert str(made[0]["device"]) == "cpu"
+    assert cli.main(args + ["--engine", "host"]) == 0
+    assert len(made) == 1
+
+
 @pytest.mark.parametrize("flags,msg", [
     (["READS2"], "Queue 1 item 9"),
     (["-p"], "Queue 1 item 9"),
-    (["--engine", "device"], "Queue 1 items 5-7"),
+    (["--engine", "device", "--mode", "2"], "Queue 1 item 10"),
     (["--engine", "host", "--backend", "fmi"], "Queue 1 items 11-12"),
     (["--engine", "host", "-Z"], "Queue 1 items 11-12"),
     (["--engine", "host", "--shards", "2"], "Queue 1 item 14"),
@@ -218,7 +301,28 @@ def test_cli_without_cuda_is_an_error(golden_dir, monkeypatch, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     monkeypatch.delenv("BWAMEME_PLATFORM", raising=False)
-    rc = cli.main(["mem", str(golden_dir / "idx"),
-                   str(golden_dir / "reads_se.fq"), "--engine", "host"])
+    for engine in (["--engine", "host"], []):     # [] = the device engine
+        rc = cli.main(["mem", str(golden_dir / "idx"),
+                       str(golden_dir / "reads_se.fq"), *engine])
+        assert rc == 1
+        assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_cli_index_refuses_what_is_not_ported(golden_dir, capsys):
+    for algo in ("mem2", "ert", "all"):
+        rc = cli.main(["index", str(golden_dir / "ref.fa"), "-a", algo,
+                       "-p", str(golden_dir / "other")])
+        assert rc == 1
+        assert "Queue 1 items 11-12" in capsys.readouterr().err
+    assert not os.path.exists(str(golden_dir / "other.meme"))
+
+
+def test_cli_device_engine_needs_the_isa(golden_dir, tmp_path, monkeypatch,
+                                         capsys):
+    monkeypatch.setenv("BWAMEME_PLATFORM", "cpu")
+    prefix = str(tmp_path / "noisa")
+    assert cli.main(["index", str(golden_dir / "ref.fa"), "-p", prefix,
+                     "--no-isa"]) == 0
+    rc = cli.main(["mem", prefix, str(golden_dir / "reads_se.fq")])
     assert rc == 1
-    assert "no CUDA device" in capsys.readouterr().err
+    assert "Queue 1 item 10" in capsys.readouterr().err
