@@ -279,7 +279,8 @@ def _launch_round(opt, prep, aux, score_reg, l_idx, l_ws, r_idx, r_ws):
     sides = []
     for side, idx, ws in (("l", l_idx, l_ws), ("r", r_idx, r_ws)):
         jobs = _side_jobs(prep, side, idx, ws)
-        # longest targets first: the jobs of one warp run similar row counts
+        # longest targets first: a job is a warp of its own and a launch
+        # lasts as long as its longest job, so the long ones start first
         order = np.argsort(-jobs[5], kind="stable")
         inv = np.empty_like(order)
         inv[order] = np.arange(len(order))

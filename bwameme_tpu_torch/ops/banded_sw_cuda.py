@@ -12,9 +12,9 @@ import ctypes
 import torch
 
 from bwameme_tpu_torch.ops.launch import check as _check
-from bwameme_tpu_torch.ops.launch import cuda_device
+from bwameme_tpu_torch.ops.launch import cuda_device, entry
 from bwameme_tpu_torch.ops.launch import launch as _launch
-from bwameme_tpu_torch.ops.launch import library, stats  # noqa: F401
+from bwameme_tpu_torch.ops.launch import stats  # noqa: F401
 
 SW_RESULT_ORDER = ("score", "qle", "tle", "gtle", "gscore", "max_off")
 
@@ -22,15 +22,15 @@ SW_RESULT_ORDER = ("score", "qle", "tle", "gtle", "gscore", "max_off")
 def _declare(lib) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.banded_sw_pairs_launch.argtypes = [
-        P, P, I, I, I, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P]
+        P, P, I, I, I, P, P, P, P, P, I, I, I, I, I, I, P, P]
     lib.banded_sw_pairs_launch.restype = I
     lib.banded_sw_coord_launch.argtypes = [
-        P, LL, P, I, I, P, I, P, I, I, I, P, I, I, I, I, I, I, P, P, P, P]
+        P, LL, P, I, I, P, I, P, I, I, I, P, I, I, I, I, I, I, P, P]
     lib.banded_sw_coord_launch.restype = I
 
 
-def _load():
-    return library("banded_sw", _declare)
+def _entry(fn_name: str):
+    return entry("banded_sw", fn_name, _declare)
 
 
 def _cuda_device(x) -> torch.device:
@@ -53,14 +53,11 @@ def banded_sw_pairs(q, t, qlen, tlen, h0, ws, mat, o_del: int, e_del: int,
     _check(mat, "mat", torch.int32, (5, 5), dev)
     out = torch.empty((6, B), dtype=torch.int32, device=dev)
     if B:
-        eh_h = torch.empty(((Q + 1) * B,), dtype=torch.int32, device=dev)
-        eh_e = torch.empty_like(eh_h)
-        with torch.cuda.device(dev):
-            _launch("banded_sw_pairs", _load().banded_sw_pairs_launch,
-                    q.data_ptr(), t.data_ptr(), B, Q, T, qlen.data_ptr(),
-                    tlen.data_ptr(), h0.data_ptr(), ws.data_ptr(),
-                    mat.data_ptr(), o_del, e_del, o_ins, e_ins, end_bonus,
-                    zdrop, out.data_ptr(), eh_h.data_ptr(), eh_e.data_ptr())
+        _launch("banded_sw_pairs", _entry("banded_sw_pairs_launch"), dev,
+                q.data_ptr(), t.data_ptr(), B, Q, T, qlen.data_ptr(),
+                tlen.data_ptr(), h0.data_ptr(), ws.data_ptr(),
+                mat.data_ptr(), o_del, e_del, o_ins, e_ins, end_bonus,
+                zdrop, out.data_ptr())
     return dict(zip(SW_RESULT_ORDER, out.unbind(0)))
 
 
@@ -86,13 +83,9 @@ def banded_sw_coord(text32, codes, jobs, score_reg, mat, o_del: int,
         raise ValueError("codes, score_reg and text32 must be non-empty")
     out = torch.empty((8, N), dtype=torch.int32, device=dev)
     if N:
-        eh_h = torch.empty(((L + 1) * N,), dtype=torch.int32, device=dev)
-        eh_e = torch.empty_like(eh_h)
-        with torch.cuda.device(dev):
-            _launch("banded_sw_coord", _load().banded_sw_coord_launch,
-                    text32.data_ptr(), text32.numel(), codes.data_ptr(), R, L,
-                    jobs.data_ptr(), N, score_reg.data_ptr(), Gp,
-                    int(write_scores), int(reverse), mat.data_ptr(), o_del,
-                    e_del, o_ins, e_ins, end_bonus, zdrop, out.data_ptr(),
-                    eh_h.data_ptr(), eh_e.data_ptr())
+        _launch("banded_sw_coord", _entry("banded_sw_coord_launch"), dev,
+                text32.data_ptr(), text32.numel(), codes.data_ptr(), R, L,
+                jobs.data_ptr(), N, score_reg.data_ptr(), Gp,
+                int(write_scores), int(reverse), mat.data_ptr(), o_del,
+                e_del, o_ins, e_ins, end_bonus, zdrop, out.data_ptr())
     return out

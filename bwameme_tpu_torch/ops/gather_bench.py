@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from bwameme_tpu_torch.ops.launch import check, launch, library
+from bwameme_tpu_torch.ops.launch import check, entry, launch
 
 
 def _declare(lib) -> None:
@@ -30,7 +30,7 @@ def _declare(lib) -> None:
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
+    if x.is_cuda:
         return True
     if x.device.type != "cpu":
         raise ValueError(f"the gathers run on CUDA or the CPU, not {x.device}")
@@ -40,7 +40,7 @@ def _on_cuda(x: torch.Tensor) -> bool:
 def _check_args(src, idx) -> None:
     check(src, "src", torch.int32, (None, None), src.device)
     check(idx, "idx", torch.int32, (None,), src.device)
-    if src.shape[0] == 0 or src.shape[0] * src.shape[1] >= 2**40:
+    if src.shape[0] == 0 or src.numel() >= 2**40:
         raise ValueError("src must have rows, and fewer than 2^40 words")
 
 
@@ -71,28 +71,27 @@ def gather_chain_torch(src, idx, rounds: int):
 # ------------------------------------------------------------ CUDA wrappers
 
 
-def _gather_rows_cuda(name: str, src, idx, rows: int):
+def _gather_rows_cuda(name: str, src, idx, rows: int, flat: bool = False):
+    """(L, rows, width), or (L, width) for the flat gather (rows == 1)."""
     _check_args(src, idx)
     L, width = idx.shape[0], src.shape[1]
-    out = torch.empty((L, rows, width), dtype=torch.int32, device=src.device)
+    out = src.new_empty((L, width) if flat else (L, rows, width))
     if L:
-        with torch.cuda.device(src.device):
-            launch(name, library("gather_bench", _declare).gather_rows_launch,
-                   src.data_ptr(), idx.data_ptr(), out.data_ptr(), L, rows,
-                   width)
+        launch(name, entry("gather_bench", "gather_rows_launch", _declare),
+               src.device, src.data_ptr(), idx.data_ptr(), out.data_ptr(), L,
+               rows, width)
     return out
 
 
 def gather_chain_cuda(src, idx, rounds: int):
     _check_args(src, idx)
     L = idx.shape[0]
-    out = torch.empty((L,), dtype=torch.int32, device=src.device)
+    out = src.new_empty((L,))
     if L:
-        with torch.cuda.device(src.device):
-            launch("gather_chain",
-                   library("gather_bench", _declare).gather_chain_launch,
-                   src.data_ptr(), idx.data_ptr(), out.data_ptr(), L,
-                   src.shape[0], src.shape[1], rounds)
+        launch("gather_chain",
+               entry("gather_bench", "gather_chain_launch", _declare),
+               src.device, src.data_ptr(), idx.data_ptr(), out.data_ptr(), L,
+               src.shape[0], src.shape[1], rounds)
     return out
 
 
@@ -102,7 +101,7 @@ def gather_chain_cuda(src, idx, rounds: int):
 def gather_flat(src, idx):
     """K2: out[i] = src[idx[i]], (L, width). Rows in [0, N)."""
     if _on_cuda(src):
-        return _gather_rows_cuda("gather_flat", src, idx, 1)[:, 0]
+        return _gather_rows_cuda("gather_flat", src, idx, 1, flat=True)
     return gather_flat_torch(src, idx)
 
 

@@ -2,12 +2,15 @@
 libraries, argument checks, the launch itself and the launch counts.
 
 A wrapper checks device, dtype, shape and contiguity and raises on anything
-else, allocates outputs and scratch with ``torch.empty``, launches on the
-current CUDA stream without synchronising, and raises if the launch was
-refused. ``stats.launches`` counts launches per kernel, and only launches,
-so a run can show that its main path went through the kernels; with
-``stats.events`` set to a list, each launch also appends a
-(name, start, end) triple of CUDA events.
+else, allocates outputs with ``torch.empty``, launches on the current CUDA
+stream of its tensors' device without synchronising, and raises if the
+launch was refused. What a launch costs on the host is kept short: the C
+function is bound once (``entry``), the stream is read as a raw handle, and
+the device guard is entered only when another device is current.
+``stats.launches`` counts launches per kernel, and only launches, so a run
+can show that its main path went through the kernels; with ``stats.events``
+set to a list, each launch also appends a (name, start, end) triple of CUDA
+events.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ class KernelStats:
 
 stats = KernelStats()
 _libs: dict = {}
+_entries: dict = {}
 
 
 def library(name: str, declare) -> ctypes.CDLL:
@@ -55,10 +59,18 @@ def library(name: str, declare) -> ctypes.CDLL:
     ``declare(lib)`` sets the argument types of its entry points."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build.build().paths[name])
+        lib = _libs[name] = ctypes.CDLL(build.build().paths[name])
         declare(lib)
-        _libs[name] = lib
     return lib
+
+
+def entry(lib_name: str, fn_name: str, declare):
+    """The C launcher ``fn_name`` of a library (names are unique across the
+    libraries), bound once: a launch pays one dictionary lookup for it."""
+    fn = _entries.get(fn_name)
+    if fn is None:
+        fn = _entries[fn_name] = getattr(library(lib_name, declare), fn_name)
+    return fn
 
 
 def check(x, name: str, dtype: torch.dtype, shape: tuple,
@@ -82,17 +94,33 @@ def cuda_device(x, what: str) -> torch.device:
     return x.device
 
 
-def launch(name: str, fn, *args) -> None:
-    """Call a C launcher (its last argument is the stream) and count it."""
-    ev = None
-    if stats.events is not None:
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+def raw_stream(index) -> int:
+    """The current stream of CUDA device ``index`` as the integer a C
+    launcher takes. torch._C._cuda_getCurrentRawStream is private to
+    PyTorch (its own extensions' launch path): it saves building a Stream
+    object, which is what a PyTorch without it gets."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)
+
+
+def launch(name: str, fn, dev: torch.device, *args) -> None:
+    """Call a C launcher (its last argument is the stream) on ``dev``'s
+    current stream and count it. The device guard is entered only when
+    ``dev`` is not the current device."""
+    if torch.cuda.current_device() != dev.index:
+        with torch.cuda.device(dev):
+            return launch(name, fn, dev, *args)
+    events = stats.events
+    if events is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    err = fn(*args, raw_stream(dev.index))
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
-    if ev is not None:
-        ev[1].record()
-        stats.events.append((name, *ev))
+    if events is not None:
+        end.record()
+        events.append((name, start, end))
     stats.launches[name] += 1

@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from bwameme_tpu_torch.index.device import DeviceIndex
-from bwameme_tpu_torch.ops.launch import check, cuda_device, launch, library
+from bwameme_tpu_torch.ops.launch import check, cuda_device, entry, launch
 
 _WHAT = "the CUDA seeding kernels"
 
@@ -34,8 +34,8 @@ def _declare(lib) -> None:
         fn.restype = I
 
 
-def _load():
-    return library("seed_smem", _declare)
+def _entry(fn_name: str):
+    return entry("seed_smem", fn_name, _declare)
 
 
 def _index_args(di: DeviceIndex, dev: torch.device) -> tuple:
@@ -84,12 +84,11 @@ def seed_round1(di: DeviceIndex, qbuf, nf, nr, nvf, lens, minseed: int,
     slots, nsm, dropped = _outputs(R, M, dev)
     sec = _sectors_ptr(sectors, R, dev)
     if R:
-        with torch.cuda.device(dev):
-            launch("seed_round1", _load().seed_round1_launch,
-                   *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
-                   nr.data_ptr(), nvf.data_ptr(), Lp, lens.data_ptr(), R,
-                   minseed, M, slots.data_ptr(), nsm.data_ptr(),
-                   dropped.data_ptr(), sec)
+        launch("seed_round1", _entry("seed_round1_launch"), dev,
+               *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
+               nr.data_ptr(), nvf.data_ptr(), Lp, lens.data_ptr(), R,
+               minseed, M, slots.data_ptr(), nsm.data_ptr(),
+               dropped.data_ptr(), sec)
     return slots, nsm, dropped
 
 
@@ -104,13 +103,12 @@ def seed_round2(di: DeviceIndex, qbuf, nf, nr, lens, slots1, nsm1,
     slots, nsm, dropped = _outputs(R, M, dev)
     sec = _sectors_ptr(sectors, R, dev)
     if R:
-        with torch.cuda.device(dev):
-            launch("seed_round2", _load().seed_round2_launch,
-                   *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
-                   nr.data_ptr(), Lp, lens.data_ptr(), R, slots1.data_ptr(),
-                   nsm1.data_ptr(), slots1.shape[2], split_len, split_width,
-                   minseed, M, slots.data_ptr(), nsm.data_ptr(),
-                   dropped.data_ptr(), sec)
+        launch("seed_round2", _entry("seed_round2_launch"), dev,
+               *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
+               nr.data_ptr(), Lp, lens.data_ptr(), R, slots1.data_ptr(),
+               nsm1.data_ptr(), slots1.shape[2], split_len, split_width,
+               minseed, M, slots.data_ptr(), nsm.data_ptr(),
+               dropped.data_ptr(), sec)
     return slots, nsm, dropped
 
 
@@ -122,12 +120,11 @@ def seed_round3(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
     slots, nsm, dropped = _outputs(R, M, dev)
     sec = _sectors_ptr(sectors, R, dev)
     if R:
-        with torch.cuda.device(dev):
-            launch("seed_round3", _load().seed_round3_launch,
-                   *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
-                   Lp, lens.data_ptr(), R, min_intv, min_seed, M,
-                   slots.data_ptr(), nsm.data_ptr(), dropped.data_ptr(),
-                   sec)
+        launch("seed_round3", _entry("seed_round3_launch"), dev,
+               *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
+               Lp, lens.data_ptr(), R, min_intv, min_seed, M,
+               slots.data_ptr(), nsm.data_ptr(), dropped.data_ptr(),
+               sec)
     return slots, nsm, dropped
 
 
@@ -141,10 +138,9 @@ def prmi_window(di: DeviceIndex, khi, klo):
     lo = torch.empty((n,), dtype=torch.int32, device=dev)
     hi = torch.empty_like(lo)
     if n:
-        with torch.cuda.device(dev):
-            launch("prmi_window", _load().prmi_window_launch,
-                   *_index_args(di, dev), khi.data_ptr(), klo.data_ptr(), n,
-                   lo.data_ptr(), hi.data_ptr())
+        launch("prmi_window", _entry("prmi_window_launch"), dev,
+               *_index_args(di, dev), khi.data_ptr(), klo.data_ptr(), n,
+               lo.data_ptr(), hi.data_ptr())
     return lo, hi
 
 
@@ -161,9 +157,8 @@ def sa_query(di: DeviceIndex, qbuf, row, pivot, v, min_intv, sectors=None):
     out = torch.empty((3, n), dtype=torch.int32, device=dev)
     sec = _sectors_ptr(sectors, n, dev)
     if n:
-        with torch.cuda.device(dev):
-            launch("sa_query", _load().sa_query_launch,
-                   *_index_args(di, dev), qbuf.data_ptr(), qbuf.shape[1],
-                   row.data_ptr(), pivot.data_ptr(), v.data_ptr(),
-                   min_intv.data_ptr(), n, out.data_ptr(), sec)
+        launch("sa_query", _entry("sa_query_launch"), dev,
+               *_index_args(di, dev), qbuf.data_ptr(), qbuf.shape[1],
+               row.data_ptr(), pivot.data_ptr(), v.data_ptr(),
+               min_intv.data_ptr(), n, out.data_ptr(), sec)
     return out

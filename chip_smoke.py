@@ -10,14 +10,24 @@ of which ends the run with a non-zero exit and no result line when it fails:
    from csrc/ with nvcc (one nvcc a source, all at once), and the build's
    time.
 2. banded SW, kernel vs plain: each extension kernel against its plain
-   PyTorch version on the card, on random jobs at the main path's shapes
-   plus edge cases, all outputs exactly equal; 64 jobs against the scalar
-   contract (align/sw_scalar.py); the median times of both versions.
+   PyTorch version on the card, on random jobs at the main path's shapes,
+   on the cases a warp-a-job kernel can get wrong (query lengths around
+   multiples of the 32 lanes, the retry ladder's bands and a negative one,
+   h0 = 0, all-N queries, z-drop off, batches that do not fill their last
+   block, 4096 tie jobs), on a batch at the 1 kbp path's shape (Q > 1000,
+   T > 1200) and on queries of 9000 bases, whose row state is a window in
+   shared memory that slides with the band or, under a band wider than half
+   the window, device memory, all
+   outputs exactly equal; 64 jobs against the scalar contract
+   (align/sw_scalar.py); the median times of both versions.
 3. gathers: the three row-gather kernels against their plain versions, all
    words equal, at 128-word and 4-word rows over a 1 GiB table, for 4096 and
    65536 lanes; then the microbenchmark itself (ops/gather_bench.microbench):
    ns per row, us per dependent round, GB/s, and one library call's time.
-   The kernels' line reads the 4-word, 4096-lane case, counted on its own.
+   The kernels' line reads the 4-word, 4096-lane case, counted on its own,
+   with the host's time a launch and the card's time a call beside
+   torch.index_select's; 128-word rows at 65536 lanes (32 MB each way)
+   give the flat gather's GB/s beside index_select's.
 4. search: on the bench genome's index (100 Mbp, built at first use under
    .bench_cache/), the P-RMI window of 2^20 keys and sa_query of >= 10^5
    jobs cut from simulated reads, kernel == plain exactly; the three seeding
@@ -46,7 +56,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -88,6 +97,8 @@ INT32_OPS = 33.5e12
 SECTOR = 32
 # phase 2 workloads: pair jobs (B, Q, T) and coordinate jobs (reads, alnregs)
 PAIRS_SHAPE = (4096, 151, 512)
+LONG_PAIRS_SHAPE = (50, 1030, 1250)
+SLIDING_PAIRS_SHAPE = (9000, 9100)
 COORD_SHAPE = (1024, 4096)
 # phase 3: a 1 GiB table at both row widths; lanes; window rows; chain rounds
 GATHER_BYTES = 1 << 30
@@ -119,24 +130,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of fn() over reps runs, after one warm-up."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 # ------------------------------------------------------------ phase 1: card
 
 
@@ -160,35 +153,22 @@ def phase_card():
 # ---------------------------------------- phase 2: banded SW, kernel vs plain
 
 
-def random_pairs(rng, B: int, Q: int, T: int, w: int):
-    """Extension pairs at the main path's shapes: queries up to Q, targets
-    a noisy copy of the query plus the gap allowance (up to 2w), a quarter
-    of them uniform up to T; h0 a seed score; band w or 2w."""
+def edge_pairs(rng, Q: int, T: int, w: int):
+    """123 jobs, a count that leaves the last block short: query lengths
+    around multiples of the 32 lanes and at Q, the band-retry ladder's widths
+    and a negative band, empty and one-row targets, all-N queries, h0 = 0."""
     import numpy as np
 
-    q = rng.integers(0, 4, (B, Q)).astype(np.int32)
-    q[rng.random((B, Q)) < 0.01] = 4
-    t = rng.integers(0, 4, (B, T)).astype(np.int32)
-    t[:, :Q] = np.where(rng.random((B, Q)) < 0.03,
-                        rng.integers(0, 4, (B, Q)), q)
-    qlen = rng.integers(1, Q + 1, B).astype(np.int32)
-    tlen = np.minimum(qlen + rng.integers(0, 2 * w + 1, B), T).astype(np.int32)
-    wide = rng.random(B) < 0.25
-    tlen[wide] = rng.integers(0, T + 1, int(wide.sum()))
-    h0 = rng.integers(19, 152, B).astype(np.int32)
-    ws = rng.choice([w, 2 * w], B).astype(np.int32)
-    return q, t, qlen, tlen, h0, ws
+    from bwameme_tpu_torch.bench_util import random_pairs
 
-
-def edge_pairs(rng, Q: int, T: int):
-    q, t, qlen, tlen, h0, ws = random_pairs(rng, 64, Q, T, 100)
-    qlen[0:4] = 0
-    tlen[4:8] = 0
-    tlen[8:12] = 1
-    ws[12:20] = 1
-    q[20:24] = 4
-    h0[24:28] = 0
-    qlen[28:32] = 1
+    q, t, qlen, tlen, h0, ws = random_pairs(rng, 123, Q, T, w)
+    qlen[0:18] = [0, 1, 31, 32, 33, 63, 64, 65, Q] * 2
+    tlen[0:18] = np.minimum(qlen[0:18] + rng.integers(0, 2 * w + 1, 18), T)
+    ws[18:32] = [1, 2, w, 2 * w, 4 * w, 8 * w, -1] * 2
+    tlen[32:36] = 0
+    tlen[36:40] = 1
+    q[40:44] = 4
+    h0[44:48] = 0
     return q, t, qlen, tlen, h0, ws
 
 
@@ -207,22 +187,49 @@ def tie_pairs(rng, B: int):
     return q, t, qlen, tlen, h0, ws
 
 
+def sliding_pairs(rng, Q: int, T: int):
+    """Six jobs on queries past the 4095 bases whose row state gets a slot
+    a cell: targets that follow the query (substitutions, and 7 bases fewer
+    from base 900 on) under bands whose state slides along the query in the
+    kernel's window of 4096 slots (100, 800), that just fit the window's
+    half (1023), and that pass it, so that the job runs on device memory
+    (1024; unbounded, on a short target; a short query never slides)."""
+    import numpy as np
+
+    q = rng.integers(0, 4, (6, Q)).astype(np.int32)
+    t = rng.integers(0, 4, (6, T)).astype(np.int32)
+    n = Q - 7
+    t[:, :n] = np.where(rng.random((6, n)) < 0.02, (q[:, :n] + 1) % 4,
+                        q[:, :n])
+    t[:, 900:n] = q[:, 907:]
+    qlen = np.array([Q, Q - 3700, 4096, 5000, Q, 64], np.int32)
+    tlen = np.array([T, Q - 3600, 4200, 5100, 120, 70], np.int32)
+    ws = np.array([100, 800, 1023, 1024, 1 << 20, 1 << 20], np.int32)
+    return q, t, qlen, tlen, np.full(6, 60, np.int32), ws
+
+
 def sw_bound(qlen, ws, res, n_bytes: int) -> dict:
     """The least time the card could take for a batch of extension jobs: the
     bytes it must move over the HBM rate, or the int32 operations of the
     cells this run's data needed over the int32 rate - the rows that
     certainly ran (up to the reported target ends) times the band's cells in
     a row, at about 12 operations a cell (three maxima, the score lookup,
-    the gap updates, the row maximum)."""
+    the gap updates, the row maximum). lane_share: of the slots those rows
+    offer the kernel's 32 lanes (a row's cells a lane, rounded up, times 32),
+    the share that holds a cell - an estimate from the same rows and widths,
+    not a count."""
     import numpy as np
 
     rows = np.maximum(np.maximum(res["tle"].cpu().numpy(),
                                  res["gtle"].cpu().numpy()), 1)
-    cells = int((rows.astype(np.int64)
-                 * np.minimum(qlen, 2 * ws.astype(np.int64) + 1)).sum())
+    rows = rows.astype(np.int64)
+    width = np.minimum(qlen, 2 * ws.astype(np.int64) + 1)
+    cells = int((rows * width).sum())
+    slots = int((rows * 32 * -(-width // 32)).sum())
     by_ops, by_bytes = 12 * cells / INT32_OPS * 1e3, n_bytes / HBM_BPS * 1e3
     return dict(bound_ms=max(by_ops, by_bytes),
-                bound_by="operations" if by_ops >= by_bytes else "bytes")
+                bound_by="operations" if by_ops >= by_bytes else "bytes",
+                lane_share=cells / slots if slots else 0.0)
 
 
 def abs_err(got, want) -> int:
@@ -252,67 +259,13 @@ def compare_pairs(opt, arrays, zdrop: int, dev):
     return got, want, args
 
 
-def coord_workload(opt, rng, n_reads: int, n_regs: int, read_len: int):
-    """A 4 Mbp random text, reads copied from it with substitutions and N
-    codes, and one left and one right job per alnreg, shaped as the flat
-    path makes them (target window = query part + cal_max_gap)."""
-    import numpy as np
-
-    from bwameme_tpu_torch.align.chain import cal_max_gap
-    from bwameme_tpu_torch.index.packing import pack_words
-
-    n = 4_000_000
-    text = rng.integers(0, 4, n).astype(np.uint8)
-    text32 = np.concatenate([pack_words(text, pad_code=3),
-                             np.full(12, 0xFFFFFFFF, np.uint32)])
-    src = rng.integers(400, n - read_len - 400, n_reads)
-    codes = text[src[:, None] + np.arange(read_len)]
-    codes = np.where(rng.random(codes.shape) < 0.01,
-                     rng.integers(0, 4, codes.shape), codes).astype(np.uint8)
-    codes[rng.random(codes.shape) < 0.002] = 4
-    row = rng.integers(0, n_reads, n_regs)
-    qbeg = rng.integers(0, read_len - 19, n_regs)
-    slen = np.minimum(rng.integers(19, read_len + 1, n_regs), read_len - qbeg)
-    qe = qbeg + slen
-    rbeg = src[row] + qbeg
-    lgap = np.array([cal_max_gap(opt, int(x)) for x in qbeg])
-    rgap = np.array([cal_max_gap(opt, int(read_len - x)) for x in qe])
-    left = np.zeros((7, n_regs), np.int64)
-    left[0] = np.arange(n_regs)
-    left[1] = row
-    left[3] = qbeg
-    left[5] = qbeg + lgap
-    left[4] = rbeg - left[5]
-    left[6] = opt.w
-    right = np.zeros((7, n_regs), np.int64)
-    right[0] = np.arange(n_regs)
-    right[1] = row
-    right[2] = qe
-    right[3] = read_len - qe
-    right[4] = rbeg + slen
-    right[5] = read_len - qe + rgap
-    right[6] = opt.w
-    h0 = (slen * opt.a).astype(np.int32)
-    return (text32.view(np.int32), codes, left.astype(np.int32),
-            right.astype(np.int32), h0)
-
-
-def run_coord_round(fn, opt, text32, codes, left, right, h0, mat):
-    """Left launch (writes its scores), then right launch reading them."""
-    score_reg = h0.clone()
-    gaps = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
-    lres = fn(text32, codes, left, score_reg, mat, *gaps, opt.pen_clip5,
-              opt.zdrop, True, True)
-    rres = fn(text32, codes, right, score_reg, mat, *gaps, opt.pen_clip3,
-              opt.zdrop, False, False)
-    return lres, rres, score_reg
-
-
 def phase_kernels(dev):
     import numpy as np
     import torch
 
     from bwameme_tpu_torch.align.sw_scalar import sw_extend
+    from bwameme_tpu_torch.bench_util import (coord_workload, cuda_ms,
+                                              random_pairs, run_coord_round)
     from bwameme_tpu_torch.utils.config import MemOptions
     from bwameme_tpu_torch.ops import banded_sw as bsw
     from bwameme_tpu_torch.ops import banded_sw_cuda
@@ -327,8 +280,11 @@ def phase_kernels(dev):
     got, want, args = compare_pairs(opt, arrays, opt.zdrop, dev)
     err = max_err(got, want)
     check(err == 0, f"banded_sw_pairs differs from sw_core_torch: {err}")
+    n_edge = 0
     for zdrop in (0, opt.zdrop):
-        g, w_, _ = compare_pairs(opt, edge_pairs(rng, Q, T), zdrop, dev)
+        edge = edge_pairs(rng, Q, T, opt.w)
+        n_edge = len(edge[2])
+        g, w_, _ = compare_pairs(opt, edge, zdrop, dev)
         e = max_err(g, w_)
         check(e == 0, f"banded_sw_pairs edge cases (zdrop={zdrop}) differ: {e}")
         err = max(err, e)
@@ -337,8 +293,27 @@ def phase_kernels(dev):
     e = max_err(g, w_)
     check(e == 0, f"banded_sw_pairs tie cases differ: {e}")
     err = max(err, e)
-    log(f"banded_sw_pairs == sw_core_torch on {B} + 2x64 edge + 4096 tie "
-        f"jobs (max abs err {err})")
+    Bl, Ql, Tl = LONG_PAIRS_SHAPE
+    long_arrays = random_pairs(rng, Bl, Ql, Tl, opt.w)
+    long_arrays[2][::2] = rng.integers(900, Ql + 1, len(long_arrays[2][::2]))
+    long_arrays[2][0] = Ql
+    long_arrays[3][::2] = np.minimum(long_arrays[2][::2] + 2 * opt.w, Tl)
+    g, w_, _ = compare_pairs(opt, long_arrays, opt.zdrop, dev)
+    e = max_err(g, w_)
+    check(e == 0, f"banded_sw_pairs at Q={Ql}, T={Tl} differs: {e}")
+    check(int(g["qle"].max()) > 1000, "no long job ran past 1000 bases")
+    err = max(err, e)
+    Qr, Tr = SLIDING_PAIRS_SHAPE
+    ring = sliding_pairs(rng, Qr, Tr)
+    g, w_, _ = compare_pairs(opt, ring, opt.zdrop, dev)
+    e = max_err(g, w_)
+    check(e == 0, f"banded_sw_pairs at Q={Qr}, T={Tr} differs: {e}")
+    check(g["qle"][:4].tolist() == ring[2][:4].tolist(),
+          f"the jobs at Q={Qr} stopped before their queries' ends")
+    err = max(err, e)
+    log(f"banded_sw_pairs == sw_core_torch on {B} + 2x{n_edge} edge + 4096 "
+        f"tie jobs + {Bl} jobs at Q={Ql}, T={Tl} + {len(ring[2])} at Q={Qr}, "
+        f"T={Tr} in the sliding window and past it (max abs err {err})")
     q, t, qlen, tlen, h0, ws = arrays
     for b in range(64):
         r = sw_extend(q[b, : qlen[b]], t[b, : tlen[b]], opt.mat, opt.o_del,
@@ -370,8 +345,17 @@ def phase_kernels(dev):
     err = max(int((a.long() - b.long()).abs().max())
               for a, b in ((k_l, p_l), (k_r, p_r), (k_reg, p_reg)))
     check(err == 0, f"banded_sw_coord differs from its plain version: {err}")
+    # a batch that leaves the last block short
+    short = [j[:, : n_regs - 1].contiguous() for j in (lj, rj)]
+    k_s = run_coord_round(banded_sw_cuda.banded_sw_coord, opt, t32, cd,
+                          *short, h0t, mat)
+    torch.cuda.synchronize()
+    e = max(abs_err(a[:, : n_regs - 1], b) for a, b in
+            ((k_l, k_s[0]), (k_r, k_s[1])))
+    check(e == 0, f"banded_sw_coord on {n_regs - 1} jobs differs: {e}")
     log(f"banded_sw_coord == decode_text + gather_query + sw_core_torch on "
-        f"{n_regs} left + {n_regs} right jobs (max abs err {err})")
+        f"{n_regs} left + {n_regs} right jobs (max abs err {err}), and on "
+        f"{n_regs - 1}")
     # timed as the flat path launches them: jobs sorted by target length
     lj_s = lj[:, torch.argsort(lj[5], descending=True, stable=True)]
     rj_s = rj[:, torch.argsort(rj[5], descending=True, stable=True)]
@@ -392,7 +376,7 @@ def phase_kernels(dev):
     by_bytes = sum(b["bound_ms"] for b in bounds if b["bound_by"] == "bytes")
     report["banded_sw_coord"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        bound_ms=by_ops + by_bytes,
+        lane_share=bounds[1]["lane_share"], bound_ms=by_ops + by_bytes,
         bound_by="operations" if by_ops >= by_bytes else "bytes")
     return report
 
@@ -406,6 +390,7 @@ def phase_gather(dev):
     a batch's lanes): its launches are counted on their own, from 0."""
     import torch
 
+    from bwameme_tpu_torch.bench_util import cuda_ms, host_us, queued_us
     from bwameme_tpu_torch.ops import gather_bench as gb
     from bwameme_tpu_torch.ops.launch import stats
 
@@ -490,6 +475,32 @@ def phase_gather(dev):
             launches=launches[name])
         check(launches[name] > 0, f"{name} was not launched by the benchmark")
     report["gather_chain"]["latency_bound_ms"] = GATHER_ROUNDS * chain_us / 1e3
+
+    # where the call's time goes at 64 KB a call: the host's time a launch
+    # and the card's time a call, beside index_select's
+    kern, _, lib, _ = cases["gather_flat"]
+    flat = report["gather_flat"]
+    flat.update(host_us=host_us(kern), library_host_us=host_us(lib),
+                device_us=queued_us(kern), library_device_us=queued_us(lib))
+    log(f"gather_flat at {4 * width} B rows x {lanes} lanes: "
+        f"{flat['ms'] * 1e3:.1f} us a call (index_select "
+        f"{flat['library_ms'] * 1e3:.1f}); host {flat['host_us']:.2f} us a "
+        f"launch (index_select {flat['library_host_us']:.2f}); card "
+        f"{flat['device_us']:.2f} us a call when queued (index_select "
+        f"{flat['library_device_us']:.2f})")
+    # and where the card is measured, not the host: 32 MB each way, the
+    # calls queued so that no launch waits for the host
+    src, idx, _, width, lanes = next(
+        r for r in results if r[3] == 128 and r[4] == 65536)
+    wide_ms = queued_us(lambda: gb.gather_flat(src, idx), 100) / 1e3
+    wide_lib_ms = queued_us(lambda: torch.index_select(src, 0, idx), 100) / 1e3
+    n_bytes = 2 * lanes * 4 * width
+    flat.update(wide_ms=wide_ms, wide_library_ms=wide_lib_ms,
+                wide_gbs=n_bytes / wide_ms / 1e6,
+                wide_library_gbs=n_bytes / wide_lib_ms / 1e6)
+    log(f"gather_flat at {4 * width} B rows x {lanes} lanes: {wide_ms:.4f} "
+        f"ms = {flat['wide_gbs']:.0f} GB/s (index_select {wide_lib_ms:.4f} "
+        f"ms = {flat['wide_library_gbs']:.0f} GB/s)")
     return report, chain_us
 
 
@@ -555,6 +566,7 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
     import numpy as np
     import torch
 
+    from bwameme_tpu_torch.bench_util import cuda_ms
     from bwameme_tpu_torch.index.build import load_index
     from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
     from bwameme_tpu_torch.ops.launch import stats

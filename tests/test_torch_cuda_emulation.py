@@ -1,29 +1,37 @@
-"""The CUDA sources of the seeding and gather kernels, run on the CPU.
+"""The port's CUDA sources, run on the CPU.
 
-There is no nvcc and no card here, but the kernels' threads do not
-cooperate (one thread a read, a job or a word; no shared memory, no
-barriers), so g++ can compile csrc/seed_smem.cu and csrc/gather_bench.cu as
-serial C++ behind a stand-in for <cuda_runtime.h> (SHIM_HEADER below):
-every thread of a launch runs in turn.
+There is no nvcc and no card here, so g++ compiles csrc/*.cu as C++ behind a
+stand-in for <cuda_runtime.h> (SHIM_HEADER below). The threads of the seeding
+and gather kernels do not cooperate (one thread a read, a job or a unit), so
+every thread of a launch runs in turn. The banded-SW kernel is a warp a job:
+its build (EMU_FIBERS) runs the threads of a block as fibers that advance in
+lock step, every warp primitive (__shfl_*_sync, __ballot_sync,
+__reduce_max_sync, __syncwarp) and __syncthreads being a point where a fiber
+waits for the others of its warp or block and then reads what they brought.
 The real ctypes wrappers then launch these builds on CPU tensors, and each
 kernel is held against its plain PyTorch version, all values equal. This
-checks the kernels' arithmetic and control flow, the wrappers' argument
-lists and the sector counts; what only the card can show (that nvcc accepts
-the source, the float intrinsics' rounding, timing) is chip_smoke.py's."""
+checks the kernels' arithmetic, control flow and lane cooperation, the
+wrappers' argument lists and the sector counts; what only the card can show
+(that nvcc accepts the source, the float intrinsics' rounding, races between
+lanes that a lock-step run cannot have, timing) is chip_smoke.py's."""
 
-import contextlib
 import os
 import re
 import shutil
 import subprocess
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from bwameme_tpu.ops import banded_sw as jbsw
+from bwameme_tpu_torch.align.sw_scalar import sw_extend
 from bwameme_tpu_torch.index import bntseq
 from bwameme_tpu_torch.index.build import build_index
-from bwameme_tpu_torch.ops import build, gather_bench, launch
+from bwameme_tpu_torch.index.packing import pack_words
+from bwameme_tpu_torch.ops import banded_sw as bsw
+from bwameme_tpu_torch.ops import banded_sw_cuda, build, gather_bench, launch
 from bwameme_tpu_torch.ops import sa_search as ss
 from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
 from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
@@ -31,29 +39,45 @@ from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine
 from bwameme_tpu_torch.utils.config import MemOptions
 
 SHIM_HEADER = r"""// A stand-in for <cuda_runtime.h> that lets g++ compile the port's CUDA
-// sources as serial C++: every thread of a launch runs in turn on the host.
-// Only for kernels whose threads do not cooperate (no shared memory, no
-// barriers). The <<<grid, block, 0, stream>>> launches are rewritten into
-// EMU_LAUNCH calls before the compile.
+// sources as C++ that runs on the host. Without EMU_FIBERS every thread of a
+// launch runs in turn (kernels whose threads do not cooperate). With it the
+// threads of a block are fibers run round-robin: a warp primitive or
+// __syncthreads parks a fiber until every live fiber of its warp or block
+// has reached the same point. The <<<grid, block, shared, stream>>> launches
+// are rewritten into EMU_LAUNCH calls before the compile.
 #pragma once
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #define __device__
 #define __global__
+#define __host__
 #define __forceinline__ inline
 #define __restrict__
+#define __launch_bounds__(...)
+using std::max;
+using std::min;
 struct uint4 { uint32_t x, y, z, w; };
 struct EmuDim { unsigned x; };
-static thread_local EmuDim blockIdx, blockDim, threadIdx;
+static EmuDim blockIdx, blockDim, threadIdx;
 typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class K> static inline int cudaFuncSetAttribute(K, int, int) {
+    return 0;
+}
 template <class T> static inline T __ldg(const T* p) { return *p; }
 static inline int __clz(int x) {
     return x == 0 ? 32 : __builtin_clz((unsigned)x);
 }
+static inline int __ffs(int x) { return __builtin_ffs(x); }
 // separately rounded float steps (the file is built with -ffp-contract=off)
 static inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 static inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+static inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 static inline float __uint2float_rn(uint32_t x) { return (float)x; }
 static inline float __int2float_rn(int x) { return (float)x; }
 static inline int __float2int_rz(float x) { return (int)x; }
@@ -62,7 +86,23 @@ static inline float __uint_as_float(uint32_t x) {
     memcpy(&f, &x, 4);
     return f;
 }
+static inline int __viaddmax_s32(int a, int b, int c) { return max(a + b, c); }
+static inline int __viaddmax_s32_relu(int a, int b, int c) {
+    return max(max(a + b, c), 0);
+}
+static inline int __vimax3_s32(int a, int b, int c) { return max(max(a, b), c); }
 static inline int cudaGetLastError() { return 0; }
+// a launch here has run to its end when it returns, so stream order holds
+static inline int cudaMallocAsync(void** p, size_t n, cudaStream_t) {
+    *p = malloc(n);
+    return *p == nullptr;
+}
+static inline int cudaFreeAsync(void* p, cudaStream_t) {
+    free(p);
+    return 0;
+}
+
+#ifndef EMU_FIBERS
 #define EMU_LAUNCH(kern, grid, block, ...)                               \
     do {                                                                 \
         blockDim.x = (block);                                            \
@@ -73,46 +113,167 @@ static inline int cudaGetLastError() { return 0; }
                 kern(__VA_ARGS__);                                       \
             }                                                            \
     } while (0)
+#else
+#include <functional>
+#include <ucontext.h>
+#include <vector>
+#define __shared__ static
+
+// a warp's or a block's meeting point: the values its fibers brought
+struct EmuGroup {
+    int alive, arrived, gen;
+    int in[32], out[32];
+};
+struct EmuFiber {
+    ucontext_t ctx;
+    std::vector<char> stack;
+    bool done;
+};
+static ucontext_t emu_main;
+static std::vector<EmuFiber> emu_fibers;
+static std::vector<EmuGroup> emu_warps;
+static EmuGroup emu_block;
+static const std::function<void()>* emu_body;
+
+static inline void emu_release(EmuGroup& g) {
+    if (g.alive > 0 && g.arrived == g.alive) {
+        g.arrived = 0;
+        memcpy(g.out, g.in, sizeof g.out);
+        ++g.gen;
+    }
+}
+// bring v to the group's meeting point and wait there for the others
+static inline const int* emu_meet(EmuGroup& g, int slot, int v) {
+    const unsigned me = threadIdx.x;
+    g.in[slot] = v;
+    const int gen = g.gen;
+    ++g.arrived;
+    emu_release(g);
+    while (g.gen == gen) {
+        swapcontext(&emu_fibers[me].ctx, &emu_main);
+        threadIdx.x = me;
+    }
+    return g.out;
+}
+static inline EmuGroup& emu_warp() { return emu_warps[threadIdx.x / 32]; }
+static inline int emu_lane() { return threadIdx.x % 32; }
+static inline void __syncthreads() { emu_meet(emu_block, 0, 0); }
+static inline void __syncwarp(unsigned = 0xffffffffu) {
+    emu_meet(emu_warp(), emu_lane(), 0);
+}
+static inline int __shfl_sync(unsigned, int v, int src) {
+    return emu_meet(emu_warp(), emu_lane(), v)[src & 31];
+}
+static inline int __shfl_up_sync(unsigned, int v, int d) {
+    const int lane = emu_lane();
+    const int* all = emu_meet(emu_warp(), lane, v);
+    return lane >= d ? all[lane - d] : v;
+}
+static inline unsigned __ballot_sync(unsigned, bool p) {
+    const int* all = emu_meet(emu_warp(), emu_lane(), p);
+    unsigned bits = 0;
+    for (int k = 0; k < 32; ++k) bits |= (unsigned)(all[k] != 0) << k;
+    return bits;
+}
+static inline int __reduce_max_sync(unsigned, int v) {
+    const int* all = emu_meet(emu_warp(), emu_lane(), v);
+    return *std::max_element(all, all + 32);
+}
+static inline int __reduce_min_sync(unsigned, int v) {
+    const int* all = emu_meet(emu_warp(), emu_lane(), v);
+    return *std::min_element(all, all + 32);
+}
+static void emu_trampoline() {
+    (*emu_body)();
+    const unsigned me = threadIdx.x;
+    emu_fibers[me].done = true;
+    EmuGroup& w = emu_warps[me / 32];
+    --w.alive;
+    emu_release(w);
+    --emu_block.alive;
+    emu_release(emu_block);
+}
+// one block after the other; inside a block, every live fiber in turn
+static inline void emu_run_grid(unsigned grid, unsigned block,
+                                const std::function<void()>& body) {
+    blockDim.x = block;
+    emu_body = &body;
+    if (emu_fibers.size() < block) emu_fibers.resize(block);
+    for (unsigned b = 0; b < grid; ++b) {
+        blockIdx.x = b;
+        emu_warps.assign((block + 31) / 32, EmuGroup());
+        emu_block = EmuGroup();
+        emu_block.alive = (int)block;
+        for (unsigned t = 0; t < block; ++t) {
+            EmuFiber& f = emu_fibers[t];
+            f.stack.resize(256 * 1024);
+            f.done = false;
+            getcontext(&f.ctx);
+            f.ctx.uc_stack.ss_sp = f.stack.data();
+            f.ctx.uc_stack.ss_size = f.stack.size();
+            f.ctx.uc_link = &emu_main;
+            makecontext(&f.ctx, emu_trampoline, 0);
+            ++emu_warps[t / 32].alive;
+        }
+        for (unsigned left = block; left;) {
+            left = 0;
+            for (unsigned t = 0; t < block; ++t) {
+                if (emu_fibers[t].done) continue;
+                threadIdx.x = t;
+                swapcontext(&emu_main, &emu_fibers[t].ctx);
+                left += !emu_fibers[t].done;
+            }
+        }
+    }
+}
+#define EMU_LAUNCH(kern, grid, block, ...) \
+    emu_run_grid((grid), (block), [&] { kern(__VA_ARGS__); })
+#endif
 """
 LAUNCH = re.compile(
-    r"(\w+)<<<(.*?),\s*(\w+),\s*0,\s*\(cudaStream_t\)stream>>>\(", re.S)
+    r"([\w<>]+)<<<(.*?),\s*(\w+),\s*\w+,\s*\(cudaStream_t\)stream>>>\(", re.S)
+DYNAMIC_SHARED = re.compile(r"extern __shared__ int (\w+)\[\];")
+# name -> (launches in the source, extra g++ flags)
+EMULATED = {"seed_smem": (5, ()), "gather_bench": (2, ()),
+            "banded_sw": (2, ("-DEMU_FIBERS",))}
 
 
 @pytest.fixture(scope="module")
 def emulated_libs(tmp_path_factory):
     if shutil.which("g++") is None:
-        pytest.skip("no g++ to compile the CUDA sources as serial C++")
+        pytest.skip("no g++ to compile the CUDA sources as C++")
     out = tmp_path_factory.mktemp("cuda_emu")
     (out / "cuda_runtime.h").write_text(SHIM_HEADER)
     paths = {}
-    for name in ("seed_smem", "gather_bench"):
+    for name, (n_launches, flags) in EMULATED.items():
         with open(build.source_path(name)) as f:
             src, n = LAUNCH.subn(
                 lambda m: f"EMU_LAUNCH({m[1]}, {m[2]}, {m[3]}, ", f.read())
-        assert n >= 2
+        assert n == n_launches
+        # a block's dynamic shared memory: the most a block may ask for
+        src = DYNAMIC_SHARED.sub(r"static int \1[232448 / 4];", src)
         cpp = out / f"{name}.cpp"
         cpp.write_text(src)
         paths[name] = str(out / f"lib{name}.so")
         subprocess.run(["g++", "-O1", "-ffp-contract=off", "-std=c++17",
-                        "-shared", "-fPIC", f"-I{out}", "-o", paths[name],
-                        str(cpp)], check=True, capture_output=True)
+                        *flags, "-shared", "-fPIC", f"-I{out}", "-o",
+                        paths[name], str(cpp)], check=True,
+                       capture_output=True)
     return paths
 
 
 @pytest.fixture
 def on_emulation(emulated_libs, monkeypatch):
-    """The wrappers launch the serial builds: no stream, no CUDA device
+    """The wrappers launch the emulated builds: no stream, no CUDA device
     guard, CPU tensors accepted."""
     monkeypatch.setattr(launch, "_libs", {})
+    monkeypatch.setattr(launch, "_entries", {})
     monkeypatch.setattr(
         build, "build", lambda: build.BuildResult(emulated_libs, 0.0, ""))
-    monkeypatch.setattr(
-        torch.cuda, "current_stream",
-        lambda *a: type("S", (), {"cuda_stream": None})())
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(seed_smem_cuda, "cuda_device",
-                        lambda x, what: x.device)
+    monkeypatch.setattr(launch, "raw_stream", lambda index: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    for mod in (seed_smem_cuda, banded_sw_cuda):
+        monkeypatch.setattr(mod, "cuda_device", lambda x, what: x.device)
     before = dict(launch.stats.launches)
     yield
     for k, v in before.items():     # other tests read the counts as zero
@@ -274,10 +435,316 @@ def test_launch_refused_raises(world, on_emulation, monkeypatch):
     """A launcher that reports a CUDA error makes the wrapper raise: no
     fallback to the plain version."""
     di = world["eng"].di
-    lib = seed_smem_cuda._load()
-    monkeypatch.setattr(lib, "prmi_window_launch", lambda *a: 9,
-                        raising=False)
+    seed_smem_cuda._entry("prmi_window_launch")     # bound, then replaced
+    monkeypatch.setitem(launch._entries, "prmi_window_launch", lambda *a: 9)
     z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         seed_smem_cuda.prmi_window(di, z, z)
     assert launch.stats.launches["prmi_window"] == 0
+
+
+# ------------------------------------------------- the warp-a-job banded SW
+
+SW_KEYS = ("score", "qle", "tle", "gtle", "gscore", "max_off")
+LANE_EDGES = (0, 1, 31, 32, 33, 63, 64, 65)
+
+
+def _sw_pairs(seed, B, Q, T, alphabet=5, w=100):
+    """Extension pairs as the main path makes them (the target a noisy copy
+    of the query plus its gap allowance), every other one unrelated."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, alphabet, (B, Q)).astype(np.int32)
+    t = rng.integers(0, alphabet, (B, T)).astype(np.int32)
+    n = min(Q, T)
+    noisy = np.where(rng.random((B, n)) < 0.05,
+                     rng.integers(0, 4, (B, n)), q[:, :n])
+    t[::2, :n] = noisy[::2]
+    t[::8, 15: n - 3] = noisy[::8, 18:]         # and a 3-base gap in some
+    qlen = rng.integers(1, Q + 1, B).astype(np.int32)
+    tlen = np.minimum(qlen + rng.integers(0, 40, B), T).astype(np.int32)
+    tlen[1::4] = rng.integers(0, T + 1, len(tlen[1::4]))
+    h0 = rng.integers(1, 80, B).astype(np.int32)
+    ws = rng.choice([w, 2 * w], B).astype(np.int32)
+    return q, t, qlen, tlen, h0, ws
+
+
+def _sw_both(arrays, opt, zdrop, end_bonus=5):
+    """The emulated kernel and the plain version on the same pairs."""
+    ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    args = (*ts, torch.from_numpy(opt.mat.astype(np.int32)), opt.o_del,
+            opt.e_del, opt.o_ins, opt.e_ins, end_bonus, zdrop)
+    got = banded_sw_cuda.banded_sw_pairs(*args)
+    want = bsw.sw_core_torch(*args)
+    return ({k: got[k].numpy() for k in SW_KEYS},
+            {k: want[k].numpy() for k in SW_KEYS})
+
+
+def _assert_same(got, want):
+    for k in SW_KEYS:
+        assert np.array_equal(got[k], want[k]), (
+            k, np.flatnonzero(got[k] != want[k])[:8])
+
+
+def _assert_scalar(arrays, opt, zdrop, got, jobs, end_bonus=5):
+    q, t, qlen, tlen, h0, ws = arrays
+    for b in jobs:
+        r = sw_extend(q[b, : qlen[b]], t[b, : tlen[b]], opt.mat, opt.o_del,
+                      opt.e_del, opt.o_ins, opt.e_ins, int(ws[b]), end_bonus,
+                      zdrop, int(h0[b]))
+        assert [getattr(r, k) for k in SW_KEYS] == [
+            int(got[k][b]) for k in SW_KEYS], b
+
+
+@pytest.mark.parametrize("zdrop", [100, 0], ids=["zdrop100", "zdrop0"])
+def test_banded_sw_kernel_at_the_lane_boundaries(on_emulation, zdrop):
+    """Query lengths around multiples of the 32 lanes and at Q, the retry ladder's
+    bands and a negative one, h0 = 0, all-N queries, empty and one-row
+    targets, in a batch that does not fill its last block: the emulated
+    kernel == the plain version == the JAX package's XLA kernel, and == the
+    scalar contract wherever h0 > 0."""
+    opt = MemOptions()
+    Q, T, B = 70, 120, 61
+    arrays = _sw_pairs(3, B, Q, T)
+    q, t, qlen, tlen, h0, ws = arrays
+    qlen[: len(LANE_EDGES)] = LANE_EDGES
+    qlen[8:10] = Q
+    tlen[:10] = np.minimum(qlen[:10] + 30, T)
+    q[:10:2] = t[:10:2, :Q]                       # related, so they run long
+    ws[10:24] = [1, 2, 100, 200, 400, 800, -1] * 2
+    qlen[10:24] = [40, 66] * 7
+    tlen[10:24] = [70, 100] * 7
+    h0[24:28] = 0
+    q[28:32] = 4
+    tlen[32:34] = 0
+    tlen[34:36] = 1
+    got, want = _sw_both(arrays, opt, zdrop)
+    _assert_same(got, want)
+    jx = jbsw.banded_sw_extend_batch(
+        *[jnp.asarray(a) for a in arrays], jnp.asarray(opt.mat.astype(np.int32)),
+        opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, 5, zdrop)
+    _assert_same(got, {k: np.asarray(jx[k]) for k in SW_KEYS})
+    _assert_scalar(arrays, opt, zdrop, got, np.flatnonzero(h0 > 0))
+    assert launch.stats.launches["banded_sw_pairs"] == 1
+    assert int(got["score"].max()) > 100 and int(got["max_off"].max()) > 0
+
+
+def test_banded_sw_kernel_tie_rule(on_emulation):
+    """Few letters, unit gap costs, a small z-drop: rows whose maximum ties
+    between cells decide where the extension stops. Narrow bands tie between
+    neighbouring lanes; wide ones inside a lane's run of cells too."""
+    rng = np.random.default_rng(10)
+    B = 192
+    arrays = (rng.integers(0, 3, (B, 80)).astype(np.int32),
+              rng.integers(0, 3, (B, 90)).astype(np.int32),
+              rng.integers(2, 81, B).astype(np.int32),
+              rng.integers(2, 91, B).astype(np.int32),
+              rng.integers(1, 24, B).astype(np.int32),
+              rng.integers(1, 8, B).astype(np.int32))
+    arrays[5][::2] = rng.integers(30, 70, B // 2)
+    arrays[0][::4] %= 2
+    arrays[1][::4] %= 2
+    opt = MemOptions(a=1, b=1, o_del=1, e_del=1, o_ins=1, e_ins=1)
+    for zdrop in (5, 30):
+        got, want = _sw_both(arrays, opt, zdrop)
+        _assert_same(got, want)
+        _assert_scalar(arrays, opt, zdrop, got, range(B))
+
+
+@pytest.mark.parametrize("run", [17, 18])   # one of them ends in one lane
+@pytest.mark.parametrize("Q,apart", [(60, 32), (60, 1), (230, 1)],
+                         ids=["lanes_apart", "in_a_lane", "in_a_lane_looped"])
+def test_banded_sw_kernel_tie_between_two_paths(on_emulation, Q, apart, run):
+    """Two equal paths ``apart`` columns apart, so every row's maximum ties
+    between two cells: of lanes far from each other, or neighbours in one
+    lane's run (two cells a lane at Q = 60, seven in the looped form at
+    Q = 230). A made-up matrix lifts query columns c and c + apart to the
+    same score in row 0 and kills every other cell (a gap open costs more
+    than a path gains back), then both paths run down the same letters. The
+    larger column must win each row."""
+    mat = np.full((5, 5), -1000, np.int32)
+    mat[1, 0] = mat[1, 2] = 1   # rows 1.. (target letter 1) extend the runs
+    mat[4, 4] = 1000            # only widens the f32 band clamp
+    h0, c = 400, 5
+    T = run + 1                 # the target ends both paths in one row
+    gaps = (300, 1, 300, 1)
+    q = np.full((1, Q), 3, np.int32)
+    q[0, c + 1: c + apart + 1 + run] = 0
+    q[0, c], q[0, c + apart] = 1, 2
+    t = np.ones((1, T), np.int32)
+    t[0, 0] = 0                 # row 0 alone sees the lifting scores
+    first_row = h0 - 301 - (np.arange(1, Q + 1) - 1)   # H(-1, j-1), j >= 1
+    mat[0, 1] = 600 - first_row[c - 1]
+    mat[0, 2] = 600 - first_row[c + apart - 1]
+    ts = [torch.from_numpy(a) for a in (
+        q, t, np.array([Q], np.int32), np.array([T], np.int32),
+        np.array([h0], np.int32), np.array([300], np.int32), mat)]
+    got = banded_sw_cuda.banded_sw_pairs(*ts, *gaps, 5, 0)
+    want = bsw.sw_core_torch(*ts, *gaps, 5, 0)
+    for k in SW_KEYS:
+        assert int(got[k][0]) == int(want[k][0]), k
+    r = sw_extend(q[0], t[0], mat, *gaps, 300, 5, 0, h0)
+    assert [getattr(r, k) for k in SW_KEYS] == [int(got[k][0])
+                                                for k in SW_KEYS]
+    assert int(got["score"][0]) == 600 + run
+    assert int(got["qle"][0]) == c + apart + run + 1    # not c + run + 1
+    assert int(got["tle"][0]) == run + 1
+
+
+@pytest.mark.parametrize("gap", [20, 33, 45, 70])
+def test_banded_sw_kernel_long_insertions(on_emulation, gap):
+    """A query with ``gap`` bases the target lacks: F decays across many
+    lanes' cells, so it must come out of the scan across the lanes and not
+    only from a lane's own cells, and the alignment picks up again past the
+    gap."""
+    opt = MemOptions()
+    rng = np.random.default_rng(gap)
+    B, Q, T = 4, 200, 220
+    base = rng.integers(0, 4, (B, T)).astype(np.int32)
+    q = np.zeros((B, Q), np.int32)
+    cut = np.array([40, 57, 64, 31])
+    for b in range(B):
+        junk = (base[b, cut[b]: cut[b] + gap] + 2) % 4
+        q[b] = np.concatenate([base[b, : cut[b]], junk, base[b, cut[b]:]])[:Q]
+    arrays = (q, base, np.full(B, Q, np.int32), np.full(B, T, np.int32),
+              np.array([60, 90, 120, 150], np.int32),
+              np.full(B, 100, np.int32))
+    got, want = _sw_both(arrays, opt, 0)
+    _assert_same(got, want)
+    _assert_scalar(arrays, opt, 0, got, range(B))
+    if gap <= 45:   # the gap costs less than the bases past it score
+        assert (got["qle"] - got["tle"] == gap).all(), (got["qle"], got["tle"])
+
+
+def test_banded_sw_kernel_long_queries(on_emulation):
+    """The 1 kbp path's shape: Q > 1000, T > 1200, rows of 7 to 13 cells a
+    lane (the widest unrolled rows and the looped form), with inexact gap
+    costs in the f32 band clamp."""
+    opt = MemOptions(o_del=5, e_del=3, o_ins=7, e_ins=2)
+    arrays = _sw_pairs(5, 3, 1030, 1250, alphabet=4)
+    q, t, qlen, tlen, h0, ws = arrays
+    qlen[:] = (1030, 1001, 517)
+    tlen[:] = (1250, 1100, 700)
+    t[:, :1030] = np.where(np.random.default_rng(6).random((3, 1030)) < 0.03,
+                           (q + 1) % 4, q)
+    t[0, 300:1240] = t[0, 290:1230].copy()        # a 10-base insertion
+    got, want = _sw_both(arrays, opt, 100)
+    _assert_same(got, want)
+    _assert_scalar(arrays, opt, 100, got, range(3))
+    assert int(got["qle"].max()) > 1000 and int(got["tle"].min()) > 500
+
+
+@pytest.mark.parametrize("n_jobs", [37, 64])
+def test_banded_sw_coord_round(on_emulation, n_jobs):
+    """A round in coordinates: the left launch writes the scores the right
+    launch starts from; pad jobs with the sentinel reg write nothing."""
+    opt = MemOptions()
+    rng = np.random.default_rng(n_jobs)
+    text = rng.integers(0, 4, 6000).astype(np.uint8)
+    text32 = np.concatenate([pack_words(text, pad_code=3),
+                             np.full(12, 0xFFFFFFFF, np.uint32)])
+    R, L = 16, 151
+    src = rng.integers(300, 5000, R)
+    codes = text[src[:, None] + np.arange(L)]
+    codes = np.where(rng.random(codes.shape) < 0.03,
+                     rng.integers(0, 5, codes.shape), codes).astype(np.uint8)
+    G = n_jobs - 3
+    row = rng.integers(0, R, n_jobs)
+    qbeg = rng.integers(0, L - 19, n_jobs)
+    qe = qbeg + np.minimum(rng.integers(19, L + 1, n_jobs), L - qbeg)
+    left = np.zeros((7, n_jobs), np.int32)
+    left[0] = np.arange(n_jobs)
+    left[0, G:] = G + 4                             # pad jobs: no scatter
+    left[1], left[3], left[5], left[6] = row, qbeg, qbeg + 30, opt.w
+    left[4] = src[row] + qbeg - left[5]
+    left[3:6, G:] = 0
+    right = left.copy()
+    right[2], right[3] = qe, L - qe
+    right[4], right[5] = src[row] + qe, L - qe + 30
+    right[3:6, G:] = 0
+    h0 = np.zeros(G + 4, np.int32)
+    h0[:G] = qe[:G] - qbeg[:G]
+    t32, cd, lj, rj, mat = (
+        torch.from_numpy(np.ascontiguousarray(a)) for a in (
+            text32.view(np.int32), codes, left, right,
+            opt.mat.astype(np.int32)))
+    gaps = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
+    results = []
+    for fn in (banded_sw_cuda.banded_sw_coord, bsw.extend_side_round_torch):
+        reg = torch.from_numpy(h0.copy())
+        lres = fn(t32, cd, lj, reg, mat, *gaps, opt.pen_clip5, opt.zdrop,
+                  True, True)
+        rres = fn(t32, cd, rj, reg, mat, *gaps, opt.pen_clip3, opt.zdrop,
+                  False, False)
+        results.append((lres, rres, reg))
+    for got, want in zip(*results):
+        assert torch.equal(got, want)
+    lres, rres, reg = results[0]
+    assert torch.equal(rres[7, :G], lres[0, :G])    # right h0 = left score
+    assert int(reg[G:].sum()) == 0 and int(lres[0, :G].min()) > 0
+    assert launch.stats.launches["banded_sw_coord"] == 2
+
+
+def _long_jobs(seed, Q, T, qlen, tlen, ws, gap_at):
+    """Jobs whose target is the query with a few substitutions and, from
+    ``gap_at`` on, 7 bases fewer, so that they run on off the diagonal."""
+    rng = np.random.default_rng(seed)
+    B = len(qlen)
+    q = rng.integers(0, 4, (B, Q)).astype(np.int32)
+    t = rng.integers(0, 4, (B, T)).astype(np.int32)
+    n = min(Q, T) - 7
+    t[:, :n] = np.where(rng.random((B, n)) < 0.02, (q[:, :n] + 1) % 4,
+                        q[:, :n])
+    t[:, gap_at:n] = q[:, gap_at + 7: n + 7]
+    return (q, t, np.asarray(qlen, np.int32), np.asarray(tlen, np.int32),
+            np.full(B, 60, np.int32), np.asarray(ws, np.int32))
+
+
+def test_banded_sw_kernel_sliding_state(on_emulation):
+    """Queries past the 4095 bases that get a slot a cell keep their rows
+    in a window of 4096 slots that slides along the query with the band
+    (more than once here), the cells ahead filled in as it moves, and the
+    result is that of a slot a cell. A band of 1023 just fits the window's
+    half; a short query in the same launch never slides."""
+    opt = MemOptions()
+    Q, T = 9000, 9100
+    arrays = _long_jobs(1, Q, T, (Q, 5300, 4096, 33, 0), (T, 5400, 4200, 60, 5),
+                        (100, 800, 1023, 100, 100), 900)
+    got, want = _sw_both(arrays, opt, 100)
+    _assert_same(got, want)
+    assert got["qle"][:3].tolist() == [Q, 5300, 4096]
+    _assert_scalar(arrays, opt, 100, got, [3, 4])
+
+
+def test_banded_sw_kernel_overflow_state(on_emulation):
+    """A band with more live cells than half the window (a query past 4095
+    bases under a band past 1023) runs on device memory that the launcher
+    allocates, beside jobs of the same launch that stay in shared memory;
+    no length is refused."""
+    opt = MemOptions()
+    Q, T = 30000, 120
+    arrays = _long_jobs(2, Q, T, (Q, 5000, 4100, Q, 64), (T, 100, 110, 90, 70),
+                        (1 << 20, 1024, 5000, 100, 1 << 20), 40)
+    got, want = _sw_both(arrays, opt, 0)
+    _assert_same(got, want)
+    assert int(got["tle"].min()) > 50 and int(got["max_off"].max()) > 0
+    _assert_scalar(arrays, opt, 0, got, [4])
+
+
+@pytest.mark.parametrize("width", [3, 4, 6, 12])
+def test_gather_rows_of_any_width(on_emulation, width):
+    """Widths that are no multiple of four words take the word path, the
+    others 16 bytes a thread; a lane's span that is no power of two is
+    divided, not shifted. A view whose storage is not 16-byte aligned falls
+    back to words."""
+    rng = np.random.default_rng(width)
+    n, L, W = 500, 77, 3
+    base = torch.from_numpy(rng.integers(0, 1 << 31, n * width + 1,
+                                         dtype=np.int64).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, n - W, L).astype(np.int32))
+    for src in (base[:-1].reshape(n, width), base[1:].reshape(n, width)):
+        assert torch.equal(gather_bench._gather_rows_cuda(
+            "gather_flat", src, idx, 1, flat=True),
+            gather_bench.gather_flat_torch(src, idx))
+        assert torch.equal(gather_bench._gather_rows_cuda(
+            "gather_window", src, idx, W),
+            gather_bench.gather_window_torch(src, idx, W))

@@ -145,3 +145,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         gb._check_args(src.t(), idx)
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         gb.gather_flat(src.to("meta"), idx.to("meta"))
+
+
+def test_kernel_bench_times_the_smokes_shapes():
+    """kernel_bench.py states chip_smoke.py's shapes itself (a module of the
+    package does not import the script above it): the two must agree."""
+    import chip_smoke
+    from bwameme_tpu_torch import kernel_bench
+
+    for name in ("BATCH", "GATHER_BYTES", "PAIRS_SHAPE", "LONG_PAIRS_SHAPE",
+                 "COORD_SHAPE"):
+        assert getattr(kernel_bench, name) == getattr(chip_smoke, name), name
