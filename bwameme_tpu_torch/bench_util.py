@@ -1,14 +1,20 @@
 """What the port's on-card scripts share (chip_smoke.py at the root of the
 repository, kernel_bench.py beside this file): timers of a call on a CUDA
-device and the banded-SW workloads at the main path's shapes. Imports
+device, the banded-SW workloads at the main path's shapes, and the seeding
+workload: the bench genome's index, simulated reads, and a batch of them
+with the three rounds over it. Imports
 nothing of the package before a function runs, so kernel_bench.py can time
 the package of another checkout with these timers.
 """
 
 from __future__ import annotations
 
+import os
 import statistics
 import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CACHE = os.path.join(ROOT, ".bench_cache")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -137,3 +143,115 @@ def run_coord_round(fn, opt, text32, codes, left, right, h0, mat, **kw):
     rres = fn(text32, codes, right, score_reg, mat, *gaps, opt.pen_clip3,
               opt.zdrop, False, False, **kw)
     return lres, rres, score_reg
+
+
+def get_index(mbp: float) -> str:
+    """The bench genome (bench.py:get_index: seed 2024, 200 planted
+    repeats), built once and cached under .bench_cache/."""
+    import numpy as np
+
+    from bwameme_tpu_torch.index import bntseq
+    from bwameme_tpu_torch.index.build import build_index, save_index
+
+    prefix = os.path.join(CACHE, f"bench_{mbp:g}mbp")
+    if os.path.isdir(prefix + ".meme"):
+        print(f"index: cached {os.path.relpath(prefix, ROOT)}", flush=True)
+        return prefix
+    os.makedirs(CACHE, exist_ok=True)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2024)
+    n = int(mbp * 1e6)
+    code = rng.integers(0, 4, n).astype(np.uint8)
+    for _ in range(200):
+        src = int(rng.integers(0, n - 5000))
+        dst = int(rng.integers(0, n - 5000))
+        ln = int(rng.integers(300, 3000))
+        code[dst: dst + ln] = code[src: src + ln]
+    bns = bntseq.BntSeq(l_pac=n, contigs=[bntseq.Contig("chrB", "", 0, n, 0)],
+                        ambs=[], code=code)
+    idx = build_index(bns)
+    save_index(idx, prefix)
+    print(f"index: built {mbp:g} Mbp in {time.perf_counter() - t0:.1f} s "
+          f"(n_sa={idx.n_sa}, rmi_bits={idx.rmi_bits})", flush=True)
+    return prefix
+
+
+def simulated_reads(text, l_pac: int, n: int, read_len: int, rng,
+                    repeats=()):
+    """Reads as users send them: Poisson(1) substitutions, every other one
+    reverse-complemented, one in eight with an N, one in sixteen from a
+    planted repeat where ``repeats`` lists any. Returns the code arrays."""
+    import numpy as np
+
+    reads = []
+    for i in range(n):
+        if repeats and i % 16 == 7:
+            lo, ln = repeats[int(rng.integers(0, len(repeats)))]
+            st = int(lo + rng.integers(0, max(ln - read_len, 1)))
+            st = min(st, l_pac - read_len - 1)
+        else:
+            st = int(rng.integers(0, l_pac - read_len - 1))
+        c = np.array(text[st: st + read_len])
+        for _ in range(rng.poisson(1.0)):
+            p = int(rng.integers(0, read_len))
+            c[p] = (c[p] + rng.integers(1, 4)) % 4
+        if i % 8 == 3:
+            c[int(rng.integers(0, read_len))] = 4
+        if i % 2:
+            c = np.where(c < 4, 3 - c, c)[::-1].astype(np.uint8)
+        reads.append(c)
+    return reads
+
+
+def planted_repeats(mbp: float):
+    """(destination, length) of the bench genome's planted repeats: the
+    generator of get_index, replayed."""
+    import numpy as np
+
+    rng = np.random.default_rng(2024)
+    n = int(mbp * 1e6)
+    rng.integers(0, 4, n)
+    out = []
+    for _ in range(200):
+        int(rng.integers(0, n - 5000))
+        dst = int(rng.integers(0, n - 5000))
+        out.append((dst, int(rng.integers(300, 3000))))
+    return out
+
+
+class Rounds:
+    """One batch of reads, prepared on the card as the engine prepares it,
+    and the three rounds over it through either implementation."""
+
+    def __init__(self, eng, reads, dev):
+        import numpy as np
+        import torch
+
+        from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
+
+        self.eng, self.R = eng, len(reads)
+        mat, lens_np, _ = eng._batch_matrix(reads)
+        self.lens = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
+        self.prep = seed_smem.prepare_reads(torch.from_numpy(mat).to(dev),
+                                            self.lens)
+        self.kernels = (seed_smem_cuda.seed_round1,
+                        seed_smem_cuda.seed_round2,
+                        seed_smem_cuda.seed_round3)
+        self.plain = (seed_smem.seed_round1_torch,
+                      seed_smem.seed_round2_torch,
+                      seed_smem.seed_round3_torch)
+        # round 1's slots and counts, which round 2 reads
+        self.slots1 = self.run(0, self.kernels[0])[:2]
+
+    def run(self, k: int, fn, **kw):
+        eng, opt, di = self.eng, self.eng.opt, self.eng.di
+        qbuf, nf, nr, nvf = self.prep
+        if k == 0:
+            return fn(di, qbuf, nf, nr, nvf, self.lens, opt.min_seed_len,
+                      eng.max_smems, **kw)
+        if k == 1:
+            return fn(di, qbuf, nf, nr, self.lens, *self.slots1,
+                      opt.split_len, opt.split_width, opt.min_seed_len,
+                      eng.max_reseeds, **kw)
+        return fn(di, qbuf, nf, self.lens, opt.max_mem_intv,
+                  opt.min_seed_len + 1, eng.max_smems, **kw)

@@ -134,8 +134,11 @@ def build_parser() -> argparse.ArgumentParser:
                     "path), FM-index (the reference's default backend), or "
                     "ERT (k-mer-root, the -Z path)")
     pm.add_argument("--batch", type=int, default=4096,
-                    help="reads per device batch (4096 amortizes the "
-                    "per-dispatch floor; 8192 measured flat)")
+                    help="reads per device batch. The seeding kernels run "
+                    "a warp a read, a design for batches of up to about 32k "
+                    "reads: it keeps a small batch's chain of loads short; "
+                    "at 64k reads it costs 1.4 times the card time of a "
+                    "thread a read (PERF.md)")
     pm.add_argument("--profile", dest="profile_dir", default=None,
                     metavar="DIR",
                     help="capture a profiler trace of the run into DIR (not "

@@ -5,6 +5,7 @@ object a line.
 
     python3 bwameme_tpu_torch/kernel_bench.py launch
     python3 bwameme_tpu_torch/kernel_bench.py k1
+    python3 bwameme_tpu_torch/kernel_bench.py seed
 
 ``launch``: what one call of the flat row gather costs at the seeding
 batch's shape (16-byte rows, 4096 lanes, 64 KB a call) beside
@@ -23,6 +24,20 @@ jobs sorted by target length and in their given order, each timed twice, in
 turns. Then the pair batch's heaviest jobs alone (1, 132 and all 4096 of
 them, heaviest first, by the rows they ran times their band's cells a
 lane): how much of a launch is its longest job's chain of rows.
+
+``seed``: the three seeding rounds on the bench genome's index (100 Mbp,
+built at first use under .bench_cache/) and reads of chip_smoke.py's kind.
+Each round at 4096, 16384, 32768 and 65536 reads: a call made alone (the
+wrapper and the launch included) and the card's time a call with the host
+out of the way (calls queued behind a spinning kernel). Then, at 4096
+reads, what tells which regime a round is in: the read with the most work alone on the
+card (the chain no batch can be faster than), and the batch sorted by each
+read's work, heaviest first, against the given order. The work is the count
+of index sectors the scalar contract reads for a read, as the plain version
+counts them (``ops.sa_search.Work.probes``). To share the index with another
+checkout, link its .bench_cache to this one's; on a tree whose plain
+versions do not count (``work=``) the rows of the batch sizes print and the
+rest fails.
 """
 
 from __future__ import annotations
@@ -132,9 +147,61 @@ def bench_k1() -> list[dict]:
     return [row, alone]
 
 
+SEED_MBP = 100
+SEED_BATCHES = (4096, 16384, 32768, 65536)
+
+
+def bench_seed():
+    """Yields the rows as they are measured."""
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch import bench_util as bu
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.ops import sa_search as ss
+    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    dev = torch.device("cuda", 0)
+    idx = load_index(bu.get_index(SEED_MBP))
+    eng = DeviceSeedingEngine(idx, MemOptions(), lanes=BATCH, device=dev)
+    rng = np.random.default_rng(17)
+    reads = bu.simulated_reads(idx.text, idx.l_pac, max(SEED_BATCHES), 151,
+                               rng, bu.planted_repeats(SEED_MBP))
+    names = ("seed_round1", "seed_round2", "seed_round3")
+
+    def times(batch, k, queued=100):
+        fn = lambda: batch.run(k, batch.kernels[k])
+        return dict(alone_ms=[bu.cuda_ms(fn, 10) for _ in range(2)],
+                    device_ms=[bu.queued_us(fn, queued) / 1e3
+                               for _ in range(2)])
+
+    for n in SEED_BATCHES:
+        batch = bu.Rounds(eng, reads[:n], dev)
+        yield dict(what=f"the rounds at {n} reads", **{
+            name: times(batch, k) for k, name in enumerate(names)})
+
+    # at one batch: each read's work, the heaviest read alone, sorted reads
+    batch = bu.Rounds(eng, reads[:BATCH], dev)
+    for k, name in enumerate(names):
+        work = ss.Work(BATCH, dev)
+        batch.run(k, batch.plain[k], work=work)
+        work = work.probes.cpu().numpy()
+        order = np.argsort(-work, kind="stable")
+        alone = bu.Rounds(eng, [reads[order[0]]], dev)
+        by_work = bu.Rounds(eng, [reads[i] for i in order], dev)
+        yield dict(
+            what=f"{name} at {BATCH} reads: the heaviest read alone, and "
+            "the batch sorted by work against its given order",
+            work_probes_mean=float(work.mean()),
+            work_probes_max=int(work.max()),
+            heaviest_alone=times(alone, k), sorted=times(by_work, k),
+            given=times(batch, k))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("what", choices=("launch", "k1"))
+    ap.add_argument("what", choices=("launch", "k1", "seed"))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -148,8 +215,8 @@ def main() -> int:
     if args.what == "launch":
         print(json.dumps(bench_launch()))
     else:
-        for row in bench_k1():
-            print(json.dumps(row))
+        for row in (bench_k1() if args.what == "k1" else bench_seed()):
+            print(json.dumps(row), flush=True)
     return 0
 
 

@@ -18,6 +18,13 @@ A round returns ``(slots, nsm, dropped)``: slots (4, R, M) int32 planes
 start, end, sa_lo, hitcount in emission order, nsm (R,) the slots used, and
 dropped (R,) the emissions that did not fit in M slots. The reference loses
 those without a word; here the engine raises when any count is not zero.
+
+The plain rounds and ``sa_query_torch`` take an optional ``work``, an
+``ops.sa_search.Work`` with one lane a read (a job), and count into it what
+the data needs of the index, whatever the design of the kernel that does
+it: the probes of the scalar contract's binary searches a read, and the
+distinct sectors the answers stand on. The kernels' byte bounds are reckoned
+from the second, the least a launch can move.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from bwameme_tpu_torch.ops import seed_smem_cuda
 
 I64 = torch.int64
 DONE, RIGHT0, LEFT, RIGHT_Z = 0, 1, 2, 3
+NEVER = 1 << 40                 # longer than any match
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -114,7 +122,7 @@ def _tab(t, lanes, pos):
 
 
 def seed_round1_torch(di: DeviceIndex, qbuf, nf, nr, nvf, lens, minseed: int,
-                      M: int):
+                      M: int, work=None):
     """Plain version of round 1, the zigzag sweep
     (bwameme_tpu/seeding/engine.py:1081 _build_fused_step1)."""
     dev = lens.device
@@ -146,7 +154,10 @@ def seed_round1_torch(di: DeviceIndex, qbuf, nf, nr, nvf, lens, minseed: int,
         v_raw = torch.where(is_left, _tab(nr, lanes, lp) - lp,
                             _tab(nf, lanes, p) - p)
         v = torch.where(active, v_raw, 0)
-        mlen, lb, cnt = ss.sa_query_min1(di, qbuf, row, piv, v)
+        # the zigzag reads the interval only of what it emits
+        mlen, lb, cnt = ss.sa_query_min1(
+            di, qbuf, row, piv, v, work,
+            torch.where(is_left, NEVER, minseed))
         out.emit(active & ~is_left & (mlen >= minseed), p, p + mlen, lb, cnt)
 
         p2 = p - mlen + 1
@@ -167,7 +178,8 @@ def seed_round1_torch(di: DeviceIndex, qbuf, nf, nr, nvf, lens, minseed: int,
 
 
 def seed_round2_torch(di: DeviceIndex, qbuf, nf, nr, lens, slots1, nsm1,
-                      split_len: int, split_width: int, minseed: int, M: int):
+                      split_len: int, split_width: int, minseed: int, M: int,
+                      work=None):
     """Plain version of round 2, reseeding from the middle of round 1's long
     and rare SMEMs at min_intv = hitcount + 1
     (bwameme_tpu/seeding/engine.py:823 _build_fused_step2b). Each read walks
@@ -216,7 +228,7 @@ def seed_round2_torch(di: DeviceIndex, qbuf, nf, nr, lens, slots1, nsm1,
         v_raw = torch.where(is_left, _tab(nr, lanes, lp) - lp,
                             _tab(nf, lanes, p) - p)
         v = torch.where(active, v_raw, 0)
-        mlen, lb, cnt = ss.sa_query(di, qbuf, row, piv_q, v, mi)
+        mlen, lb, cnt = ss.sa_query(di, qbuf, row, piv_q, v, mi, work)
         out.emit(active & ((phase == REMZ) | (phase == REM))
                  & (mlen >= minseed), p, p + mlen, lb, cnt)
 
@@ -242,16 +254,16 @@ def seed_round2_torch(di: DeviceIndex, qbuf, nf, nr, lens, slots1, nsm1,
 
 
 def _third_round_core(di: DeviceIndex, qbuf, row, pivot, v, min_intv: int,
-                      min_seed: int):
+                      min_seed: int, work=None):
     """The level walk at one pivot per lane
     (bwameme_tpu/seeding/engine.py:1367 third_round_core): (emit, e_len,
     e_lb, e_cnt, advance)."""
     ctx = ss.make_ctx_rk(qbuf, row, pivot)
-    lmax, _ = ss.find_longest_ctx(di, ctx, v.clamp_min(1))
+    lmax, _ = ss.find_longest_ctx(di, ctx, v.clamp_min(1), work, v > 0)
     lmax = torch.where(v <= 0, 0, lmax)
     done = lmax < min_seed
     cur_l = lmax.clamp_min(1)
-    lb, cnt = ss.interval_at_ctx(di, ctx, cur_l)
+    lb, cnt = ss.interval_at_ctx(di, ctx, cur_l, work, ~done)
     prev_lb, prev_cnt = torch.zeros_like(lb), torch.zeros_like(cnt)
     emit = torch.zeros_like(done)
     e_len, e_lb, e_cnt = (torch.zeros_like(lb) for _ in range(3))
@@ -266,8 +278,8 @@ def _third_round_core(di: DeviceIndex, qbuf, row, pivot, v, min_intv: int,
         advance = torch.where(fire_sat, cur_l + 1, advance)
         done = done | fire_sat
 
-        _, l0 = ss.cmp_ctx_rk(di, ctx, cur_l, lb - 1)
-        _, l1 = ss.cmp_ctx_rk(di, ctx, cur_l, lb + cnt)
+        _, l0 = ss.cmp_ctx_rk(di, ctx, cur_l, lb - 1, work, ~done)
+        _, l1 = ss.cmp_ctx_rk(di, ctx, cur_l, lb + cnt, work, ~done)
         nxt = torch.maximum(l0, l1)
         fire_low = ~done & (nxt < min_seed)
         emit = emit | fire_low
@@ -279,7 +291,7 @@ def _third_round_core(di: DeviceIndex, qbuf, row, pivot, v, min_intv: int,
 
         go = ~done
         cur_l = torch.where(go, nxt.clamp_min(1), cur_l)
-        lb2, cnt2 = ss.interval_at_ctx(di, ctx, cur_l)
+        lb2, cnt2 = ss.interval_at_ctx(di, ctx, cur_l, work, go)
         prev_lb = torch.where(go, lb, prev_lb)
         prev_cnt = torch.where(go, cnt, prev_cnt)
         lb = torch.where(go, lb2, lb)
@@ -288,7 +300,7 @@ def _third_round_core(di: DeviceIndex, qbuf, row, pivot, v, min_intv: int,
 
 
 def seed_round3_torch(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
-                      min_seed: int, M: int):
+                      min_seed: int, M: int, work=None):
     """Plain version of round 3, the bwt seed strategy
     (bwameme_tpu/seeding/engine.py:1281 _build_fused_step3)."""
     dev = lens.device
@@ -313,7 +325,7 @@ def seed_round3_torch(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
         v = torch.where(done, 0, _tab(nf, lanes, pv) - pv)
         piv = torch.where(done, 0, pv)
         emit, e_len, e_lb, e_cnt, advance = _third_round_core(
-            di, qbuf, lanes, piv, v, min_intv, min_seed)
+            di, qbuf, lanes, piv, v, min_intv, min_seed, work)
         out.emit(emit & ~done, pv, pv + e_len, e_lb, e_cnt)
         pv = torch.where(done, pv, pv + advance.clamp_min(1))
         pv, done = resolve_skips(pv, done)
@@ -352,12 +364,13 @@ def prmi_window_torch(di: DeviceIndex, khi, klo):
     return lo.to(torch.int32), hi.to(torch.int32)
 
 
-def sa_query_torch(di: DeviceIndex, qbuf, row, pivot, v, min_intv):
+def sa_query_torch(di: DeviceIndex, qbuf, row, pivot, v, min_intv,
+                   work=None):
     """Plain version of seed_smem_cuda.sa_query: (3, n) int32 mlen, lb, cnt
     of n (row, pivot, v, min_intv) jobs given as int32 tensors."""
     return torch.stack(ss.sa_query(
         di, qbuf, row.to(I64), pivot.to(I64), v.to(I64),
-        min_intv.to(I64))).to(torch.int32)
+        min_intv.to(I64), work)).to(torch.int32)
 
 
 # ------------------------------------------------------------------- pack

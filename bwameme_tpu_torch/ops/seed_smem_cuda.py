@@ -1,8 +1,13 @@
-"""ctypes wrappers of the Hopper seeding kernels (csrc/seed_smem.cu).
+"""ctypes wrappers of the Hopper seeding kernels (csrc/seed_smem.cu): the
+three rounds and sa_query, a warp a read or job, and prmi_window, a thread a
+key.
 
 Checks, launch and launch counts are those of ops/launch.py. The plain
 PyTorch versions live in ops/seed_smem.py and ops/sa_search.py;
-ops/seed_smem.py dispatches to these wrappers for CUDA tensors only.
+ops/seed_smem.py dispatches to these wrappers for CUDA tensors only. A
+kernel's optional ``counts`` output is what the warps counted of themselves
+(their traffic and their dependent steps); what the data needs, whatever the
+kernel's design, is the plain versions' ``work`` (ops.sa_search.Work).
 """
 
 from __future__ import annotations
@@ -66,65 +71,67 @@ def _outputs(R: int, M: int, dev):
             torch.empty((R,), dtype=torch.int32, device=dev))
 
 
-def _sectors_ptr(sectors, n: int, dev):
-    """``sectors``, where given, is an (n,) int32 tensor the kernel fills
-    with the 32-byte index sectors each thread read (rank rows and 64-base
-    text segments): the work this batch's data needed."""
-    if sectors is None:
+def _counts_ptr(counts, n: int, dev):
+    """``counts``, where given, is a (2, n) int32 tensor that each warp fills
+    with what it counted of itself: the 32-byte sectors of rank rows and
+    packed text it brought in (the design's traffic; the work the data needs
+    is the plain versions' ``work``), and its dependent steps (a leaf
+    record, a probe of rank rows, 128 bases of text)."""
+    if counts is None:
         return None
-    check(sectors, "sectors", torch.int32, (n,), dev)
-    return sectors.data_ptr()
+    check(counts, "counts", torch.int32, (2, n), dev)
+    return counts.data_ptr()
 
 
 def seed_round1(di: DeviceIndex, qbuf, nf, nr, nvf, lens, minseed: int,
-                M: int, sectors=None):
+                M: int, counts=None):
     """Kernel form of seed_smem.seed_round1_torch."""
     dev = cuda_device(qbuf, _WHAT)
     R, W, Lp = _query_args(qbuf, (nf, nr, nvf), lens, dev)
     slots, nsm, dropped = _outputs(R, M, dev)
-    sec = _sectors_ptr(sectors, R, dev)
+    cnt = _counts_ptr(counts, R, dev)
     if R:
         launch("seed_round1", _entry("seed_round1_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
                nr.data_ptr(), nvf.data_ptr(), Lp, lens.data_ptr(), R,
                minseed, M, slots.data_ptr(), nsm.data_ptr(),
-               dropped.data_ptr(), sec)
+               dropped.data_ptr(), cnt)
     return slots, nsm, dropped
 
 
 def seed_round2(di: DeviceIndex, qbuf, nf, nr, lens, slots1, nsm1,
                 split_len: int, split_width: int, minseed: int, M: int,
-                sectors=None):
+                counts=None):
     """Kernel form of seed_smem.seed_round2_torch."""
     dev = cuda_device(qbuf, _WHAT)
     R, W, Lp = _query_args(qbuf, (nf, nr), lens, dev)
     check(slots1, "slots1", torch.int32, (4, R, None), dev)
     check(nsm1, "nsm1", torch.int32, (R,), dev)
     slots, nsm, dropped = _outputs(R, M, dev)
-    sec = _sectors_ptr(sectors, R, dev)
+    cnt = _counts_ptr(counts, R, dev)
     if R:
         launch("seed_round2", _entry("seed_round2_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
                nr.data_ptr(), Lp, lens.data_ptr(), R, slots1.data_ptr(),
                nsm1.data_ptr(), slots1.shape[2], split_len, split_width,
                minseed, M, slots.data_ptr(), nsm.data_ptr(),
-               dropped.data_ptr(), sec)
+               dropped.data_ptr(), cnt)
     return slots, nsm, dropped
 
 
 def seed_round3(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
-                min_seed: int, M: int, sectors=None):
+                min_seed: int, M: int, counts=None):
     """Kernel form of seed_smem.seed_round3_torch."""
     dev = cuda_device(qbuf, _WHAT)
     R, W, Lp = _query_args(qbuf, (nf,), lens, dev)
     slots, nsm, dropped = _outputs(R, M, dev)
-    sec = _sectors_ptr(sectors, R, dev)
+    cnt = _counts_ptr(counts, R, dev)
     if R:
         launch("seed_round3", _entry("seed_round3_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
                Lp, lens.data_ptr(), R, min_intv, min_seed, M,
                slots.data_ptr(), nsm.data_ptr(), dropped.data_ptr(),
-               sec)
+               cnt)
     return slots, nsm, dropped
 
 
@@ -144,7 +151,7 @@ def prmi_window(di: DeviceIndex, khi, klo):
     return lo, hi
 
 
-def sa_query(di: DeviceIndex, qbuf, row, pivot, v, min_intv, sectors=None):
+def sa_query(di: DeviceIndex, qbuf, row, pivot, v, min_intv, counts=None):
     """sa_query alone over n jobs: qbuf (rows, W) int32 storage, row, pivot,
     v, min_intv (n,) int32 with row in [0, rows) and pivot >= 0; returns
     (3, n) int32 mlen, lb, cnt."""
@@ -155,10 +162,10 @@ def sa_query(di: DeviceIndex, qbuf, row, pivot, v, min_intv, sectors=None):
     for name, x in (("pivot", pivot), ("v", v), ("min_intv", min_intv)):
         check(x, name, torch.int32, (n,), dev)
     out = torch.empty((3, n), dtype=torch.int32, device=dev)
-    sec = _sectors_ptr(sectors, n, dev)
+    cnt = _counts_ptr(counts, n, dev)
     if n:
         launch("sa_query", _entry("sa_query_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), qbuf.shape[1],
                row.data_ptr(), pivot.data_ptr(), v.data_ptr(),
-               min_intv.data_ptr(), n, out.data_ptr(), sec)
+               min_intv.data_ptr(), n, out.data_ptr(), cnt)
     return out

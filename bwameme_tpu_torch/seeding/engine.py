@@ -4,12 +4,19 @@ Port of ``DeviceSeedingEngine`` (bwameme_tpu/seeding/engine.py) for the
 default configuration: the learned index (P-RMI root), mode 4, int32
 coordinates, one device. A batch is prepared on the device
 (ops/seed_smem.prepare_reads), seeded by the three rounds - on a CUDA device
-the hand-written kernels, one launch a round, each thread running one read's
-state machine to its end; on the CPU the plain versions - and packed into
-one flat buffer, so a batch costs one host-to-device and one device-to-host
-copy. Nothing waits for the device between ``submit_batch`` and
-``finish_batch_flat``: the caller overlaps a batch's seeding with the
-previous batch's host work.
+the hand-written kernels, one launch a round, a warp running one read's
+state machine to its end, its lanes probing a whole P-RMI window's ranks in
+one step; on the CPU the plain versions - and packed into one flat buffer,
+so a batch costs one host-to-device and one device-to-host copy. Nothing
+waits for the device between ``submit_batch`` and ``finish_batch_flat``: the
+caller overlaps a batch's seeding with the previous batch's host work.
+
+The kernels are designed for batches of up to about 32k reads: a warp a read
+shortens each read's chain of dependent loads, which is what a small batch
+waits for, and repeats the state machine's scalar work in every lane. On an
+H100, against one thread a read, the three rounds take 0.3 of the card time
+at 4096 reads, the same at 32768, and 1.4 times as much at 65536, where one
+thread a read has enough loads in flight (PERF.md, section 6).
 
 Produces the SMEM sets of ``HostSeedingEngine`` (the scalar contract), which
 stays the independent oracle and is never called from here. The read length
@@ -47,8 +54,9 @@ class DeviceSeedingEngine:
     def __init__(self, idx, opt, lanes: int = 1024, device="cuda",
                  mode: int | None = None):
         """``lanes`` is the batch size the caller intends (the reference's
-        fixed lane count; any batch size runs). ``device`` is explicit: the
-        card by default, the CPU for the tests."""
+        fixed lane count; any batch size runs, see the module's docstring
+        for the sizes the kernels are designed for). ``device`` is explicit:
+        the card by default, the CPU for the tests."""
         self.idx = idx
         self.opt = opt
         self.lanes = lanes

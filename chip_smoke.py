@@ -31,9 +31,21 @@ of which ends the run with a non-zero exit and no result line when it fails:
 4. search: on the bench genome's index (100 Mbp, built at first use under
    .bench_cache/), the P-RMI window of 2^20 keys and sa_query of >= 10^5
    jobs cut from simulated reads, kernel == plain exactly; the three seeding
-   rounds on 4096 reads (mutated, reverse-complemented, with N, from the
-   planted repeats), kernel == plain exactly and, through the engine,
-   == the port's HostSeedingEngine on 256 of them.
+   rounds (a warp a read) on 4096 reads (mutated, reverse-complemented, with
+   N, from the planted repeats), kernel == plain exactly and, through the
+   engine, == the port's HostSeedingEngine on 256 of them. Then the rounds
+   on 1021 reads that stress a warp-a-read search (a count that fills no
+   block; reads from repeats, of 19-40 bp, of 500 bp, with N), on this index
+   and on a 2 Mbp genome with tiled and dispersed repeats under a coarse
+   P-RMI whose windows are wider than 32 x 30 ranks, kernel == plain
+   exactly. A seeding kernel's byte bound is reckoned from what the
+   answers stand on, whatever the design: the distinct index sectors that
+   hold the leaf record, the rank rows beside every insertion point and
+   interval border and the text that decides their compares, counted by
+   the plain version over the whole launch (answer_sectors). Beside it
+   stand the sectors the scalar contract's binary searches read
+   (work_sectors) and the sectors and dependent steps the kernel counted
+   of itself (kernel_sectors, latency_steps).
 5. end to end: ``bwameme_tpu_torch.cli mem`` with its default engine (the
    device engine) on 8192 single-end 151 bp reads in batches of 4096, on
    reads with two deletions under -w 20 (the band-retry ladder), and with
@@ -61,7 +73,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CACHE = os.path.join(ROOT, ".bench_cache")
 CSRC = "bwameme_tpu_torch/csrc/"
 # name -> (source, the TPU program it replaces)
 KERNELS = {
@@ -115,6 +126,11 @@ N_CMP = 256
 N_LONG = 16
 N_KEYS = 1 << 20
 JOBS_PER_READ = 26
+# phase 4's stress cases: reads (a count that fills no block of four warps),
+# and the cut genome whose coarse P-RMI gives windows wider than 32 x 30
+N_STRESS = 1021
+COARSE_MBP = 2
+COARSE_RMI_BITS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -435,7 +451,7 @@ def phase_gather(dev):
             f"({r['window_gbs']:.0f} GB/s), chain {r['chain_ms']:.4f} ms for "
             f"{GATHER_ROUNDS} rounds, {r['chain_us_per_round']:.3f} us a "
             f"dependent round (from a {64 * GATHER_ROUNDS}-round chain)")
-    chain_us = r["chain_us_per_round"]
+    chain_us = r["chain_us_per_round"]      # the main case's: 16-byte rows
     launches = {k: stats.launches[k] for k in names}
     log(f"launches of the {width}-word, {lanes}-lane microbenchmark: "
         f"{launches}")
@@ -507,49 +523,6 @@ def phase_gather(dev):
 # -------------------------------------------------------- phase 4: search
 
 
-def simulated_reads(text, l_pac: int, n: int, read_len: int, rng,
-                    repeats=()):
-    """Reads as users send them: Poisson(1) substitutions, every other one
-    reverse-complemented, one in eight with an N, one in sixteen from a
-    planted repeat where ``repeats`` lists any. Returns the code arrays."""
-    import numpy as np
-
-    reads = []
-    for i in range(n):
-        if repeats and i % 16 == 7:
-            lo, ln = repeats[int(rng.integers(0, len(repeats)))]
-            st = int(lo + rng.integers(0, max(ln - read_len, 1)))
-            st = min(st, l_pac - read_len - 1)
-        else:
-            st = int(rng.integers(0, l_pac - read_len - 1))
-        c = np.array(text[st: st + read_len])
-        for _ in range(rng.poisson(1.0)):
-            p = int(rng.integers(0, read_len))
-            c[p] = (c[p] + rng.integers(1, 4)) % 4
-        if i % 8 == 3:
-            c[int(rng.integers(0, read_len))] = 4
-        if i % 2:
-            c = np.where(c < 4, 3 - c, c)[::-1].astype(np.uint8)
-        reads.append(c)
-    return reads
-
-
-def planted_repeats(mbp: float):
-    """(destination, length) of the bench genome's planted repeats: the
-    generator of get_index, replayed."""
-    import numpy as np
-
-    rng = np.random.default_rng(2024)
-    n = int(mbp * 1e6)
-    rng.integers(0, 4, n)
-    out = []
-    for _ in range(200):
-        int(rng.integers(0, n - 5000))
-        dst = int(rng.integers(0, n - 5000))
-        out.append((dst, int(rng.integers(300, 3000))))
-    return out
-
-
 def round_err(a, b) -> int:
     """Largest absolute difference of two rounds' results: the counts, the
     dropped counts, and the slots either side used."""
@@ -561,15 +534,138 @@ def round_err(a, b) -> int:
                abs_err(a[0][:, used], b[0][:, used]))
 
 
+def stress_reads(text, l_pac: int, n: int, rng, regions):
+    """Reads that stress a warp-a-read search, in turns: 151 bp from
+    ``regions`` ((start, length) of repeats: runs of equal suffixes that can
+    reach past the probed ranks), 19 to 40 bp, 500 bp with two N and some
+    substitutions (ties far past the rank row's 48 bases), and 151 bp with
+    three N, reverse-complemented."""
+    import numpy as np
+
+    reads = []
+    for i in range(n):
+        kind = i % 4
+        ln = (151, int(rng.integers(19, 41)), 500, 151)[kind]
+        if kind == 0:
+            lo, span = regions[int(rng.integers(0, len(regions)))]
+            st = int(lo + rng.integers(0, max(span - ln, 1)))
+        else:
+            st = int(rng.integers(0, l_pac - ln - 1))
+        c = np.array(text[min(st, l_pac - ln - 1):][:ln])
+        if kind == 2:
+            for _ in range(4):
+                q = int(rng.integers(0, ln))
+                c[q] = (c[q] + rng.integers(1, 4)) % 4
+        for _ in range((0, 0, 2, 3)[kind]):
+            c[int(rng.integers(0, ln))] = 4
+        if kind == 3:
+            c = np.where(c < 4, 3 - c, c)[::-1].astype(np.uint8)
+        reads.append(c)
+    return reads
+
+
+def coarse_index(mbp: float, rmi_bits: int):
+    """A cut genome under a coarse P-RMI, so that windows are wider than 32
+    x 30 ranks, with a 60-base unit tiled 40 times and a 200-base element
+    dispersed 300 times: runs of equal suffixes wider than any probe. Returns
+    the index and the repeats' (start, length)."""
+    import numpy as np
+
+    from bwameme_tpu_torch.index import bntseq
+    from bwameme_tpu_torch.index.build import build_index
+
+    rng = np.random.default_rng(2025)
+    n = int(mbp * 1e6)
+    code = rng.integers(0, 4, n).astype(np.uint8)
+    code[5000:7400] = np.tile(code[5000:5060], 40)
+    element = code[9000:9200].copy()
+    spots = rng.integers(10000, n - 1000, 300)
+    for st in spots:
+        code[st: st + 200] = element
+    bns = bntseq.BntSeq(l_pac=n, contigs=[bntseq.Contig("chrC", "", 0, n, 0)],
+                        ambs=[], code=code)
+    regions = [(5000, 2400)] + [(int(st) - 60, 320) for st in spots[:20]]
+    return build_index(bns, rmi_bits=rmi_bits), regions
+
+
+def compare_rounds(batch, dev, count_work: bool):
+    """Each round's kernel against its plain version on one batch
+    (bench_util.Rounds), all values equal. Yields (k, the kernel's result,
+    max abs err, the plain version's wall ms, the work that a second run of
+    the plain version counted (ops.sa_search.Work; None unless asked), the
+    kernel's own counts (2, R))."""
+    import torch
+
+    from bwameme_tpu_torch.ops.sa_search import Work
+
+    for k in range(3):
+        counts = torch.zeros((2, batch.R), dtype=torch.int32, device=dev)
+        res = batch.run(k, batch.kernels[k], counts=counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = batch.run(k, batch.plain[k])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        work = Work(batch.R, dev) if count_work else None
+        if count_work:
+            batch.run(k, batch.plain[k], work=work)
+        err = round_err(res, want)
+        check(err == 0, f"seed_round{k + 1} differs from its plain "
+              f"version: {err}")
+        yield k, res, err, plain_ms, work, counts
+
+
+def seeding_row(err, kern, plain_ms, work, counts, chain_us: float,
+                fixed_bytes: int) -> dict:
+    """A seeding kernel's numbers: ms, the median time of a call made alone
+    (the wrapper and the launch included), and device_ms, the card's time a
+    call with the host out of the way. The byte bound is a floor under every
+    design: the distinct index sectors this launch's answers stand on, as
+    the plain version gathered them by address (the leaf record of each
+    longest-match search, the rank rows at ip - 1 and ip and on both sides
+    of both borders of every interval a caller reads, the text that decides
+    their compares; a sector shared by rows, queries or reads once), plus
+    the tables read and the results written once. Beside it: the sectors
+    the scalar contract's binary searches read (work_sectors, one a probe),
+    the kernel's own (rank rows and text, whole windows a step; their ratio
+    to the work's, and to the answers' rank-row and text sectors). The
+    latency figure is the slowest warp's dependent steps, as it counted
+    them, times the least a dependent 16-byte random read takes (the chain
+    microbenchmark of this run at a batch's lanes): the chain no batch can
+    be faster than."""
+    n_answer, n_work = work.answer_sectors(), int(work.probes.sum())
+    n_rows_text = work.answer_sectors(leaves=False)
+    n_kernel, steps = int(counts[0].sum()), int(counts[1].max())
+    check(n_kernel >= n_rows_text, "the kernel read fewer sectors than its "
+          "answers stand on: the bound is no floor")
+    from bwameme_tpu_torch.bench_util import cuda_ms, queued_us
+
+    return dict(
+        max_abs_err=err, ms=cuda_ms(kern, 10),
+        device_ms=queued_us(kern, 100) / 1e3, plain_ms=plain_ms,
+        library_ms=None,
+        bound_ms=(n_answer * SECTOR + fixed_bytes) / HBM_BPS * 1e3,
+        bound_by="bytes", answer_sectors=n_answer, work_sectors=n_work,
+        kernel_sectors=n_kernel,
+        kernel_sectors_ratio=n_kernel / max(n_work, 1),
+        kernel_to_answer_ratio=n_kernel / max(n_rows_text, 1),
+        latency_steps=steps, latency_bound_ms=steps * chain_us / 1e3)
+
+
 def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
                  chain_us: float):
+    """``chain_us``: us a dependent 16-byte load at a batch's lanes, as
+    ``phase_gather`` measured it."""
     import numpy as np
     import torch
 
-    from bwameme_tpu_torch.bench_util import cuda_ms
+    from bwameme_tpu_torch.bench_util import (Rounds, cuda_ms, get_index,
+                                              planted_repeats,
+                                              simulated_reads)
     from bwameme_tpu_torch.index.build import load_index
     from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
     from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.ops.sa_search import Work
     from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
     from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine
     from bwameme_tpu_torch.utils.config import MemOptions
@@ -628,10 +724,8 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
     # reads, prepared on the card as the engine prepares them
     reads = simulated_reads(idx.text, idx.l_pac, n_reads, 151, rng,
                             planted_repeats(mbp))
-    mat, lens_np, _ = eng._batch_matrix(reads)
-    lens = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
-    qbuf, nf, nr, nvf = seed_smem.prepare_reads(
-        torch.from_numpy(mat).to(dev), lens)
+    batch = Rounds(eng, reads, dev)
+    qbuf, nf, nr, nvf = batch.prep
     R = n_reads
 
     # sa_query jobs cut from the reads: both strands, whole windows and cut
@@ -647,64 +741,73 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
     mi = rng.choice([1, 1, 1, 2, 3, 11, 21, 501], R * J)
     jobs = [torch.from_numpy(a.astype(np.int32)).to(dev)
             for a in (rd + rev * R, piv, v, mi)]
-    sectors = torch.zeros(R * J, dtype=torch.int32, device=dev)
-    got = seed_smem_cuda.sa_query(di, qbuf, *jobs, sectors=sectors)
-    want = seed_smem.sa_query_torch(di, qbuf, *jobs)
+    counts = torch.zeros((2, R * J), dtype=torch.int32, device=dev)
+    work = Work(R * J, dev)
+    got = seed_smem_cuda.sa_query(di, qbuf, *jobs, counts=counts)
+    want = seed_smem.sa_query_torch(di, qbuf, *jobs, work=work)
     torch.cuda.synchronize()
     err = abs_err(got, want)
     check(err == 0, f"sa_query differs from its plain version: {err}")
-    n_sec, worst = int(sectors.sum()), int(sectors.max())
+    report["sa_query"] = row = seeding_row(
+        err, lambda: seed_smem_cuda.sa_query(di, qbuf, *jobs),
+        cuda_ms(lambda: seed_smem.sa_query_torch(di, qbuf, *jobs), 1),
+        work, counts, chain_us, R * J * 28)
     log(f"sa_query == plain on {R * J} jobs (max abs err {err}; longest "
         f"match {int(got[0].max())}, {int((got[0] > 48).sum())} past 48 "
-        f"bases; {n_sec / (R * J):.1f} index sectors a job, at most {worst})")
-    report["sa_query"] = dict(
-        max_abs_err=err, latency_bound_ms=worst * chain_us / 1e3,
-        ms=cuda_ms(lambda: seed_smem_cuda.sa_query(di, qbuf, *jobs), 10),
-        plain_ms=cuda_ms(lambda: seed_smem.sa_query_torch(di, qbuf, *jobs), 1),
-        library_ms=None,
-        bound_ms=(n_sec * SECTOR + R * J * 28) / HBM_BPS * 1e3,
-        bound_by="bytes")
+        f"bases; the answers stand on {row['answer_sectors']} distinct index "
+        f"sectors, {row['answer_sectors'] / (R * J):.1f} a job; the scalar "
+        f"searches read {row['work_sectors'] / (R * J):.1f} a job, at most "
+        f"{int(work.probes.max())}; the kernel "
+        f"{row['kernel_sectors'] / (R * J):.1f} sectors and "
+        f"{float(counts[1].float().mean()):.1f} dependent steps a job, at "
+        f"most {row['latency_steps']}); kernel {row['ms']:.4f} ms a call alone, "
+        f"{row['device_ms']:.4f} ms on the card")
 
     # the three rounds: kernel == plain on the whole batch
-    M, M2 = eng.max_smems, eng.max_reseeds
-    sec = [torch.zeros(R, dtype=torch.int32, device=dev) for _ in range(3)]
-    r1 = lambda fn, **kw: fn(di, qbuf, nf, nr, nvf, lens, opt.min_seed_len,
-                             M, **kw)
-    k1 = r1(seed_smem_cuda.seed_round1, sectors=sec[0])
-    r2 = lambda fn, **kw: fn(di, qbuf, nf, nr, lens, k1[0], k1[1],
-                             opt.split_len, opt.split_width,
-                             opt.min_seed_len, M2, **kw)
-    r3 = lambda fn, **kw: fn(di, qbuf, nf, lens, opt.max_mem_intv,
-                             opt.min_seed_len + 1, M, **kw)
-    k2 = r2(seed_smem_cuda.seed_round2, sectors=sec[1])
-    k3 = r3(seed_smem_cuda.seed_round3, sectors=sec[2])
-    plain = (seed_smem.seed_round1_torch, seed_smem.seed_round2_torch,
-             seed_smem.seed_round3_torch)
     table_bytes = 4 * (qbuf.numel() + 3 * nf.numel() + R)
-    for name, run, kern, res, pl, sc in (
-            ("seed_round1", r1, seed_smem_cuda.seed_round1, k1, plain[0], sec[0]),
-            ("seed_round2", r2, seed_smem_cuda.seed_round2, k2, plain[1], sec[1]),
-            ("seed_round3", r3, seed_smem_cuda.seed_round3, k3, plain[2], sec[2])):
-        t0 = time.perf_counter()
-        want = run(pl)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = round_err(res, want)
-        check(err == 0, f"{name} differs from its plain version: {err}")
+    for k, res, err, plain_ms, work, counts in compare_rounds(batch, dev,
+                                                             True):
+        name = f"seed_round{k + 1}"
         check(int(res[2].sum()) == 0, f"{name} ran out of emission slots")
-        n_sec, worst = int(sc.sum()), int(sc.max())
-        ms = cuda_ms(lambda: run(kern), 10)
+        report[name] = row = seeding_row(
+            err, lambda: batch.run(k, batch.kernels[k]), plain_ms, work,
+            counts, chain_us,
+            table_bytes + 4 * int(res[1].sum()) * 4)
         log(f"{name} == plain on {R} reads (max abs err {err}): "
-            f"{int(res[1].sum())} SMEMs; "
-            f"{n_sec / R:.0f} index sectors a read, at most {worst} "
-            f"(x {chain_us:.3f} us a dependent load = {worst * chain_us / 1e3:.3f}"
-            f" ms for the slowest read); kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.0f} ms (one run)")
-        report[name] = dict(
-            max_abs_err=err, latency_bound_ms=worst * chain_us / 1e3,
-            ms=ms, plain_ms=plain_ms, library_ms=None,
-            bound_ms=(n_sec * SECTOR + table_bytes + 4 * int(res[1].sum()) * 4)
-            / HBM_BPS * 1e3, bound_by="bytes")
+            f"{int(res[1].sum())} SMEMs; the answers stand on "
+            f"{row['answer_sectors']} distinct index sectors, "
+            f"{row['answer_sectors'] / R:.0f} a read; the scalar searches "
+            f"read {row['work_sectors'] / R:.0f} a read, at most "
+            f"{int(work.probes.max())}; the kernel "
+            f"{row['kernel_sectors'] / R:.0f} "
+            f"sectors and {float(counts[1].float().mean()):.0f} dependent "
+            f"steps a read, at most {row['latency_steps']} (x {chain_us:.3f} "
+            f"us a dependent load at {R} lanes = "
+            f"{row['latency_bound_ms']:.3f} ms for the slowest read); kernel "
+            f"{row['ms']:.4f} ms a call alone, {row['device_ms']:.4f} ms on "
+            f"the card, plain {plain_ms:.0f} ms (one run)")
+
+    # reads that stress a warp-a-read search, on this index and on a cut
+    # genome under a coarse P-RMI; batch sizes that fill no block
+    t0 = time.perf_counter()
+    coarse, regions = coarse_index(COARSE_MBP, COARSE_RMI_BITS)
+    coarse_eng = DeviceSeedingEngine(coarse, opt, lanes=N_STRESS, device=dev)
+    check(coarse_eng.di.max_width > 32 * 30, "the coarse index's windows are "
+          f"only {coarse_eng.di.max_width} ranks wide")
+    for label, e, regs in (("the bench index", eng, planted_repeats(mbp)),
+                           ("the coarse index", coarse_eng, regions)):
+        sreads = stress_reads(e.idx.text, e.idx.l_pac, N_STRESS, rng, regs)
+        stress = Rounds(e, sreads, dev)
+        found = [(int(res[1].sum()), int(res[2].sum()),
+                  int(counts[1].max()))
+                 for _, res, _, _, _, counts in compare_rounds(stress, dev,
+                                                               False)]
+        log(f"stress reads on {label} (widest window {e.di.max_width}): "
+            f"the three rounds == plain on {N_STRESS} reads of 19-500 bp "
+            f"(from repeats, with N); SMEMs, emissions past the slots, most "
+            f"steps of a read: {found}")
+    log(f"stress cases took {time.perf_counter() - t0:.1f} s")
+    del coarse_eng, stress
 
     # through the engine, against the scalar oracle
     host = HostSeedingEngine(idx, opt)
@@ -738,37 +841,6 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
 
 
 # ---------------------------------------------------- phase 5: end to end
-
-
-def get_index(mbp: float) -> str:
-    """The bench genome (bench.py:get_index: seed 2024, 200 planted
-    repeats), built once and cached under .bench_cache/."""
-    import numpy as np
-
-    from bwameme_tpu_torch.index import bntseq
-    from bwameme_tpu_torch.index.build import build_index, save_index
-
-    prefix = os.path.join(CACHE, f"bench_{mbp:g}mbp")
-    if os.path.isdir(prefix + ".meme"):
-        log(f"index: cached {os.path.relpath(prefix, ROOT)}")
-        return prefix
-    os.makedirs(CACHE, exist_ok=True)
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(2024)
-    n = int(mbp * 1e6)
-    code = rng.integers(0, 4, n).astype(np.uint8)
-    for _ in range(200):
-        src = int(rng.integers(0, n - 5000))
-        dst = int(rng.integers(0, n - 5000))
-        ln = int(rng.integers(300, 3000))
-        code[dst: dst + ln] = code[src: src + ln]
-    bns = bntseq.BntSeq(l_pac=n, contigs=[bntseq.Contig("chrB", "", 0, n, 0)],
-                        ambs=[], code=code)
-    idx = build_index(bns)
-    save_index(idx, prefix)
-    log(f"index: built {mbp:g} Mbp in {time.perf_counter() - t0:.1f} s "
-        f"(n_sa={idx.n_sa}, rmi_bits={idx.rmi_bits})")
-    return prefix
 
 
 def write_reads(path: str, text, l_pac: int, n: int, read_len: int, rng):
@@ -858,6 +930,7 @@ def phase_end_to_end(mbp: float, n_reads: int, n_long: int, batch: int,
     import torch
 
     from bwameme_tpu_torch import cli
+    from bwameme_tpu_torch.bench_util import CACHE, get_index
     from bwameme_tpu_torch.index.build import load_index
     from bwameme_tpu_torch.ops.launch import stats
     from bwameme_tpu_torch.utils.timer import TPROF

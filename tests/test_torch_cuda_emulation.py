@@ -1,17 +1,19 @@
 """The port's CUDA sources, run on the CPU.
 
 There is no nvcc and no card here, so g++ compiles csrc/*.cu as C++ behind a
-stand-in for <cuda_runtime.h> (SHIM_HEADER below). The threads of the seeding
-and gather kernels do not cooperate (one thread a read, a job or a unit), so
-every thread of a launch runs in turn. The banded-SW kernel is a warp a job:
-its build (EMU_FIBERS) runs the threads of a block as fibers that advance in
-lock step, every warp primitive (__shfl_*_sync, __ballot_sync,
-__reduce_max_sync, __syncwarp) and __syncthreads being a point where a fiber
-waits for the others of its warp or block and then reads what they brought.
+stand-in for <cuda_runtime.h> (SHIM_HEADER below). The threads of the gather
+kernels do not cooperate (one thread a unit), so every thread of a launch
+runs in turn. The banded-SW kernel is a warp a job and the seeding kernels a
+warp a read: their build (EMU_FIBERS) runs the threads of a block as fibers
+that advance in lock step, every warp primitive (__shfl_*_sync,
+__ballot_sync, __reduce_*_sync, __syncwarp) and __syncthreads being a point
+where a fiber waits for the others of its warp or block and then reads what
+they brought.
 The real ctypes wrappers then launch these builds on CPU tensors, and each
 kernel is held against its plain PyTorch version, all values equal. This
 checks the kernels' arithmetic, control flow and lane cooperation, the
-wrappers' argument lists and the sector counts; what only the card can show
+wrappers' argument lists and the counts of sectors and steps; what only the
+card can show
 (that nvcc accepts the source, the float intrinsics' rounding, races between
 lanes that a lock-step run cannot have, timing) is chip_smoke.py's."""
 
@@ -183,6 +185,12 @@ static inline int __reduce_min_sync(unsigned, int v) {
     const int* all = emu_meet(emu_warp(), emu_lane(), v);
     return *std::min_element(all, all + 32);
 }
+static inline int __reduce_add_sync(unsigned, int v) {
+    const int* all = emu_meet(emu_warp(), emu_lane(), v);
+    int sum = 0;
+    for (int k = 0; k < 32; ++k) sum += all[k];
+    return sum;
+}
 static void emu_trampoline() {
     (*emu_body)();
     const unsigned me = threadIdx.x;
@@ -234,7 +242,7 @@ LAUNCH = re.compile(
     r"([\w<>]+)<<<(.*?),\s*(\w+),\s*\w+,\s*\(cudaStream_t\)stream>>>\(", re.S)
 DYNAMIC_SHARED = re.compile(r"extern __shared__ int (\w+)\[\];")
 # name -> (launches in the source, extra g++ flags)
-EMULATED = {"seed_smem": (5, ()), "gather_bench": (2, ()),
+EMULATED = {"seed_smem": (5, ("-DEMU_FIBERS",)), "gather_bench": (2, ()),
             "banded_sw": (2, ("-DEMU_FIBERS",))}
 
 
@@ -320,7 +328,17 @@ def world():
     lens = torch.from_numpy(lens_np.astype(np.int32))
     prep = seed_smem.prepare_reads(torch.from_numpy(mat), lens)
     return dict(idx=idx, opt=opt, eng=eng, reads=reads, lens=lens, prep=prep,
-                rng=rng)
+                rng=rng, bns=bns)
+
+
+def _prepared(idx, reads):
+    """A world of its own: an engine on the CPU and the reads as it prepares
+    them."""
+    eng = DeviceSeedingEngine(idx, MemOptions(), device="cpu")
+    mat, lens_np, _ = eng._batch_matrix(reads)
+    lens = torch.from_numpy(lens_np.astype(np.int32))
+    return dict(idx=idx, opt=MemOptions(), eng=eng, reads=reads, lens=lens,
+                prep=seed_smem.prepare_reads(torch.from_numpy(mat), lens))
 
 
 def _same_round(a, b):
@@ -362,32 +380,114 @@ def test_sa_query_kernel(world, on_emulation):
     mi = rng.choice([1, 1, 2, 3, 9, 21, 1000], len(rows))
     jobs = [torch.tensor(np.asarray(a), dtype=torch.int32)
             for a in (rows, pivs, vs, mi)]
-    sectors = torch.zeros(len(rows), dtype=torch.int32)
-    got = seed_smem_cuda.sa_query(di, qbuf, *jobs, sectors=sectors)
-    assert torch.equal(got, seed_smem.sa_query_torch(di, qbuf, *jobs))
+    counts = torch.zeros((2, len(rows)), dtype=torch.int32)
+    got = seed_smem_cuda.sa_query(di, qbuf, *jobs, counts=counts)
+    work = ss.Work(len(rows), "cpu")
+    assert torch.equal(got, seed_smem.sa_query_torch(di, qbuf, *jobs,
+                                                     work=work))
     assert int(got[0].max()) > 112 and int((jobs[2] == 0).sum()) > 0
-    # a job with a pattern read at least its window's binary search
-    assert bool((sectors[jobs[2] > 0] >= 2).all())
-    assert bool((sectors[jobs[2] == 0] == 0).all())
+    # a job with a pattern took at least a leaf record and a probe of its
+    # window's ranks; one without took nothing
+    sectors, steps = counts
+    assert bool((steps[jobs[2] > 0] >= 2).all())
+    assert bool((sectors[jobs[2] > 0] >= 1).all())
+    assert bool((counts[:, jobs[2] == 0] == 0).all())
+    # the probes of the scalar contract's searches: a pin of the plain
+    # version's count (recorded when it equalled, job for job, what a kernel
+    # of one thread a job counted while it read; that kernel is gone)
+    probes = work.probes
+    assert (int(probes.sum()), int(probes.max())) == (16279, 250)
+    assert bool((probes[jobs[2] == 0] == 0).all())
+    # what the answers stand on, held against the scalar HostSeedingEngine
+    # made to note the rows beside its insertion points and borders
+    noting = _NotingHostEngine(world["idx"], world["opt"])
+    for row, piv, v, m in zip(*(j.tolist() for j in jobs)):
+        noting.sa_query(_pattern(world, row, piv, v), m)
+    ids = work.answer_ids()
+    assert ids[ids < ss.IN_PARAMS].tolist() == sorted(noting.sectors)
+    # no floor unless the kernel read at least that
+    assert int(sectors.sum()) >= work.answer_sectors(leaves=False)
+
+
+def _pattern(w, row: int, piv: int, v: int):
+    """pattern[:v] of query row ``row`` from ``piv`` as the device packs it:
+    the read or its reverse complement, N as A, T past its end."""
+    R = len(w["reads"])
+    c = w["reads"][row % R]
+    c = np.where(c < 4, 3 - c, c)[::-1] if row >= R else c
+    c = np.concatenate([np.where(c >= 4, 0, c), np.full(v, 3)])
+    return c[piv: piv + v].astype(np.uint8)
+
+
+class _NotingHostEngine(HostSeedingEngine):
+    """The scalar engine, noting the 32-byte index sectors its answers stand
+    on: for each compare at ip - 1 and ip of a match shorter than the
+    pattern (a match of the whole pattern stands on its interval's first
+    row) and on both sides of both borders of an interval, the rank row (16
+    bytes: rank >> 1) and, where the first 48 bases tie and the pattern is
+    longer, the packed text (128 bases a sector) from the 49th base to the
+    first that differs or the pattern's last, as far as the text goes."""
+
+    def __init__(self, idx, opt) -> None:
+        super().__init__(idx, opt)
+        self.sectors = set()
+
+    def _note(self, rank: int, pat) -> None:
+        if not 0 <= rank < self.n:
+            return
+        self.sectors.add(rank >> 1)
+        pos, lcp = int(self.sa[rank]), self._lcp(rank, pat)
+        end = min(pos + min(lcp + 1, len(pat)), self.n)
+        for base in range(pos + 48, end):
+            self.sectors.add(ss.IN_TEXT + (base >> 7))
+
+    def find_longest(self, pat):
+        mlen = super().find_longest(pat)
+        if mlen < len(pat):
+            ip = self._lower_bound(pat)
+            self._note(ip - 1, pat), self._note(ip, pat)
+        return mlen
+
+    def interval_at(self, pat, length):
+        lb, cnt = super().interval_at(pat, length)
+        for rank in (lb - 1, lb, lb + cnt - 1, lb + cnt):
+            self._note(rank, pat[:length])
+        return lb, cnt
+
+
+PLAIN_ROUNDS = (seed_smem.seed_round1_torch, seed_smem.seed_round2_torch,
+                seed_smem.seed_round3_torch)
+KERNEL_ROUNDS = (seed_smem_cuda.seed_round1, seed_smem_cuda.seed_round2,
+                 seed_smem_cuda.seed_round3)
+
+
+def _three_rounds(w, fns, M=96, extra=({}, {}, {})):
+    """The three rounds of the world ``w`` through one implementation;
+    extra[k] holds round k's counter (the plain versions' ``work``, the
+    kernels' ``counts``)."""
+    di, opt, lens = w["eng"].di, w["opt"], w["lens"]
+    qbuf, nf, nr, nvf = w["prep"]
+    k1 = fns[0](di, qbuf, nf, nr, nvf, lens, opt.min_seed_len, M, **extra[0])
+    k2 = fns[1](di, qbuf, nf, nr, lens, k1[0], k1[1], opt.split_len,
+                opt.split_width, opt.min_seed_len, min(M, 16), **extra[1])
+    k3 = fns[2](di, qbuf, nf, lens, opt.max_mem_intv, opt.min_seed_len + 1,
+                M, **extra[2])
+    return k1, k2, k3
+
+
+def _three_rounds_equal(w, M=96):
+    plain = _three_rounds(w, PLAIN_ROUNDS, M)
+    kern = _three_rounds(w, KERNEL_ROUNDS, M)
+    for k, p in zip(kern, plain):
+        _same_round(k, p)
+    return kern
 
 
 @pytest.mark.parametrize("M", [96, 2], ids=["M96", "M2_overflows"])
 def test_round_kernels(world, on_emulation, M):
     """The three rounds at the engine's capacities, and at 2 slots a read,
     where the emissions that find no slot are counted, not lost."""
-    di, opt, lens = world["eng"].di, world["opt"], world["lens"]
-    qbuf, nf, nr, nvf = world["prep"]
-    k1 = seed_smem_cuda.seed_round1(di, qbuf, nf, nr, nvf, lens,
-                                    opt.min_seed_len, M)
-    _same_round(k1, seed_smem.seed_round1_torch(di, qbuf, nf, nr, nvf, lens,
-                                                opt.min_seed_len, M))
-    args2 = (di, qbuf, nf, nr, lens, k1[0], k1[1], opt.split_len,
-             opt.split_width, opt.min_seed_len, min(M, 16))
-    k2 = seed_smem_cuda.seed_round2(*args2)
-    _same_round(k2, seed_smem.seed_round2_torch(*args2))
-    args3 = (di, qbuf, nf, lens, opt.max_mem_intv, opt.min_seed_len + 1, M)
-    k3 = seed_smem_cuda.seed_round3(*args3)
-    _same_round(k3, seed_smem.seed_round3_torch(*args3))
+    k1, k2, k3 = _three_rounds_equal(world, M)
     dropped = sum(int(k[2].sum()) for k in (k1, k2, k3))
     if M == 96:
         assert dropped == 0 and int(k1[1].sum()) > 0 and int(k3[1].sum()) > 0
@@ -410,6 +510,119 @@ def test_engine_over_the_kernels_equals_the_host_oracle(world, on_emulation,
             for lst in flat.to_lists()] == want
     assert [launch.stats.launches[f"seed_round{k}"] for k in (1, 2, 3)] == [
         1, 1, 1]
+
+
+@pytest.mark.parametrize("R", [1, 31, 33])
+def test_round_kernels_on_batches_that_fill_no_block(world, on_emulation, R):
+    """A warp a read, four warps a block: one read, and counts that leave
+    the last block one and three warps short."""
+    kern = _three_rounds_equal(_prepared(world["idx"], world["reads"][:R]))
+    assert all(k[1].shape[0] == R for k in kern)
+    assert int(kern[0][1].sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["one_tree_step", "two_tree_steps"])
+def test_round_kernels_on_windows_wider_than_a_warp(world, on_emulation,
+                                                     case):
+    """A coarse P-RMI gives windows of more ranks than a warp has lanes: the
+    search narrows them five levels of the scalar search a step before the
+    last, consecutive probe. On the world's text at rmi_bits=6 the windows
+    are 20 to 62 ranks wide; on a text of skewed composition at rmi_bits=3,
+    479 to 3503: wider than 32 x 30, two such steps."""
+    if case == "one_tree_step":
+        idx = build_index(world["bns"], rmi_bits=6)
+        reads = world["reads"][:10] + world["reads"][24:]
+        wider_than = 30
+    else:
+        rng = np.random.default_rng(53)
+        n = 12000
+        code = rng.choice(4, n, p=[0.7, 0.1, 0.1, 0.1]).astype(np.uint8)
+        bns = bntseq.BntSeq(l_pac=n,
+                            contigs=[bntseq.Contig("c", "", 0, n, 0)],
+                            ambs=[], code=code)
+        idx = build_index(bns, rmi_bits=3)
+        reads = []
+        for i in range(8):
+            st = int(rng.integers(0, n - 100))
+            c = idx.text[st: st + 100].copy()
+            c[int(rng.integers(0, 100))] ^= 1
+            reads.append(c if i % 2 else (3 - c[::-1]).astype(np.uint8))
+        wider_than = 32 * 30
+    w = _prepared(idx, reads)
+    assert w["eng"].di.max_width > wider_than
+    kern = _three_rounds_equal(w)
+    assert int(kern[0][1].sum()) > 0 and int(kern[2][1].sum()) > 0
+
+
+def test_sa_query_kernel_at_the_array_ends_and_on_deep_ties(world,
+                                                            on_emulation):
+    """Poly-A and poly-T patterns, whose windows start at rank 0 and end at
+    n_sa (the probe's margin reaches past both ends of the array), and
+    patterns from the tiled repeat cut at and around 48, 112 and 176 bases
+    and beyond: ties that the rank row cannot break go to the packed text
+    128 bases a step."""
+    idx = world["idx"]
+    reads = [np.zeros(60, np.uint8), np.full(60, 3, np.uint8),
+             idx.text[9010:9490].copy()]
+    w = _prepared(idx, reads)
+    di, qbuf = w["eng"].di, w["prep"][0]
+    rows, pivs, vs, mis = [], [], [], []
+    for row in (0, 1, 3, 4):            # both reads, both strands
+        for v in (1, 5, 19, 31, 32, 40, 60):
+            for mi in (1, 3, 1000):
+                rows.append(row), pivs.append(0), vs.append(v), mis.append(mi)
+    for piv in (0, 7, 50):
+        for v in (47, 48, 49, 60, 111, 112, 113, 120, 175, 176, 177, 200,
+                  240, 241, 300, 430):
+            for mi in (1, 2, 9, 1000):
+                rows.append(2), pivs.append(piv), vs.append(v), mis.append(mi)
+    jobs = [torch.tensor(a, dtype=torch.int32) for a in (rows, pivs, vs, mis)]
+    got = seed_smem_cuda.sa_query(di, qbuf, *jobs)
+    assert torch.equal(got, seed_smem.sa_query_torch(di, qbuf, *jobs))
+    assert int(got[0].max()) > 400
+    ones = torch.full((1,), ss.FULL)
+    lo_a, _ = ss.prmi_window(di, torch.zeros(1, dtype=torch.int64) | 0x3FF,
+                             ones)
+    _, hi_t = ss.prmi_window(di, ones, ones)
+    assert int(lo_a) == 0 and int(hi_t) == di.n_sa
+
+
+# A pin of the plain versions' count of the scalar contract's probes (one a
+# rank row in range, one a 64-base text segment) for each read of ``world``
+# in rounds 1, 2 and 3. Recorded when it equalled, read for read, what the
+# kernels of one thread a read counted while they read; those kernels are
+# gone, so this now holds the counter to what it was, not to a second
+# implementation (the answers' sectors below are held to one).
+WORLD_PROBES = (
+    [33, 241, 19, 20, 193, 19, 21, 180, 456, 391, 308, 249, 33, 153, 510, 168,
+     21, 20, 19, 20, 284, 190, 349, 296, 33, 29, 33, 34, 20, 22, 0, 418, 0,
+     66],
+    [85, 88, 49, 46, 128, 47, 50, 89, 132, 89, 78, 49, 89, 49, 125, 54, 50,
+     56, 48, 48, 83, 88, 90, 49, 158, 151, 158, 175, 53, 54, 0, 0, 0, 430],
+    [100, 94, 130, 132, 88, 129, 127, 106, 90, 77, 92, 105, 113, 119, 85, 112,
+     117, 129, 133, 131, 78, 108, 91, 100, 240, 187, 215, 253, 134, 139, 0, 8,
+     0, 2995])
+
+
+def test_plain_sector_count_is_the_work(world, on_emulation):
+    """The plain versions count the probes the scalar contract makes, read
+    for read, and the distinct sectors the answers stand on; the kernels
+    count their own traffic and steps: whole windows a step, so fewer steps
+    than probes, and never fewer sectors than the answers need."""
+    R = world["lens"].shape[0]
+    work = [ss.Work(R, "cpu") for _ in range(3)]
+    _three_rounds(world, PLAIN_ROUNDS, extra=[{"work": w} for w in work])
+    assert [w.probes.tolist() for w in work] == [list(w) for w in WORLD_PROBES]
+    counts = [torch.zeros((2, R), dtype=torch.int32) for _ in range(3)]
+    _three_rounds(world, KERNEL_ROUNDS, extra=[{"counts": c} for c in counts])
+    for w, c in zip(work, counts):
+        sectors, steps = c
+        assert bool(((sectors > 0) == (w.probes > 0)).all())
+        assert bool(((steps > 0) == (w.probes > 0)).all())
+        # a shorter chain than one load a probe
+        assert bool((steps <= w.probes).all())
+        assert 0 < w.answer_sectors(leaves=False) <= int(sectors.sum())
+        assert w.answer_sectors() < int(w.probes.sum())
 
 
 @pytest.mark.parametrize("width", [4, 128])

@@ -17,6 +17,7 @@ from bwameme_tpu.index import bntseq
 from bwameme_tpu.index.build import build_index
 from bwameme_tpu.seeding.engine import DeviceSeedingEngine as JaxEngine
 from bwameme_tpu.utils.config import MemOptions as JaxMemOptions
+from bwameme_tpu_torch.ops import sa_search as ss
 from bwameme_tpu_torch.ops import seed_smem
 from bwameme_tpu_torch.seeding.engine import (DeviceSeedingEngine,
                                               SeedCapacityError)
@@ -240,3 +241,42 @@ def test_prepare_reads_equals_host_packing(engines, families):
         nv = [next((j for j in range(k, len(c)) if c[j] < 4), len(c))
               for k in range(len(c) + 1)]
         assert nvf[i, : len(c) + 1].tolist() == nv
+
+
+def test_plain_rounds_count_the_work_without_changing_the_result(engines,
+                                                                 families):
+    """``work=`` counts one number of probes a read - the index sectors the
+    scalar contract reads for it - and the distinct sectors the answers
+    stand on, and leaves the round's result as it is: reads that are
+    searched count some, reads too short to seed, all N or empty count
+    none."""
+    eng, opt = engines[2], engines[2].opt
+    reads = families["sampled"][:4] + families["short_and_edge"]
+    mat, lens_np, _ = eng._batch_matrix(reads)
+    lens = torch.from_numpy(lens_np.astype(np.int32))
+    qbuf, nf, nr, nvf = seed_smem.prepare_reads(torch.from_numpy(mat), lens)
+    R = len(reads)
+    rounds = [
+        (seed_smem.seed_round1_torch,
+         (eng.di, qbuf, nf, nr, nvf, lens, opt.min_seed_len, 96)),
+        (seed_smem.seed_round3_torch,
+         (eng.di, qbuf, nf, lens, opt.max_mem_intv, opt.min_seed_len + 1,
+          96))]
+    r1 = rounds[0][0](*rounds[0][1])
+    rounds.insert(1, (seed_smem.seed_round2_torch,
+                      (eng.di, qbuf, nf, nr, lens, r1[0], r1[1],
+                       opt.split_len, opt.split_width, opt.min_seed_len,
+                       16)))
+    searched = torch.tensor([len(c) >= opt.min_seed_len and bool((c < 4).any())
+                             for c in reads])
+    for k, (fn, args) in enumerate(rounds):
+        work = ss.Work(R, "cpu")
+        got, want = fn(*args, work=work), fn(*args)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert bool((work.probes[~searched] == 0).all())
+        if k != 1:      # round 2 reseeds only long, rare SMEMs
+            assert bool((work.probes[searched] > 0).all())
+            assert (0 < work.answer_sectors(leaves=False)
+                    < work.answer_sectors())
+        assert work.answer_sectors() <= int(work.probes.sum())
