@@ -1,18 +1,20 @@
 """ctypes bindings for the native host alignment kernels
-(native/hostkernels.cpp). Falls back to the Python reference implementations
-in align/sw_scalar.py when no C++ toolchain is available."""
+(native/hostkernels.cpp, built by ops/build.host_library into the port's own
+build directory). Falls back to the Python reference implementations in
+align/sw_scalar.py when no C++ toolchain is available."""
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 
 import numpy as np
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO_ROOT, "native", "hostkernels.cpp")
-_LIB = os.path.join(_REPO_ROOT, "native", "build", "libhostkernels.so")
+from bwameme_tpu_torch.ops import build
+
+# -ffp-contract=off: the P-RMI trainer's f32 residual pass must round
+# multiply and add separately, exactly like the numpy reference (fma
+# contraction would shift predictions ~1 ulp)
+GXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-pthread")
 
 _lib = None
 _failed = False
@@ -23,17 +25,7 @@ def _load():
     if _lib is not None or _failed:
         return _lib
     try:
-        if (not os.path.exists(_LIB)) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-            os.makedirs(os.path.dirname(_LIB), exist_ok=True)
-            # -ffp-contract=off: the P-RMI trainer's f32 residual pass must
-            # round multiply and add separately, exactly like the numpy
-            # reference (fma contraction would shift predictions ~1 ulp)
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-ffp-contract=off",
-                 "-pthread", "-shared", "-fPIC", _SRC, "-o", _LIB],
-                check=True, capture_output=True,
-            )
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(build.host_library("hostkernels", GXX_FLAGS))
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i8p = ctypes.POINTER(ctypes.c_int8)
         i32p = ctypes.POINTER(ctypes.c_int32)

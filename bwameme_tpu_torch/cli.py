@@ -2,12 +2,15 @@
 
 ``python -m bwameme_tpu_torch.cli index ref.fa`` builds the same learned
 index as bwameme_tpu (the port's own copy of the host code). ``python -m
-bwameme_tpu_torch.cli mem PREFIX reads.fq`` aligns single-end reads:
+bwameme_tpu_torch.cli mem PREFIX reads.fq`` aligns single-end reads, ``mem
+PREFIX r1.fq r2.fq`` (or ``-p`` and one interleaved file) paired-end reads:
 learned-index seeding on the device (``--engine device``, the default; the
 host engine with ``--engine host``), native chaining, extension in the CUDA
-kernel, native finalization; it writes the same SAM header and records as
-bwameme_tpu. The flags are bwameme_tpu's (bwa-mem's single-letter names);
-what is not ported yet exits 1 naming its ROADMAP item.
+kernel, for pairs mate rescue in the full-SW CUDA kernel (the serial host
+SW with ``--engine host``), native finalization; it writes the same SAM
+header and records as bwameme_tpu. The flags are bwameme_tpu's (bwa-mem's
+single-letter names); what is not ported yet exits 1 naming its ROADMAP
+item.
 
 The device is CUDA unless BWAMEME_PLATFORM=cpu asks for the CPU (where the
 kernels' plain PyTorch versions run). A missing CUDA device is an error,
@@ -180,9 +183,6 @@ def cmd_index(args) -> int:
 
 
 def _not_ported(args) -> str | None:
-    if args.reads2 is not None or args.smartpe:
-        return ("paired-end alignment is not ported yet "
-                "(ROADMAP Queue 1 item 9)")
     if args.engine == "device" and args.mode not in (None, 4):
         return (f"--mode {args.mode} is not ported yet: the device engine "
                 "holds the index in mode 4 only (ROADMAP Queue 1 item 10)")
@@ -303,6 +303,25 @@ def mem_options(args):
     return opt
 
 
+def insert_size(spec: str):
+    """-I mean[,std[,max[,min]]] as the four orientations' statistics: FR
+    fixed, the others failed (as bwameme_tpu.cli.cmd_mem parses it)."""
+    import re
+
+    from bwameme_tpu_torch.align.pairing import PeStat
+
+    nums = [float(x) for x in re.split(r"[^0-9.eE+-]+", spec) if x]
+    fr = PeStat(failed=0)
+    fr.avg = nums[0]
+    fr.std = nums[1] if len(nums) > 1 else fr.avg * 0.1
+    fr.high = int(nums[2] + 0.499) if len(nums) > 2 else int(
+        fr.avg + 4.0 * fr.std + 0.499)
+    fr.low = int(nums[3] + 0.499) if len(nums) > 3 else max(
+        int(fr.avg - 4.0 * fr.std + 0.499), 1)
+    fr.low = max(fr.low, 1)
+    return [PeStat(failed=1), fr, PeStat(failed=1), PeStat(failed=1)]
+
+
 def select_device():
     """CUDA, or the CPU when BWAMEME_PLATFORM=cpu; None if CUDA is asked
     for and absent."""
@@ -360,8 +379,15 @@ def cmd_mem(args) -> int:
         with timer.stage("index_upload"):
             engine = DeviceSeedingEngine(idx, opt, lanes=args.batch,
                                          device=device, mode=args.mode)
+    pes0 = None
+    if args.insert_spec:
+        pes0 = insert_size(args.insert_spec)
+        fr = pes0[1]
+        print(f"[mem] fixed FR insert size: avg={fr.avg} std={fr.std} "
+              f"range [{fr.low},{fr.high}]", file=sys.stderr)
     aligner = Aligner(idx, opt, seeding_engine=engine, rg_id=rg_id,
-                      copy_comment=args.copy_comment, device=device)
+                      copy_comment=args.copy_comment, device=device,
+                      pes0=pes0)
     extra_hdr = None
     if args.hdr_insert:
         hdr_lines = []
@@ -382,16 +408,22 @@ def cmd_mem(args) -> int:
         out.write(sam.sam_header(idx.bns, rg_line=rg_line, pg_line=pg,
                                  extra_hdr=extra_hdr))
         chunk_bp = args.K if args.K else 10_000_000 * max(args.t, 1)
+        paired = args.reads2 is not None or args.smartpe
         n = 0
         t0 = time.time()
-        for chunk in fastq.read_chunks(args.reads1, None, chunk_bp,
-                                       keep_pairs=False):
+        for chunk in fastq.read_chunks(
+                args.reads1, args.reads2, chunk_bp,
+                keep_pairs=paired and args.reads2 is None):
             with timer.stage("align"):
-                batches = (chunk[i: i + args.batch]
-                           for i in range(0, len(chunk), args.batch))
-                for blocks in aligner.align_stream(batches):
+                if paired:
+                    blocks = [aligner.align_pairs(chunk)]
+                else:
+                    batches = (chunk[i: i + args.batch]
+                               for i in range(0, len(chunk), args.batch))
+                    blocks = aligner.align_stream(batches)
+                for block in blocks:
                     with timer.stage("write"):
-                        out.writelines(blocks)
+                        out.writelines(block)
             n += len(chunk)
             print(f"[mem] processed {n} reads "
                   f"({n / (time.time() - t0):.0f} reads/s, {device})",

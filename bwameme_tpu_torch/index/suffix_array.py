@@ -1,7 +1,8 @@
 """Suffix-array construction.
 
 Primary path: the native C++ SA-IS implementation in native/sais.cpp
-(compiled on first use, loaded via ctypes) — the TPU-build analog of the
+(compiled on first use by ops/build.host_library into the port's build
+directory, loaded via ctypes) — the TPU-build analog of the
 reference's vendored saisxx (reference: src/sais.h, src/Learnedindex.cpp:242).
 Fallback: an O(n log^2 n) numpy prefix-doubling builder (used when no C++
 toolchain is present; fine for tests and small references).
@@ -13,14 +14,10 @@ as the unique minimal sentinel (saisxx semantics).
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 
 import numpy as np
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO_ROOT, "native", "sais.cpp")
-_LIB = os.path.join(_REPO_ROOT, "native", "build", "libsais.so")
+from bwameme_tpu_torch.ops import build
 
 _lib = None
 _native_failed = False
@@ -31,15 +28,8 @@ def _load_native():
     if _lib is not None or _native_failed:
         return _lib
     try:
-        if (not os.path.exists(_LIB)) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-            os.makedirs(os.path.dirname(_LIB), exist_ok=True)
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-pthread", "-shared",
-                 "-fPIC", _SRC, "-o", _LIB],
-                check=True,
-                capture_output=True,
-            )
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(build.host_library(
+            "sais", ("-O3", "-march=native", "-pthread")))
         lib.sais_u8.argtypes = [
             ctypes.POINTER(ctypes.c_uint8),
             ctypes.POINTER(ctypes.c_int64),

@@ -1,11 +1,18 @@
-"""Build the port's CUDA kernels with nvcc into shared libraries with a plain
-C interface, bound with ctypes (no PyTorch headers: a build takes seconds,
-not minutes).
+"""Build the port's native libraries into ``bwameme_tpu_torch/build/``
+(listed in .gitignore), at first use, each rebuilt when its source is newer
+than it. Nothing here runs at import time, so the CPU tests import every
+module without nvcc. A failed build raises.
 
-One library per source under ``csrc/``, all compiled at the same time at
-first use into ``bwameme_tpu_torch/build/`` (listed in .gitignore), each
-rebuilt when its source is newer than it. Nothing here runs at import time,
-so the CPU tests import every module without nvcc. A failed build raises.
+* The CUDA kernels: nvcc builds each source under ``csrc/`` into a shared
+  library with a plain C interface, bound with ctypes (no PyTorch headers: a
+  build takes seconds, not minutes), all sources at the same time.
+* The host libraries: g++ builds ``native/*.cpp`` (sources shared with
+  bwameme_tpu, which builds them into ``native/build/``, a directory the
+  port never writes).
+
+Every build writes a file of its own and renames it into place
+(``os.replace``): a process never loads a half-written library, and never
+truncates one that another process has loaded.
 """
 
 from __future__ import annotations
@@ -14,10 +21,12 @@ import dataclasses
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG_DIR, "build")
+NATIVE_DIR = os.path.join(os.path.dirname(PKG_DIR), "native")
 
 # sm_90a keeps Hopper-only instructions available; no --use_fast_math: the
 # band clamp's f32 division must round to nearest
@@ -29,6 +38,7 @@ SOURCES = {
     "banded_sw": (),
     "gather_bench": (),
     "seed_smem": ("-fmad=false",),
+    "sw_full": (),
 }
 
 
@@ -64,16 +74,16 @@ def nvcc_command(nvcc: str, name: str, out: str) -> list[str]:
     return [nvcc, *NVCC_FLAGS, *SOURCES[name], "-o", out, source_path(name)]
 
 
-def _stale(name: str) -> bool:
-    lib = library_path(name)
+def _stale(lib: str, src: str) -> bool:
     return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(source_path(name)))
+            or os.path.getmtime(lib) < os.path.getmtime(src))
 
 
 def build() -> BuildResult:
     """Compile every stale library, one nvcc per source, all at once."""
     paths = {name: library_path(name) for name in SOURCES}
-    todo = [name for name in SOURCES if _stale(name)]
+    todo = [name for name in SOURCES
+            if _stale(paths[name], source_path(name))]
     if not todo:
         return BuildResult(paths, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -98,3 +108,27 @@ def build() -> BuildResult:
         raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
                            + "\n".join(log))
     return BuildResult(paths, time.perf_counter() - t0, "\n".join(log))
+
+
+def host_library(source: str, flags: tuple, build_dir: str = BUILD_DIR) -> str:
+    """The shared library g++ builds from ``native/<source>.cpp`` with
+    ``flags``, in ``build_dir``: built when missing or older than its
+    source, and returned as a path."""
+    src = os.path.join(NATIVE_DIR, f"{source}.cpp")
+    lib = os.path.join(build_dir, f"lib{source}.so")
+    if not _stale(lib, src):
+        return lib
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=f"lib{source}.", suffix=".tmp",
+                               dir=build_dir)
+    os.close(fd)
+    try:
+        proc = subprocess.run(["g++", *flags, "-shared", "-fPIC", src, "-o",
+                               tmp], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {source}.cpp:\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib

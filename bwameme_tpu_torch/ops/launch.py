@@ -24,7 +24,7 @@ from bwameme_tpu_torch.ops import build
 
 KERNELS = ("banded_sw_pairs", "banded_sw_coord", "gather_flat",
            "gather_window", "gather_chain", "prmi_window", "sa_query",
-           "seed_round1", "seed_round2", "seed_round3")
+           "seed_round1", "seed_round2", "seed_round3", "sw_full")
 
 
 @dataclasses.dataclass

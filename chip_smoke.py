@@ -20,6 +20,17 @@ of which ends the run with a non-zero exit and no result line when it fails:
    the window, device memory, all
    outputs exactly equal; 64 jobs against the scalar contract
    (align/sw_scalar.py); the median times of both versions.
+2b. mate rescue's full SW, kernel vs plain: both forms of sw_full (the
+   coordinate form reads the targets from the packed text on the card)
+   against the plain version, all seven outputs exactly equal, on 1024 jobs
+   at a 2 x 151 bp library's rescue shape (windows of 529 rows), on the
+   cases a warp-a-job kernel can get wrong (query lengths around the lanes'
+   multiples, 1 and 0, all-N, empty and one-row targets, targets shorter
+   than their queries, row-maximum ties under unit costs), on a long-insert
+   library's windows of 12000 rows and on queries past the shared-memory
+   cap; 16 jobs against the scalar contract; the times of both versions,
+   the forward pass alone, one job alone (the chain of rows), ptxas's
+   registers and spills.
 3. gathers: the three row-gather kernels against their plain versions, all
    words equal, at 128-word and 4-word rows over a 1 GiB table, for 4096 and
    65536 lanes; then the microbenchmark itself (ops/gather_bench.microbench):
@@ -34,7 +45,7 @@ of which ends the run with a non-zero exit and no result line when it fails:
    rounds (a warp a read) on 4096 reads (mutated, reverse-complemented, with
    N, from the planted repeats), kernel == plain exactly and, through the
    engine, == the port's HostSeedingEngine on 256 of them. Then the rounds
-   on 1021 reads that stress a warp-a-read search (a count that fills no
+   on 509 reads that stress a warp-a-read search (a count that fills no
    block; reads from repeats, of 19-40 bp, of 500 bp, with N), on this index
    and on a 2 Mbp genome with tiled and dispersed repeats under a coarse
    P-RMI whose windows are wider than 32 x 30 ranks, kernel == plain
@@ -55,9 +66,20 @@ of which ends the run with a non-zero exit and no result line when it fails:
    a batch and the extension kernel, the long reads the pair form, the
    deletion reads the retries; at least 95% of the short
    reads map to their source; the SAM records of the first 256 short reads
-   and of the deletion reads are byte-identical to a CPU run of the plain
-   versions, those of the first 256 short reads also to --engine host, and
+   are byte-identical to a CPU run of the plain versions and to --engine
+   host, those of the deletion reads to a CPU run of --engine host (the
+   scalar seeding and the plain banded SW; no rank rows to assemble), and
    those of the long reads to their CPU run.
+5b. paired-end: ``mem r1.fq r2.fq`` with the default engine on 4096 FR
+   pairs of 2 x 151 bp (insert N(400, 40), Poisson(1) substitutions; in
+   every eighth pair the second mate has a substitution every 12 bases, so
+   that only a mate rescue places it). The run starts with every count at
+   0: it must launch each seeding round once a batch, the extension and
+   sw_full; at least 95% of the pairs are flagged proper and 90% of the
+   rescued mates lie at their source. The first 128 pairs under -I 400,40
+   give the same SAM from the card (as one -p interleaved file), from a CPU
+   run of the plain versions and from --engine host (the serial host
+   rescue, which launches no sw_full).
 
 Prints a JSON line of per-kernel numbers, then, last, {"ok": true, ...}.
 Exits 2 with no result when no CUDA device is visible or the port is not
@@ -86,6 +108,7 @@ KERNELS = {
     "seed_round1": ("seed_smem.cu", "bwameme_tpu/seeding/engine.py:1081"),
     "seed_round2": ("seed_smem.cu", "bwameme_tpu/seeding/engine.py:823"),
     "seed_round3": ("seed_smem.cu", "bwameme_tpu/seeding/engine.py:1281"),
+    "sw_full": ("sw_full.cu", "bwameme_tpu/ops/sw_full.py:25"),
 }
 # the one run whose launches a kernel's "launches" counts, from 0
 MEM_PATH = "mem, default engine, 151 bp reads"
@@ -98,6 +121,7 @@ LAUNCH_PATH = {
     "gather_chain": "gather microbenchmark, 4-word rows, 4096 lanes",
     "prmi_window": "the search entry points, one call each",
     "sa_query": "the search entry points, one call each",
+    "sw_full": "mem, default engine, 2 x 151 bp pairs",
 }
 SW_KEYS = ("score", "qle", "tle", "gtle", "gscore", "max_off")
 # published peaks of one H100 SXM: HBM bytes/s; int32 operations/s outside
@@ -111,6 +135,14 @@ PAIRS_SHAPE = (4096, 151, 512)
 LONG_PAIRS_SHAPE = (50, 1030, 1250)
 SLIDING_PAIRS_SHAPE = (9000, 9100)
 COORD_SHAPE = (1024, 4096)
+# phase 2b: mate-rescue jobs (N, Q, T). A 2 x 151 bp library of insert
+# N(400, 40) gives windows of high - low + 151 = 529 rows (bwa's pestat:
+# quartiles +/- 3 IQR); a long-insert library's windows; queries past
+# sw_full_cuda.SHARED_CELLS, whose rows live in device memory
+RESCUE_SHAPE = (1024, 151, 529)
+LONG_INSERT_SHAPE = (16, 151, 12000)
+WIDE_QUERY_SHAPE = (8, 1100, 1400)
+N_SCALAR = 16
 # phase 3: a 1 GiB table at both row widths; lanes; window rows; chain rounds
 GATHER_BYTES = 1 << 30
 GATHER_WIDTHS = (128, 4)
@@ -128,9 +160,15 @@ N_KEYS = 1 << 20
 JOBS_PER_READ = 26
 # phase 4's stress cases: reads (a count that fills no block of four warps),
 # and the cut genome whose coarse P-RMI gives windows wider than 32 x 30
-N_STRESS = 1021
+N_STRESS = 509
 COARSE_MBP = 2
 COARSE_RMI_BITS = 2
+# phase 5b: 2 x 151 bp pairs, insert N(mean, sd); every RESCUED-th pair's
+# second mate only a rescue can place
+N_PAIRS = 4096
+N_CMP_PAIRS = 128
+INSERT = (400, 40)
+RESCUED = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -163,7 +201,7 @@ def phase_card():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or line.startswith("==")):
             log(f"  nvcc: {line.strip()}")
-    return smi
+    return smi, res.log
 
 
 # ---------------------------------------- phase 2: banded SW, kernel vs plain
@@ -395,6 +433,215 @@ def phase_kernels(dev):
         lane_share=bounds[1]["lane_share"], bound_ms=by_ops + by_bytes,
         bound_by="operations" if by_ops >= by_bytes else "bytes")
     return report
+
+
+# ------------------------------- phase 2b: mate rescue's full SW, kernel vs plain
+
+
+def rescue_jobs(rng, text, shape):
+    """Mate-rescue jobs as a paired-end library makes them: each target a
+    window of the text (T rows, fewer where the window met a contig's end),
+    each query a mate cut from it with Poisson(1) substitutions; one in
+    eight with a substitution every 12 bases (no 19-mer seed: the mates
+    only a rescue places), one in sixteen with its mate's copy a second
+    time in the window (score2), one in sixteen not from the window at all.
+    Returns q (N, Q) uint8, jobs (3, N) int32 rows qlen, tstart, tlen."""
+    import numpy as np
+
+    N, Q, T = shape
+    tlen = np.where(rng.random(N) < 0.2, rng.integers(Q, T + 1, N), T)
+    tstart = rng.integers(0, len(text) - T, N)
+    q = np.zeros((N, Q), np.uint8)
+    for b in range(N):
+        off = int(rng.integers(0, tlen[b] - Q + 1))
+        src = text[tstart[b] + off: tstart[b] + off + Q].copy()
+        kind = b % 16
+        if kind in (0, 8):
+            src[6::12] = (src[6::12] + 1) % 4
+        elif kind == 3:
+            src = rng.integers(0, 4, Q).astype(np.uint8)
+        for _ in range(rng.poisson(1.0)):
+            p = int(rng.integers(0, Q))
+            src[p] = (src[p] + rng.integers(1, 4)) % 4
+        if kind == 5 and tlen[b] >= 2 * Q + off + 20:
+            text[tstart[b] + tlen[b] - Q - 5: tstart[b] + tlen[b] - 5] = src
+        q[b] = src
+    return q, np.stack([np.full(N, Q), tstart, tlen]).astype(np.int32)
+
+
+def full_sw_edges(rng, text, Q: int):
+    """Jobs a warp-a-job kernel can get wrong: query lengths around the
+    lanes' multiples, 1 and 0, all-N queries, empty and one-row targets,
+    targets shorter than their queries. Same layout as rescue_jobs."""
+    import numpy as np
+
+    qlen = np.array([0, 1, 2, 31, 32, 33, 63, 64, 65, 100, Q, Q, Q, Q, 40,
+                     Q, 9], np.int32)
+    tlen = np.array([50, 80, 80, 300, 300, 300, 300, 300, 300, 300, 0, 1, 5,
+                     120, 20, 300, 300], np.int32)
+    N = len(qlen)
+    tstart = rng.integers(0, len(text) - 400, N).astype(np.int32)
+    q = np.zeros((N, Q), np.uint8)
+    for b in range(N):
+        src = text[tstart[b] + 7: tstart[b] + 7 + qlen[b]]
+        q[b, : len(src)] = src
+    q[15:, :] = 4
+    return q, np.stack([qlen, tstart, tlen]).astype(np.int32)
+
+
+def ptxas_usage(build_log: str, kernel: str) -> dict:
+    """Registers and spill bytes ptxas reported for a kernel's entry (None
+    when the libraries were already built and nothing was compiled)."""
+    import re
+
+    usage, entry = dict(registers=None, spill_stores=None,
+                        spill_loads=None), False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = kernel in line
+        elif entry and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            usage.update(spill_stores=int(st), spill_loads=int(ld))
+        elif entry and "registers" in line:
+            usage["registers"] = int(re.search(r"Used (\d+) registers",
+                                               line).group(1))
+    return usage
+
+
+def phase_sw_full(dev, build_log: str):
+    """sw_full, both forms, against its plain version on the card, all seven
+    outputs exactly equal: the rescue batch (RESCUE_SHAPE), the edge jobs,
+    ties under unit costs (pair form), a long-insert library's windows
+    (LONG_INSERT_SHAPE) and queries past the shared-memory cap (their rows
+    in device memory); 64 jobs against the scalar contract. Times of the
+    coordinate form (the mate-rescue path) on the rescue batch."""
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch.align.sw_scalar import sw_align
+    from bwameme_tpu_torch.bench_util import cuda_ms, queued_us
+    from bwameme_tpu_torch.index.packing import pack_words
+    from bwameme_tpu_torch.ops import sw_full, sw_full_cuda
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    opt = MemOptions()
+    rng = np.random.default_rng(23)
+    text = rng.integers(0, 4, 4_000_000).astype(np.uint8)
+    batches = {"rescue": rescue_jobs(rng, text, RESCUE_SHAPE),
+               "edge": full_sw_edges(rng, text, RESCUE_SHAPE[1]),
+               "long insert": rescue_jobs(rng, text, LONG_INSERT_SHAPE),
+               "wide query": rescue_jobs(rng, text, WIDE_QUERY_SHAPE)}
+    # every other wide job a mate's length: shared and device memory in
+    # one launch
+    batches["wide query"][1][0, ::2] = RESCUE_SHAPE[1]
+    t32 = torch.from_numpy(np.concatenate(
+        [pack_words(text, pad_code=3),
+         np.full(12, 0xFFFFFFFF, np.uint32)]).view(np.int32)).to(dev)
+    mat = torch.from_numpy(opt.mat.astype(np.int32)).to(dev)
+    gaps = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
+    min_sc = opt.min_seed_len * opt.a
+
+    def coord_args(q, jobs):
+        N = q.shape[0]
+        return (t32, torch.from_numpy(np.ascontiguousarray(q)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(jobs)).to(dev), mat,
+                torch.full((N,), min_sc, dtype=torch.int32, device=dev),
+                *gaps, int(jobs[2].max()))
+
+    def pair_arrays(q, jobs):
+        """The same jobs in the pair form: the targets' codes shipped."""
+        T = int(jobs[2].max())
+        t = np.zeros((q.shape[0], T), np.int32)
+        for b, (st, n) in enumerate(zip(jobs[1], jobs[2])):
+            t[b, :n] = text[st: st + n]
+        return q.astype(np.int32), t, jobs[0].copy(), jobs[2].copy()
+
+    def pair_args(o, arrays):
+        ts = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in arrays]
+        B = ts[0].shape[0]
+        return (*ts, torch.from_numpy(o.mat.astype(np.int32)).to(dev),
+                torch.full((B,), min_sc, dtype=torch.int32, device=dev),
+                o.o_del, o.e_del, o.o_ins, o.e_ins)
+
+    err, n_jobs, results = 0, 0, {}
+    for label, (q, jobs) in batches.items():
+        args = coord_args(q, jobs)
+        got = sw_full_cuda.sw_full_coord(*args)
+        want = sw_full.sw_full_coord_torch(*args)
+        pargs = pair_args(opt, pair_arrays(q, jobs))
+        got_p = sw_full_cuda.sw_full_pairs(*pargs)
+        torch.cuda.synchronize()
+        e = max(abs_err(got, want), abs_err(got_p, want))
+        check(e == 0, f"sw_full on the {label} jobs differs from its plain "
+              f"version: {e}")
+        err, n_jobs, results[label] = max(err, e), n_jobs + q.shape[0], got
+    check(int(results["wide query"][0][1::2].max()) > 1000,
+          "the queries past the shared cells did not align")
+    tie_opt = MemOptions(a=1, b=1, o_del=1, e_del=1, o_ins=1, e_ins=1)
+    tq = rng.integers(0, 2, (1024, 90)).astype(np.int32)
+    tt = np.tile(tq, 3)[:, :200]
+    tt = np.where(rng.random(tt.shape) < 0.1, 1 - tt, tt).astype(np.int32)
+    targs = pair_args(tie_opt, (tq, tt, rng.integers(1, 91, 1024).astype(
+        np.int32), rng.integers(1, 201, 1024).astype(np.int32)))
+    e = abs_err(sw_full_cuda.sw_full_pairs(*targs),
+                sw_full.sw_full_torch(*targs))
+    check(e == 0, f"sw_full on the tie jobs differs: {e}")
+    err = max(err, e)
+    q, jobs = batches["rescue"]
+    res = results["rescue"].cpu().numpy()
+    for b in range(N_SCALAR):
+        st, n = int(jobs[1, b]), int(jobs[2, b])
+        r = sw_align(q[b], text[st: st + n], opt.mat, *gaps, xtra_start=True,
+                     min_sc=min_sc)
+        got = [int(x) for x in res[:, b]]
+        check([r.score, r.te, r.qe, r.score2] == got[:4]
+              and (r.score <= 0 or [r.tb, r.qb] == got[5:]),
+              f"sw_full job {b} differs from sw_scalar.sw_align")
+    sizes = ", ".join(f"{k} {v[0].shape[0]}" for k, v in batches.items())
+    log(f"sw_full == plain, both forms, on {n_jobs} jobs ({sizes}) + 1024 "
+        f"tie jobs (max abs err {err}); == sw_scalar.sw_align on {N_SCALAR}")
+
+    # times: the coordinate form on the rescue batch, both passes
+    args = coord_args(q, jobs)
+    ms = cuda_ms(lambda: sw_full_cuda.sw_full_coord(*args), 20)
+    device_ms = queued_us(lambda: sw_full_cuda.sw_full_coord(*args), 50) / 1e3
+    fwd_ms = cuda_ms(lambda: sw_full_cuda.sw_full_coord(
+        *args, with_start=False), 20)
+    plain_ms = cuda_ms(lambda: sw_full.sw_full_coord_torch(*args), 2)
+    pargs = pair_args(opt, pair_arrays(q, jobs))
+    pairs_ms = cuda_ms(lambda: sw_full_cuda.sw_full_pairs(*pargs), 20)
+    one = coord_args(q[:1], jobs[:, :1])
+    one_ms = cuda_ms(lambda: sw_full_cuda.sw_full_coord(*one), 20)
+    long_args = coord_args(*batches["long insert"])
+    long_ms = cuda_ms(lambda: sw_full_cuda.sw_full_coord(*long_args), 5)
+    # bound: the cells of both passes at about 12 int32 operations a cell
+    # (three maxima, the score lookup, the gap updates, the F carry and
+    # the row maximum), or the bytes: the mates' codes, the jobs, the
+    # windows' packed text and the results, each once
+    ok = res[0] > 0
+    cells = int((jobs[0].astype(np.int64) * jobs[2]).sum()
+                + ((res[2] + 1) * (res[1] + 1))[ok].sum())
+    n_bytes = q.size + 16 * q.shape[0] + int(jobs[2].sum()) // 4 \
+        + 28 * q.shape[0]
+    by_ops, by_bytes = 12 * cells / INT32_OPS * 1e3, n_bytes / HBM_BPS * 1e3
+    rows = int(jobs[2].max()) + int(res[1][ok].max()) + 1
+    usage = ptxas_usage(build_log, "sw_full_coord")
+    log(f"sw_full_coord: {ms:.4f} ms a call alone, {device_ms:.4f} ms on the "
+        f"card, forward pass alone {fwd_ms:.4f}, plain {plain_ms:.1f} ms "
+        f"({q.shape[0]} jobs, Q={q.shape[1]}, T<={int(jobs[2].max())}, "
+        f"{cells} cells of both passes; median); pair form {pairs_ms:.4f} "
+        f"ms; one job alone {one_ms:.4f} ms = "
+        f"{1e3 * one_ms / max(int(jobs[2, 0]) + int(res[1, 0]) + 1, 1):.3f} "
+        f"us a row; {LONG_INSERT_SHAPE[0]} long-insert jobs at "
+        f"T={LONG_INSERT_SHAPE[2]}: {long_ms:.3f} ms; ptxas {usage}")
+    return {"sw_full": dict(
+        max_abs_err=err, ms=ms, device_ms=device_ms, forward_ms=fwd_ms,
+        pairs_ms=pairs_ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=max(by_ops, by_bytes),
+        bound_by="operations" if by_ops >= by_bytes else "bytes",
+        cells=cells, longest_chain_rows=rows, one_job_ms=one_ms,
+        long_insert_ms=long_ms, **usage)}
 
 
 # ------------------------------------------------------- phase 3: gathers
@@ -899,10 +1146,11 @@ def mapped_to_source(records: list[str]) -> tuple[int, int]:
 
 
 def run_mem(cli, prefix: str, reads: str, out: str, device: str,
-            flags=()) -> tuple[float, dict]:
+            flags=(), reads2: str | None = None) -> tuple[float, dict]:
     """cli.main mem on one device (the default engine unless the flags say
     otherwise), with every kernel's launch count set to 0 just before;
-    returns its wall time and the counts read just after."""
+    returns its wall time and the counts read just after. reads2: the
+    second mates' file of a paired-end run."""
     from bwameme_tpu_torch.ops.launch import stats
 
     old = os.environ.pop("BWAMEME_PLATFORM", None)
@@ -911,7 +1159,8 @@ def run_mem(cli, prefix: str, reads: str, out: str, device: str,
     try:
         stats.reset()
         t0 = time.perf_counter()
-        rc = cli.main(["mem", *flags, prefix, reads, "-o", out])
+        rc = cli.main(["mem", *flags, prefix, reads,
+                       *([reads2] if reads2 else []), "-o", out])
         wall = time.perf_counter() - t0
         launches = dict(stats.launches)
     finally:
@@ -1032,14 +1281,206 @@ def phase_end_to_end(mbp: float, n_reads: int, n_long: int, batch: int,
     check(sam_records(sam("long.gpu.sam")) == sam_records(sam("long.cpu.sam")),
           "GPU SAM differs from CPU SAM on long reads")
     ok_l, n_l = mapped_to_source(sam_records(sam("long.cpu.sam")))
-    run_mem(cli, prefix, del_fq, sam("deletions.cpu.sam"), "cpu", ("-w", "20"))
+    run_mem(cli, prefix, del_fq, sam("deletions.cpu.sam"), "cpu",
+            ("--engine", "host", "-w", "20"))
     check(sam_records(sam("deletions.gpu.sam"))
           == sam_records(sam("deletions.cpu.sam")),
           "GPU SAM differs from CPU SAM on the band-retry reads")
     log(f"GPU SAM (device engine) == CPU SAM (plain versions) == --engine "
         f"host SAM on the first {n_cmp} short reads; GPU == CPU on all "
         f"{n_long} long reads ({ok_l}/{n_l} long at source) and 64 "
-        f"two-deletion reads at -w 20 ({retry} band-retry launches)")
+        f"two-deletion reads at -w 20 (device engine against the CPU's "
+        f"--engine host; {retry} band-retry launches)")
+    return by_path
+
+
+# ------------------------------------------------- phase 5b: paired-end
+
+
+def write_pairs(path1: str, path2: str, text, l_pac: int, n: int,
+                read_len: int, rng) -> None:
+    """n FR pairs from the forward strand: insert N(INSERT), Poisson(1)
+    substitutions in each mate, in every other pair the first mate on the
+    reverse strand; in every eighth pair (RESCUED) the second mate also has
+    a substitution every 12 bases, so it has no 19-mer seed and only a mate
+    rescue places it. The name holds both mates' leftmost source positions
+    and whether the pair is one of those."""
+    import numpy as np
+
+    mean, sd = INSERT
+    with open(path1, "w") as f1, open(path2, "w") as f2:
+        for i in range(n):
+            isize = max(int(round(rng.normal(mean, sd))), read_len)
+            p = int(rng.integers(0, l_pac - isize - 1))
+            left = np.array(text[p: p + read_len])
+            right = np.array(text[p + isize - read_len: p + isize])
+            for c in (left, right):
+                for _ in range(rng.poisson(1.0)):
+                    k = int(rng.integers(0, read_len))
+                    c[k] = (c[k] + rng.integers(1, 4)) % 4
+            right = (3 - right[::-1]).astype(np.uint8)
+            (m1, s1), (m2, s2) = ((left, p), (right, p + isize - read_len))
+            if i % 2:
+                (m1, s1), (m2, s2) = (m2, s2), (m1, s1)
+            rescued = i % RESCUED == RESCUED - 1
+            if rescued:
+                m2[6::12] = (m2[6::12] + 1) % 4
+            name = f"p{i}_{s1}_{s2}_{int(rescued)}"
+            for f, m in ((f1, m1), (f2, m2)):
+                seq = "".join("ACGT"[x] for x in m)
+                f.write(f"@{name}\n{seq}\n+\n{'I' * read_len}\n")
+
+
+def interleave(path1: str, path2: str, out: str, n_pairs: int) -> None:
+    """The first n_pairs pairs of two FASTQ files as one interleaved file
+    (the -p form)."""
+    with open(path1) as f1, open(path2) as f2, open(out, "w") as g:
+        a, b = f1.readlines(), f2.readlines()
+        for i in range(0, 4 * n_pairs, 4):
+            g.writelines(a[i: i + 4] + b[i: i + 4])
+
+
+def pairs_placed(records: list[str]) -> dict:
+    """Per pair: both primaries flagged proper (0x2); each mate mapped within
+    10 bases of its source; for the rescued mates apart."""
+    out = dict(pairs=0, proper=0, at_source=0, mates=0, rescued=0,
+               rescued_at_source=0)
+    for ln in records:
+        f = ln.split("\t")
+        flag = int(f[1])
+        if flag & 0x900:
+            continue
+        _, s1, s2, rescued = f[0].split("_")
+        second = bool(flag & 0x80)
+        src = int(s2 if second else s1)
+        ok = not flag & 4 and abs(int(f[3]) - 1 - src) <= 10
+        out["mates"] += 1
+        out["at_source"] += ok
+        if not second:
+            out["pairs"] += 1
+            out["proper"] += bool(flag & 2)
+        elif rescued == "1":
+            out["rescued"] += 1
+            out["rescued_at_source"] += ok
+    return out
+
+
+def phase_pairs(mbp: float, n_pairs: int, batch: int, n_cmp: int):
+    """Paired-end mem on the bench genome: the whole library through the
+    default engine (the main path: seeding and extension of both mates in
+    the kernels, the chunk's rescue SW in one call of sw_full); then the
+    first n_cmp pairs under a fixed -I insert size, whose SAM must be the
+    same from the card (as one -p interleaved file), from a CPU run of the
+    plain versions and from --engine host (the serial host rescue)."""
+    import numpy as np
+
+    from bwameme_tpu_torch import cli
+    from bwameme_tpu_torch.bench_util import CACHE, get_index
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.ops import sw_full
+    from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.utils.timer import TPROF
+
+    prefix = get_index(mbp)
+    idx = load_index(prefix)
+    work = os.path.join(CACHE, "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    rng = np.random.default_rng(29)
+    r1, r2 = (os.path.join(work, f"pairs_{k}.fq") for k in (1, 2))
+    write_pairs(r1, r2, idx.text, idx.l_pac, n_pairs, 151, rng)
+    del idx
+    n_cmp = min(n_cmp, n_pairs)
+    h1, h2, hp = (os.path.join(work, f"pairs_head_{k}.fq")
+                  for k in (1, 2, "p"))
+    for src, dst in ((r1, h1), (r2, h2)):
+        with open(src) as f, open(dst, "w") as g:
+            g.writelines(f.readlines()[: 4 * n_cmp])
+    interleave(r1, r2, hp, n_cmp)
+    sam = lambda name: os.path.join(work, name)
+
+    # the main path, its rescue jobs noted as they go to the kernel
+    jobs_seen = []
+    coord = sw_full.sw_full_coord
+
+    def noting(text32, q, jobs, *rest, **kw):
+        jobs_seen.append(jobs.cpu().numpy())
+        return coord(text32, q, jobs, *rest, **kw)
+
+    sw_full.sw_full_coord = noting
+    stats.events = []
+    TPROF.totals.clear()
+    TPROF.counts.clear()
+    by_path = {}
+    try:
+        wall, by_path["pe"] = run_mem(cli, prefix, r1, sam("pairs.gpu.sam"),
+                                      "cuda", ("--batch", str(batch)),
+                                      reads2=r2)
+        gpu_ms = stats.device_ms()
+    finally:
+        sw_full.sw_full_coord = coord
+        stats.events = None
+    stages = dict(TPROF.totals)
+    got = by_path["pe"]
+    n_batches = -(-2 * n_pairs // batch)
+    check(got["sw_full"] > 0, "sw_full was not launched on the paired-end "
+          "path")
+    for name in ("seed_round1", "seed_round2", "seed_round3"):
+        check(got[name] == n_batches, f"{name}: {got[name]} launches for "
+              f"{n_batches} batches of the paired-end path")
+    check(got["banded_sw_coord"] >= 2 * n_batches, "banded_sw_coord: "
+          f"{got['banded_sw_coord']} launches on the paired-end path")
+    placed = pairs_placed(sam_records(sam("pairs.gpu.sam")))
+    check(placed["pairs"] == n_pairs and placed["mates"] == 2 * n_pairs,
+          f"{placed['mates']} primary records for {n_pairs} pairs")
+    check(placed["proper"] >= 0.95 * n_pairs, f"only {placed['proper']}/"
+          f"{n_pairs} pairs are flagged proper")
+    check(placed["rescued_at_source"] >= 0.9 * placed["rescued"],
+          f"only {placed['rescued_at_source']}/{placed['rescued']} rescued "
+          "mates lie at their source")
+    jobs = np.concatenate(jobs_seen, axis=1)
+    cells = int((jobs[0].astype(np.int64) * jobs[2]).sum())
+    log(f"paired-end ({mbp:g} Mbp, {n_pairs} pairs of 2 x 151 bp, insert "
+        f"N{INSERT}, default engine, batches of {batch}): {n_pairs / wall:.1f}"
+        f" pairs/s over {wall:.2f} s wall (index load and upload included); "
+        f"{placed['proper']} proper, {placed['at_source']}/{placed['mates']} "
+        f"mates at their source, {placed['rescued_at_source']}/"
+        f"{placed['rescued']} of the mates only a rescue places")
+    log(f"rescue: {len(jobs_seen)} call(s) of sw_full, {jobs.shape[1]} jobs, "
+        f"T {int(jobs[2].min())}-{int(jobs[2].max())}, {cells} cells (forward"
+        f" pass); sw_full {gpu_ms.get('sw_full', 0.0):.3f} ms on the card for "
+        f"{got['sw_full']} launches")
+    log("kernel device ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(gpu_ms.items())))
+    log("stages (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(stages.items(),
+                                           key=lambda kv: -kv[1])))
+
+    # the head under a fixed insert size (so that its SAM is its own, not
+    # the whole library's statistics'): the card with the pairs in one -p
+    # file, the plain versions, the host engine with its serial rescue
+    fixed = ("-I", ",".join(map(str, INSERT)))
+    _, by_path["pe_head"] = run_mem(cli, prefix, hp, sam("head.gpu.sam"),
+                                    "cuda", ("-p", *fixed))
+    run_mem(cli, prefix, h1, sam("head.cpu.sam"), "cpu", fixed, reads2=h2)
+    _, by_path["pe_head_host"] = run_mem(
+        cli, prefix, h1, sam("head.host.sam"), "cuda",
+        ("--engine", "host", *fixed), reads2=h2)
+    head = sam_records(sam("head.gpu.sam"))
+    check(head == sam_records(sam("head.cpu.sam")), "paired-end GPU SAM "
+          f"differs from CPU SAM on the first {n_cmp} pairs")
+    check(head == sam_records(sam("head.host.sam")), "paired-end "
+          f"device-engine SAM differs from --engine host SAM on the first "
+          f"{n_cmp} pairs")
+    check(by_path["pe_head"]["sw_full"] > 0, "sw_full was not launched on "
+          "the head's path")
+    check(by_path["pe_head_host"]["sw_full"] == 0, "--engine host launched "
+          "sw_full: its rescue is the serial host SW")
+    for path, counts in by_path.items():
+        log(f"kernel launches, {path}: "
+            f"{ {k: v for k, v in counts.items() if v} }")
+    log(f"paired-end GPU SAM (device engine, -p {' '.join(fixed)}) == CPU SAM "
+        f"(plain versions) == --engine host SAM on the first {n_cmp} pairs "
+        f"({len(head)} records)")
     return by_path
 
 
@@ -1059,22 +1500,35 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     t0 = time.perf_counter()
-    smi = phase_card()
-    report = phase_kernels(dev)
-    gather, chain_us = phase_gather(dev)
+    took = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        took[name] = round(time.perf_counter() - t, 1)
+        torch.cuda.empty_cache()
+        return out
+
+    smi, build_log = timed("card", phase_card)
+    report = timed("banded_sw", phase_kernels, dev)
+    report.update(timed("sw_full", phase_sw_full, dev, build_log))
+    gather, chain_us = timed("gather", phase_gather, dev)
     report.update(gather)
-    torch.cuda.empty_cache()
-    report.update(phase_search(dev, GENOME_MBP, BATCH, N_CMP, N_KEYS,
-                               chain_us))
-    torch.cuda.empty_cache()
-    by_path = phase_end_to_end(GENOME_MBP, N_READS, N_LONG, BATCH, N_CMP)
+    report.update(timed("search", phase_search, dev, GENOME_MBP, BATCH,
+                        N_CMP, N_KEYS, chain_us))
+    by_path = timed("single_end", phase_end_to_end, GENOME_MBP, N_READS,
+                    N_LONG, BATCH, N_CMP)
+    by_path.update(timed("paired_end", phase_pairs, GENOME_MBP, N_PAIRS,
+                         BATCH, N_CMP_PAIRS))
     # the default mem run's counts; the pair form runs on the long reads' path
     for name in ("banded_sw_coord", "seed_round1", "seed_round2",
                  "seed_round3"):
         report[name]["launches"] = by_path["device"][name]
     report["banded_sw_pairs"]["launches"] = by_path["host_long"][
         "banded_sw_pairs"]
-    log(f"smoke passed in {time.perf_counter() - t0:.1f} s")
+    report["sw_full"]["launches"] = by_path["pe"]["sw_full"]
+    log(f"smoke passed in {time.perf_counter() - t0:.1f} s; phases (s): "
+        f"{took}")
     kernels = [dict(name=name, route="cuda", source=CSRC + src, replaces=repl,
                     launch_path=LAUNCH_PATH[name], **report[name])
                for name, (src, repl) in KERNELS.items()]

@@ -3,8 +3,8 @@
 There is no nvcc and no card here, so g++ compiles csrc/*.cu as C++ behind a
 stand-in for <cuda_runtime.h> (SHIM_HEADER below). The threads of the gather
 kernels do not cooperate (one thread a unit), so every thread of a launch
-runs in turn. The banded-SW kernel is a warp a job and the seeding kernels a
-warp a read: their build (EMU_FIBERS) runs the threads of a block as fibers
+runs in turn. The banded-SW and full-SW kernels are a warp a job and the seeding
+kernels a warp a read: their build (EMU_FIBERS) runs the threads of a block as fibers
 that advance in lock step, every warp primitive (__shfl_*_sync,
 __ballot_sync, __reduce_*_sync, __syncwarp) and __syncthreads being a point
 where a fiber waits for the others of its warp or block and then reads what
@@ -36,6 +36,7 @@ from bwameme_tpu_torch.ops import banded_sw as bsw
 from bwameme_tpu_torch.ops import banded_sw_cuda, build, gather_bench, launch
 from bwameme_tpu_torch.ops import sa_search as ss
 from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
+from bwameme_tpu_torch.ops import sw_full, sw_full_cuda
 from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
 from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine
 from bwameme_tpu_torch.utils.config import MemOptions
@@ -243,7 +244,8 @@ LAUNCH = re.compile(
 DYNAMIC_SHARED = re.compile(r"extern __shared__ int (\w+)\[\];")
 # name -> (launches in the source, extra g++ flags)
 EMULATED = {"seed_smem": (5, ("-DEMU_FIBERS",)), "gather_bench": (2, ()),
-            "banded_sw": (2, ("-DEMU_FIBERS",))}
+            "banded_sw": (2, ("-DEMU_FIBERS",)),
+            "sw_full": (2, ("-DEMU_FIBERS",))}
 
 
 @pytest.fixture(scope="module")
@@ -280,7 +282,7 @@ def on_emulation(emulated_libs, monkeypatch):
         build, "build", lambda: build.BuildResult(emulated_libs, 0.0, ""))
     monkeypatch.setattr(launch, "raw_stream", lambda index: None)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
-    for mod in (seed_smem_cuda, banded_sw_cuda):
+    for mod in (seed_smem_cuda, banded_sw_cuda, sw_full_cuda):
         monkeypatch.setattr(mod, "cuda_device", lambda x, what: x.device)
     before = dict(launch.stats.launches)
     yield
@@ -961,3 +963,115 @@ def test_gather_rows_of_any_width(on_emulation, width):
         assert torch.equal(gather_bench._gather_rows_cuda(
             "gather_window", src, idx, W),
             gather_bench.gather_window_torch(src, idx, W))
+
+
+# ------------------------------------------------------ the warp-a-job full SW
+
+
+def _full_sw_jobs(seed, B, Q, T):
+    """Rescue-like jobs: queries cut from their targets with substitutions,
+    every other target also holding a second copy (a score2 row), and the
+    edge cases: lane-boundary query lengths, qlen 1, all-N queries and
+    targets, targets shorter than their queries, empty jobs."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (B, Q)).astype(np.int32)
+    t = rng.integers(0, 4, (B, T)).astype(np.int32)
+    qlen = rng.integers(1, Q + 1, B).astype(np.int32)
+    tlen = rng.integers(Q // 2, T + 1, B).astype(np.int32)
+    for b in range(B):
+        n = int(qlen[b])
+        st = int(rng.integers(0, max(1, int(tlen[b]) - n)))
+        src = t[b, st: st + n]
+        q[b, : len(src)] = np.where(rng.random(len(src)) < 0.05,
+                                    (src + 1) % 4, src)
+        if b % 2 and tlen[b] > 2 * n + 20:
+            t[b, tlen[b] - n - 5: tlen[b] - 5] = src
+    qlen[:9] = (1, 31, 32, 33, 63, 64, 65, Q, 2)
+    q[9:11] = 4
+    t[11, :] = 4
+    tlen[12:15] = (1, 5, 20)
+    tlen[15], qlen[16] = 0, 0
+    return q, t, qlen, tlen
+
+
+def _full_sw_both(arrays, opt, with_start=True, min_sc=19):
+    ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    B = ts[0].shape[0]
+    args = (*ts, torch.from_numpy(opt.mat.astype(np.int32)),
+            torch.full((B,), min_sc, dtype=torch.int32), opt.o_del,
+            opt.e_del, opt.o_ins, opt.e_ins, with_start)
+    return sw_full_cuda.sw_full_pairs(*args), sw_full.sw_full_torch(*args)
+
+
+@pytest.mark.parametrize("with_start", [True, False],
+                         ids=["with_start", "forward_only"])
+def test_sw_full_kernel_pair_form(on_emulation, with_start):
+    """The pair form, both passes, in a batch that leaves its last block
+    short: the emulated kernel == the plain version on all seven outputs,
+    and == the scalar ksw_align2 contract."""
+    from bwameme_tpu_torch.align.sw_scalar import sw_align
+
+    opt = MemOptions()
+    arrays = _full_sw_jobs(1, 61, 100, 260)
+    got, want = _full_sw_both(arrays, opt, with_start)
+    assert torch.equal(got, want)
+    assert launch.stats.launches["sw_full"] == (2 if with_start else 1)
+    q, t, qlen, tlen = arrays
+    for b in range(61):
+        ref = sw_align(q[b, : qlen[b]], t[b, : tlen[b]], opt.mat, opt.o_del,
+                       opt.e_del, opt.o_ins, opt.e_ins, xtra_start=True,
+                       min_sc=19)
+        assert [int(x) for x in got[:4, b]] == [ref.score, ref.te, ref.qe,
+                                                ref.score2], b
+        if with_start and ref.score > 0:
+            assert (int(got[5, b]), int(got[6, b])) == (ref.tb, ref.qb), b
+    assert int((got[3] > 0).sum()) > 5 and int((got[0] > 40).sum()) > 10
+
+
+def test_sw_full_kernel_row_max_ties(on_emulation):
+    """Two letters and unit costs: rows whose maximum several columns of
+    one lane and of different lanes share. qe is the smallest such column,
+    te the first row that raised the best, te2 the first maximal row."""
+    rng = np.random.default_rng(11)
+    B, Q, T = 40, 90, 200
+    q = rng.integers(0, 2, (B, Q)).astype(np.int32)
+    t = np.tile(q, 3)[:, :T]
+    t = np.where(rng.random((B, T)) < 0.1, 1 - t, t).astype(np.int32)
+    arrays = (q, t, rng.integers(2, Q + 1, B).astype(np.int32),
+              rng.integers(2, T + 1, B).astype(np.int32))
+    opt = MemOptions(a=1, b=1, o_del=1, e_del=1, o_ins=1, e_ins=1)
+    got, want = _full_sw_both(arrays, opt, min_sc=3)
+    assert torch.equal(got, want)
+    assert int((got[3] > 0).sum()) > 10
+
+
+def test_sw_full_kernel_coordinate_form_past_the_shared_cells(on_emulation):
+    """The coordinate form against the packed text, the reverse pass
+    reading the forward pass's te/qe on the device, in a launch with one
+    query past sw_full_cuda.SHARED_CELLS (its rows in device memory, the
+    others' in shared memory) and targets past a thousand rows."""
+    opt = MemOptions()
+    rng = np.random.default_rng(12)
+    text = rng.integers(0, 4, 20000).astype(np.uint8)
+    text32 = torch.from_numpy(np.concatenate(
+        [pack_words(text, pad_code=3),
+         np.full(12, 0xFFFFFFFF, np.uint32)]).view(np.int32))
+    N, Q = 9, sw_full_cuda.SHARED_CELLS + 40
+    qlen = np.array([Q, 151, 151, 1, 60, 151, 0, 151, 33], np.int32)
+    tlen = np.array([Q + 150, 530, 1300, 40, 0, 530, 50, 100, 90], np.int32)
+    tstart = rng.integers(0, 18000 - int(tlen.max()), N).astype(np.int32)
+    q = np.zeros((N, Q), np.uint8)
+    for b in range(N):
+        src = text[tstart[b] + 50: tstart[b] + 50 + qlen[b]]
+        q[b, : len(src)] = np.where(rng.random(len(src)) < 0.04,
+                                    (src + 1) % 4, src)
+    q[7, :151] = 4
+    jobs = torch.from_numpy(np.stack([qlen, tstart, tlen]))
+    args = (text32, torch.from_numpy(q), jobs,
+            torch.from_numpy(opt.mat.astype(np.int32)),
+            torch.full((N,), 19, dtype=torch.int32), opt.o_del, opt.e_del,
+            opt.o_ins, opt.e_ins, int(tlen.max()))
+    got = sw_full_cuda.sw_full_coord(*args)
+    assert torch.equal(got, sw_full.sw_full_coord_torch(*args))
+    assert launch.stats.launches["sw_full"] == 2
+    assert int(got[0, 0]) > 700 and int(got[6, 0]) == 0

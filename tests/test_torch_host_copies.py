@@ -2,14 +2,22 @@
 sub-package and file names as bwameme_tpu. One cheap parity check per copy,
 so that a later drift between the two shows."""
 
+import copy
 import dataclasses
 import io as _io
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
+import bwameme_tpu.align.alt as j_alt
 import bwameme_tpu.align.chain as j_chain
+import bwameme_tpu.align.extend as j_extend
+import bwameme_tpu.align.finalize as j_finalize
 import bwameme_tpu.align.native as j_native
+import bwameme_tpu.align.pairing as j_pairing
 import bwameme_tpu.align.sw_scalar as j_sw
 import bwameme_tpu.index.bntseq as j_bntseq
 import bwameme_tpu.index.build as j_build
@@ -21,8 +29,11 @@ import bwameme_tpu.models.prmi as j_prmi
 import bwameme_tpu.seeding.host_engine as j_host
 import bwameme_tpu.utils.config as j_config
 import bwameme_tpu.utils.timer as j_timer
+import bwameme_tpu_torch.align.alt as t_alt
 import bwameme_tpu_torch.align.chain as t_chain
+import bwameme_tpu_torch.align.finalize as t_finalize
 import bwameme_tpu_torch.align.native as t_native
+import bwameme_tpu_torch.align.pairing as t_pairing
 import bwameme_tpu_torch.align.sw_scalar as t_sw
 import bwameme_tpu_torch.index.bntseq as t_bntseq
 import bwameme_tpu_torch.index.build as t_build
@@ -32,6 +43,7 @@ import bwameme_tpu_torch.index.suffix_array as t_sa
 import bwameme_tpu_torch.io.fastq as t_fastq
 import bwameme_tpu_torch.io.sam as t_sam
 import bwameme_tpu_torch.models.prmi as t_prmi
+import bwameme_tpu_torch.ops.build as t_ops_build
 import bwameme_tpu_torch.seeding.host_engine as t_host
 import bwameme_tpu_torch.utils.config as t_config
 import bwameme_tpu_torch.utils.fallbacks as t_fallbacks
@@ -248,3 +260,119 @@ def test_timer_and_fallbacks():
 def test_formats_module_is_the_ports_own():
     assert t_formats.__name__ == "bwameme_tpu_torch.index.formats"
     assert hasattr(t_formats, "import_reference_index")
+
+
+def test_host_libraries_build_into_the_ports_own_directory():
+    """The port loads the host libraries from its build directory, never
+    from native/build/, which bwameme_tpu's own loaders write."""
+    assert t_native.available() and t_sa._load_native() is not None
+    for lib in (t_native._lib, t_sa._lib):
+        assert os.path.dirname(lib._name) == t_ops_build.BUILD_DIR
+        assert os.sep + os.path.join("native", "build") not in lib._name
+
+
+RACE = r"""
+import ctypes, sys
+from bwameme_tpu_torch.align import native
+from bwameme_tpu_torch.ops import build
+lib = ctypes.CDLL(build.host_library("hostkernels", native.GXX_FLAGS,
+                                     build_dir=sys.argv[1]))
+print("loaded", bool(lib.invert_sa_c))
+"""
+
+
+def test_host_library_build_race(tmp_path):
+    """Four processes build and load the host library into one empty
+    directory at once: each compiles to a file of its own and renames it
+    into place, so every one of them loads a whole library."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", RACE, str(tmp_path)],
+                              cwd=repo, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+        assert out.strip() == "loaded True"
+    assert sorted(os.listdir(tmp_path)) == ["libhostkernels.so"]
+
+
+@pytest.fixture(scope="module")
+def pe_regs(indexes):
+    """Deduplicated regions of 12 FR pairs (the last one's mate mutated
+    every 11th base, so that only a rescue places it), from the port's
+    pipeline on the host engine, as each package's own AlnReg."""
+    from bwameme_tpu_torch.io.fastq import Read
+    from bwameme_tpu_torch.pipeline import Aligner
+
+    idx = indexes[1]
+    rng = np.random.default_rng(8)
+    reads = []
+    for i in range(12):
+        p = int(rng.integers(0, idx.l_pac - 500))
+        isize = int(rng.normal(300, 20))
+        r1 = idx.text[p: p + 100].copy()
+        r2 = (3 - idx.text[p + isize - 100: p + isize][::-1]).astype(np.uint8)
+        if i == 11:
+            r2[::11] = (r2[::11] + 1) % 4
+        for name, c in (("a", r1), ("b", r2)):
+            reads.append(Read(f"p{i}{name}", "".join("ACGT"[x] for x in c),
+                              "I" * 100, None))
+    opt = t_config.MemOptions()
+    opt.flag |= t_config.MEM_F_PE
+    al = Aligner(idx, opt, device="cpu")
+    recs = [al._encode(r) for r in reads]
+    regs = al._pe_kernels(recs)
+    j_regs = [[j_extend.AlnReg(**{f.name: getattr(r, f.name)
+                                  for f in dataclasses.fields(r)})
+               for r in lst] for lst in regs]
+    return idx, opt, recs, regs, j_regs
+
+
+def test_finalize_copy(pe_regs):
+    """mark_primary, approx_mapq and reg2sam on the same regions."""
+    idx, opt, recs, regs, j_regs = pe_regs
+    for k, (rec, a, b) in enumerate(zip(recs, regs, j_regs)):
+        a = t_finalize.mark_primary(opt, copy.deepcopy(a), k)
+        b = j_finalize.mark_primary(opt, copy.deepcopy(b), k)
+        assert [dataclasses.astuple(x) for x in a] == [
+            dataclasses.astuple(x) for x in b]
+        assert [t_finalize.approx_mapq(opt, x) for x in a] == [
+            j_finalize.approx_mapq(opt, x) for x in b]
+        assert t_finalize.reg2sam(opt, idx.bns, idx.text, rec, rec.codes,
+                                  a) == j_finalize.reg2sam(
+            opt, idx.bns, idx.text, rec, rec.codes, b)
+
+
+def test_alt_copy(pe_regs):
+    """gen_alt's XA strings on regions with secondaries."""
+    idx, opt, recs, regs, j_regs = pe_regs
+    n_xa = 0
+    for k, (rec, a, b) in enumerate(zip(recs, regs, j_regs)):
+        a = t_finalize.mark_primary(opt, copy.deepcopy(a) * 2, k)
+        b = j_finalize.mark_primary(opt, copy.deepcopy(b) * 2, k)
+        xa = t_alt.gen_alt(opt, idx.bns, idx.text, a, len(rec.codes),
+                           rec.codes)
+        assert xa == j_alt.gen_alt(opt, idx.bns, idx.text, b,
+                                   len(rec.codes), rec.codes)
+        n_xa += sum(x is not None for x in xa)
+    assert n_xa > 0
+
+
+def test_pairing_copy(pe_regs):
+    """pestat, then the serial sam_pe (mate rescue by the host SW, mem_pair,
+    SAM) on every pair; the mutated mate is rescued."""
+    idx, opt, recs, regs, j_regs = pe_regs
+    pes_t = t_pairing.pestat(opt, idx.l_pac, regs)
+    pes_j = j_pairing.pestat(opt, idx.l_pac, j_regs)
+    assert [dataclasses.astuple(p) for p in pes_t] == [
+        dataclasses.astuple(p) for p in pes_j]
+    assert not regs[23]
+    for i in range(0, len(recs), 2):
+        got = t_pairing.sam_pe(opt, idx.bns, idx.text, pes_t, i >> 1,
+                               recs[i: i + 2],
+                               copy.deepcopy(regs[i: i + 2]))
+        assert got == j_pairing.sam_pe(opt, idx.bns, idx.text, pes_j, i >> 1,
+                                       recs[i: i + 2],
+                                       copy.deepcopy(j_regs[i: i + 2]))
+    assert not int(got[1].split("\t")[1]) & 4

@@ -5,7 +5,10 @@ Checked in a subprocess, because this suite's conftest imports jax: an
 import hook there refuses every jax module and the top-level package
 ``bwameme_tpu``, then every module of the port (and chip_smoke.py) is
 imported, a toy index is built with the port's own index/build.py and a few
-reads are aligned on the CPU with both seeding engines. A source check
+reads and a pair whose second mate only a rescue places are aligned on the
+CPU with both seeding engines (so the pairing, finalize and alt copies and
+the full SW run too); the host libraries it loaded are the port's own, none
+from native/build/, which bwameme_tpu's loaders write. A source check
 backs the hook: no file of the port, nor chip_smoke.py, has an import
 statement that names bwameme_tpu.
 """
@@ -37,12 +40,13 @@ names = [m.name for m in pkgutil.walk_packages(bwameme_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 
+from bwameme_tpu_torch.cli import insert_size
 from bwameme_tpu_torch.index import bntseq
 from bwameme_tpu_torch.index.build import build_index
 from bwameme_tpu_torch.io.fastq import Read
 from bwameme_tpu_torch.pipeline import Aligner
 from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
-from bwameme_tpu_torch.utils.config import MemOptions
+from bwameme_tpu_torch.utils.config import MEM_F_PE, MemOptions
 
 rng = np.random.default_rng(5)
 code = rng.integers(0, 4, 20000).astype(np.uint8)
@@ -64,6 +68,23 @@ for name, engine in engines.items():
     got = [ln.split("\t")[1:4] for ln in sam]
     assert got == [["0", "chrT", "101"], ["0", "chrT", "5001"],
                    ["0", "chrT", "12001"], ["16", "chrT", "9850"]], (name, got)
+    # a pair: the second mate (reverse strand, 400 bases on) mutated every
+    # 12th base, so that only the mate rescue places it
+    mate = (3 - idx.text[3249: 3400][::-1]).astype(np.uint8)
+    mate[6::12] = (mate[6::12] + 1) % 4
+    pair = [Read("p", "".join("ACGT"[c] for c in idx.text[3000: 3151]),
+                 "I" * 151, None),
+            Read("p", "".join("ACGT"[c] for c in mate), "I" * 151, None)]
+    popt = MemOptions()
+    popt.flag |= MEM_F_PE
+    sam = Aligner(idx, popt, seeding_engine=engine, device="cpu",
+                  pes0=insert_size("400,40")).align_pairs(pair)
+    got = [ln.split("\t")[1:4] for ln in sam]
+    assert got == [["99", "chrT", "3001"], ["147", "chrT", "3251"]], (name,
+                                                                      got)
+maps = open("/proc/self/maps").read()
+assert "/native/build/" not in maps
+assert "/bwameme_tpu_torch/build/libhostkernels.so" in maps
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "bwameme_tpu"))
 assert not loaded, loaded

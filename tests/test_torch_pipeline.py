@@ -204,12 +204,6 @@ def test_device_engine_matches_jax_device_engine(par_workload):
     assert got == want
 
 
-def test_align_pairs_is_not_ported(genome):
-    idx, short, _ = genome
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Aligner(idx, MemOptions(), device="cpu").align_pairs(short[:2])
-
-
 @pytest.fixture(scope="module")
 def golden_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("golden_torch")
@@ -282,16 +276,13 @@ def test_cli_default_engine_is_the_device_engine(golden_dir, tmp_path,
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["READS2"], "Queue 1 item 9"),
-    (["-p"], "Queue 1 item 9"),
     (["--engine", "device", "--mode", "2"], "Queue 1 item 10"),
     (["--engine", "host", "--backend", "fmi"], "Queue 1 items 11-12"),
     (["--engine", "host", "-Z"], "Queue 1 items 11-12"),
     (["--engine", "host", "--shards", "2"], "Queue 1 item 14"),
-], ids=["pe", "smartpe", "device_engine", "fmi", "ert", "shards"])
+], ids=["device_engine", "fmi", "ert", "shards"])
 def test_cli_refuses_what_is_not_ported(golden_dir, capsys, flags, msg):
     reads = str(golden_dir / "reads_se.fq")
-    flags = [reads if f == "READS2" else f for f in flags]
     rc = cli.main(["mem", str(golden_dir / "idx"), reads, *flags])
     assert rc == 1
     assert msg in capsys.readouterr().err
