@@ -147,7 +147,13 @@ def run_coord_round(fn, opt, text32, codes, left, right, h0, mat, **kw):
 
 def get_index(mbp: float) -> str:
     """The bench genome (bench.py:get_index: seed 2024, 200 planted
-    repeats), built once and cached under .bench_cache/."""
+    repeats), built once and cached under .bench_cache/. The index is
+    written into a directory of its own and moved into place file by file,
+    its .meme directory last: a build killed half way leaves no .meme
+    directory, which is what marks an index as cached."""
+    import shutil
+    import tempfile
+
     import numpy as np
 
     from bwameme_tpu_torch.index import bntseq
@@ -170,7 +176,14 @@ def get_index(mbp: float) -> str:
     bns = bntseq.BntSeq(l_pac=n, contigs=[bntseq.Contig("chrB", "", 0, n, 0)],
                         ambs=[], code=code)
     idx = build_index(bns)
-    save_index(idx, prefix)
+    tmp = tempfile.mkdtemp(prefix=".building.", dir=CACHE)
+    try:
+        name = os.path.basename(prefix)
+        save_index(idx, os.path.join(tmp, name))
+        for f in sorted(os.listdir(tmp), key=lambda f: f.endswith(".meme")):
+            os.replace(os.path.join(tmp, f), os.path.join(CACHE, f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print(f"index: built {mbp:g} Mbp in {time.perf_counter() - t0:.1f} s "
           f"(n_sa={idx.n_sa}, rmi_bits={idx.rmi_bits})", flush=True)
     return prefix

@@ -6,6 +6,7 @@ object a line.
     python3 bwameme_tpu_torch/kernel_bench.py launch
     python3 bwameme_tpu_torch/kernel_bench.py k1
     python3 bwameme_tpu_torch/kernel_bench.py seed
+    python3 bwameme_tpu_torch/kernel_bench.py sw_full
 
 ``launch``: what one call of the flat row gather costs at the seeding
 batch's shape (16-byte rows, 4096 lanes, 64 KB a call) beside
@@ -38,6 +39,13 @@ counts them (``ops.sa_search.Work.probes``). To share the index with another
 checkout, link its .bench_cache to this one's; on a tree whose plain
 versions do not count (``work=``) the rows of the batch sizes print and the
 rest fails.
+
+``sw_full``: the time of one step of the full SW's wavefront, a forward
+pass over random targets of SW_STEP_ROWS rows (no early stop), for query
+lengths whose columns sit in registers (K = 1, 2, 5, 8 a lane) and past
+them (memory columns), each for one job alone and for SW_STEP_JOBS jobs (8
+warps an SM): the card's time a call with the host out of the way over the
+steps the kernel reports it ran.
 """
 
 from __future__ import annotations
@@ -199,9 +207,44 @@ def bench_seed():
             given=times(batch, k))
 
 
+SW_STEP_QLENS = (32, 64, 151, 256, 300)
+SW_STEP_ROWS = 4000
+SW_STEP_JOBS = 132 * 8
+
+
+def bench_sw_full():
+    """Yields a row a query length."""
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch import bench_util as bu
+    from bwameme_tpu_torch.ops import sw_full_cuda
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    dev = torch.device("cuda", 0)
+    opt = MemOptions()
+    rng = np.random.default_rng(5)
+    mat = torch.from_numpy(opt.mat.astype(np.int32)).to(dev)
+    for qlen in SW_STEP_QLENS:
+        row = dict(what=f"sw_full forward pass, Q={qlen}, T={SW_STEP_ROWS}")
+        for n in (1, SW_STEP_JOBS):
+            q, t = (torch.from_numpy(rng.integers(0, 4, (n, w)).astype(
+                np.int32)).to(dev) for w in (qlen, SW_STEP_ROWS))
+            lens = [torch.full((n,), v, dtype=torch.int32, device=dev)
+                    for v in (qlen, SW_STEP_ROWS, opt.min_seed_len)]
+            steps = torch.zeros((2, n), dtype=torch.int32, device=dev)
+            call = lambda: sw_full_cuda.sw_full_pairs(
+                q, t, *lens[:2], mat, lens[2], opt.o_del, opt.e_del,
+                opt.o_ins, opt.e_ins, with_start=False, steps=steps)
+            us = bu.queued_us(call, 20)
+            row[f"jobs_{n}_us"] = us
+            row[f"jobs_{n}_us_a_step"] = us / int(steps[0].max())
+        yield row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("what", choices=("launch", "k1", "seed"))
+    ap.add_argument("what", choices=("launch", "k1", "seed", "sw_full"))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -215,7 +258,9 @@ def main() -> int:
     if args.what == "launch":
         print(json.dumps(bench_launch()))
     else:
-        for row in (bench_k1() if args.what == "k1" else bench_seed()):
+        rows = {"k1": bench_k1, "seed": bench_seed,
+                "sw_full": bench_sw_full}[args.what]()
+        for row in rows:
             print(json.dumps(row), flush=True)
     return 0
 

@@ -16,8 +16,8 @@ on every device.
 
 A round returns ``(slots, nsm, dropped)``: slots (4, R, M) int32 planes
 start, end, sa_lo, hitcount in emission order, nsm (R,) the slots used, and
-dropped (R,) the emissions that did not fit in M slots. The reference loses
-those without a word; here the engine raises when any count is not zero.
+dropped (R,) the emissions that did not fit in M slots. Those are lost, as
+the reference loses them; the engine counts them and says so on stderr.
 
 The plain rounds and ``sa_query_torch`` take an optional ``work``, an
 ``ops.sa_search.Work`` with one lane a read (a job), and count into it what

@@ -26,11 +26,16 @@ fallbacks exists here. A kernel that fails to build or launch raises.
 
 Capacities are the reference's: 96 emission slots a read in rounds 1 and 3,
 16 in round 2, 24 packed entries a read on average (a larger batch result is
-fetched as whole slot planes instead). Where the reference drops an emission
-that finds no slot, this engine counts it and raises.
+fetched as whole slot planes instead). An emission that finds no slot is
+dropped, as the reference drops it (bwameme_tpu/seeding/engine.py, the
+rounds' slot writes): the read keeps the SMEMs that found one.
+``dropped_smems`` counts the dropped ones over the engine's life, and a
+batch that drops any says so on stderr.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -44,10 +49,6 @@ from bwameme_tpu_torch.utils.timer import tstage
 # LEARNED_MAX_READ_LEN, src/macro.h:54); the packed transfer encodes end
 # coordinates in 10 bits
 MAX_READ_LEN = 512
-
-
-class SeedCapacityError(RuntimeError):
-    """A read emitted more SMEMs in a round than the round has slots."""
 
 
 class DeviceSeedingEngine:
@@ -68,6 +69,7 @@ class DeviceSeedingEngine:
         self.max_smems = 96       # emission slots a read, rounds 1 and 3
         self.max_reseeds = 16     # emission slots a read, round 2
         self.pack_cap_per_read = 24
+        self.dropped_smems = 0    # emissions that found no slot
 
     # chaining reads positions from here; the rank rows hold them on the
     # device, the host index holds them for the host
@@ -124,13 +126,13 @@ class DeviceSeedingEngine:
             packed = seed_smem.pack_rounds(rounds, cap)
         return (len(codes_list), rounds, packed, cap)
 
-    @staticmethod
-    def _check_dropped(n_dropped: int) -> None:
+    def _note_dropped(self, n_dropped: int) -> None:
         if n_dropped:
-            raise SeedCapacityError(
-                f"{n_dropped} SMEM(s) of this batch found no emission slot "
-                "(96 a read in rounds 1 and 3, 16 in round 2); the seeds "
-                "would be incomplete")
+            self.dropped_smems += n_dropped
+            print(f"seeding: {n_dropped} SMEM(s) of this batch found no "
+                  f"emission slot ({self.max_smems} a read in rounds 1 and "
+                  f"3, {self.max_reseeds} in round 2) and were dropped",
+                  file=sys.stderr)
 
     def finish_batch_flat(self, token):
         """Fetch a submit_batch token as the flat SMEM struct native chaining
@@ -139,11 +141,11 @@ class DeviceSeedingEngine:
         (the caller then uses finish_batch)."""
         R, _rounds, packed, cap = token
         flat = packed.cpu().numpy()
-        self._check_dropped(int(flat[0]))
         counts = flat[1: 1 + R]
         total = int(counts.sum())
         if total > cap:
             return None
+        self._note_dropped(int(flat[0]))
         sten, lb, cn = (flat[1 + R + k * cap: 1 + R + k * cap + total]
                         for k in range(3))
         start = (sten >> 10).astype(np.int32)
@@ -171,7 +173,7 @@ class DeviceSeedingEngine:
                 smems[i].extend(
                     Smem(int(s[0, i, k]), int(s[1, i, k]), int(s[2, i, k]),
                          int(s[3, i, k])) for k in range(int(n[i])))
-        self._check_dropped(n_dropped)
+        self._note_dropped(n_dropped)
         return smems
 
     # ----------------------------------------------------------- interface

@@ -994,13 +994,14 @@ def _full_sw_jobs(seed, B, Q, T):
     return q, t, qlen, tlen
 
 
-def _full_sw_both(arrays, opt, with_start=True, min_sc=19):
+def _full_sw_both(arrays, opt, with_start=True, min_sc=19, steps=None):
     ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
     B = ts[0].shape[0]
     args = (*ts, torch.from_numpy(opt.mat.astype(np.int32)),
             torch.full((B,), min_sc, dtype=torch.int32), opt.o_del,
             opt.e_del, opt.o_ins, opt.e_ins, with_start)
-    return sw_full_cuda.sw_full_pairs(*args), sw_full.sw_full_torch(*args)
+    return (sw_full_cuda.sw_full_pairs(*args, steps=steps),
+            sw_full.sw_full_torch(*args))
 
 
 @pytest.mark.parametrize("with_start", [True, False],
@@ -1015,7 +1016,7 @@ def test_sw_full_kernel_pair_form(on_emulation, with_start):
     arrays = _full_sw_jobs(1, 61, 100, 260)
     got, want = _full_sw_both(arrays, opt, with_start)
     assert torch.equal(got, want)
-    assert launch.stats.launches["sw_full"] == (2 if with_start else 1)
+    assert launch.stats.launches["sw_full"] == 1
     q, t, qlen, tlen = arrays
     for b in range(61):
         ref = sw_align(q[b, : qlen[b]], t[b, : tlen[b]], opt.mat, opt.o_del,
@@ -1073,5 +1074,99 @@ def test_sw_full_kernel_coordinate_form_past_the_shared_cells(on_emulation):
             opt.o_ins, opt.e_ins, int(tlen.max()))
     got = sw_full_cuda.sw_full_coord(*args)
     assert torch.equal(got, sw_full.sw_full_coord_torch(*args))
-    assert launch.stats.launches["sw_full"] == 2
+    assert launch.stats.launches["sw_full"] == 1
     assert int(got[0, 0]) > 700 and int(got[6, 0]) == 0
+
+
+def _lanes_before_last(qlen):
+    """The wavefront's last lane holding columns: K = ceil(qlen / 32)
+    columns a lane."""
+    k = -(-qlen // 32)
+    return -(-qlen // k) - 1
+
+
+def _assert_steps(got, steps, qlen, tlen, with_start=True):
+    """The forward pass runs tlen + (lanes holding columns) - 1 steps; the
+    reverse pass stops at the step whose last lane reaches the forward
+    score, on row te_rev = te - tb of the reversed prefix."""
+    for b in range(got.shape[1]):
+        score, te, qe, tb = (int(got[k, b]) for k in (0, 1, 2, 5))
+        fwd = (int(tlen[b]) + _lanes_before_last(int(qlen[b]))
+               if qlen[b] > 0 and tlen[b] > 0 else 0)
+        rev = (te - tb + 1 + _lanes_before_last(qe + 1)
+               if with_start and score > 0 else 0)
+        assert (int(steps[0, b]), int(steps[1, b])) == (fwd, rev), b
+
+
+@pytest.mark.parametrize("with_start", [True, False],
+                         ids=["with_start", "forward_only"])
+@pytest.mark.parametrize("qlen", [1, 31, 32, 33, 151, 256, 300])
+def test_sw_full_wavefront_shapes(on_emulation, qlen, with_start):
+    """Query lengths at and around the lanes' multiples, up to the register
+    columns' 256 and past them (300: the columns in shared memory), against
+    targets of 0, 1 and 5 rows (fewer rows than lanes: the wavefront only
+    fills and drains), 40 and longer ones holding the query: kernel ==
+    plain on all seven outputs, and the steps each pass ran."""
+    rng = np.random.default_rng(qlen)
+    tlens = [0, 1, 5, 40, qlen + 60, 2 * qlen + 40, 2 * qlen + 40, 7]
+    B, T = len(tlens), max(tlens)
+    q = rng.integers(0, 4, (B, qlen)).astype(np.int32)
+    t = rng.integers(0, 4, (B, T)).astype(np.int32)
+    for b, n in enumerate(tlens):
+        if n >= qlen:       # the query, with substitutions, in the target
+            st = int(rng.integers(0, n - qlen + 1))
+            t[b, st: st + qlen] = np.where(rng.random(qlen) < 0.04,
+                                           (q[b] + 1) % 4, q[b])
+    t[6, : qlen] = q[6]     # the alignment starts on the prefix's last row
+    q[7, :] = 4
+    arrays = (q, t, np.full(B, qlen, np.int32), np.array(tlens, np.int32))
+    opt = MemOptions()
+    steps = torch.zeros((2, B), dtype=torch.int32)
+    got, want = _full_sw_both(arrays, opt, with_start, steps=steps)
+    assert torch.equal(got, want)
+    assert launch.stats.launches["sw_full"] == 1
+    _assert_steps(got, steps, arrays[2], arrays[3], with_start)
+    if with_start:
+        assert int(got[5, 6]) == 0 and int(got[0, 6]) >= qlen - 8
+
+
+def test_sw_full_reverse_pass_reaches_the_score_on_several_rows(
+        on_emulation):
+    """Under match = mismatch = 1, a mismatch and a match before the core
+    of each alignment give its start a second choice of equal score: the
+    reverse pass reaches the forward score on its row te_rev and again two
+    rows later. tb/qb take the first (te_rev moves only on a strictly
+    larger maximum), which is where the kernel stops; the plain version
+    runs the whole prefix."""
+    rng = np.random.default_rng(21)
+    B, m, Q, T = 24, 40, 60, 120
+    q = rng.integers(0, 4, (B, Q)).astype(np.int32)
+    t = rng.integers(0, 4, (B, T)).astype(np.int32)
+    qlen = rng.integers(m + 2, Q + 1, B).astype(np.int32)
+    tlen = np.full(B, T, np.int32)
+    for b in range(B):
+        core = rng.integers(0, 4, m)
+        st = int(rng.integers(2, T - Q))
+        t[b, st - 2: st + m] = np.concatenate([[0, 1], core])
+        q[b, : m + 2] = np.concatenate([[0, 2], core])
+        q[b, m + 2:] = (t[b, st + m: st + m + Q - m - 2] + 2) % 4
+    opt = MemOptions(a=1, b=1)
+    steps = torch.zeros((2, B), dtype=torch.int32)
+    got, want = _full_sw_both((q, t, qlen, tlen), opt, steps=steps)
+    assert torch.equal(got, want)
+    _assert_steps(got, steps, qlen, tlen)
+    assert int((got[6] == 2).sum()) > B // 2    # the later start not taken
+
+
+@pytest.mark.parametrize("a,b", [(31, 32), (32, 4), (1, 40)],
+                         ids=["6_bit_edges", "match_past_6_bits",
+                              "mismatch_past_6_bits"])
+def test_sw_full_scores_at_and_past_the_register_profile(on_emulation, a, b):
+    """Scores in [-32, 31] ride in the registers' 6-bit query profile;
+    larger ones send short queries to the columns in memory. Both == the
+    plain version."""
+    opt = MemOptions(a=a, b=b)
+    got, want = _full_sw_both(_full_sw_jobs(5, 20, 70, 150), opt,
+                              min_sc=a * 19)
+    assert torch.equal(got, want)
+    assert int((got[0] > 10 * a).sum()) > 5

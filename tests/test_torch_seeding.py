@@ -19,8 +19,7 @@ from bwameme_tpu.seeding.engine import DeviceSeedingEngine as JaxEngine
 from bwameme_tpu.utils.config import MemOptions as JaxMemOptions
 from bwameme_tpu_torch.ops import sa_search as ss
 from bwameme_tpu_torch.ops import seed_smem
-from bwameme_tpu_torch.seeding.engine import (DeviceSeedingEngine,
-                                              SeedCapacityError)
+from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
 from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine
 from bwameme_tpu_torch.utils.config import MemOptions
 
@@ -205,15 +204,30 @@ def test_pack_keeps_ties_in_emission_order():
                                                   (3, 25, 8, 2)]
 
 
-def test_a_full_round_raises_instead_of_dropping_seeds(engines, families):
-    _host, _jax_eng, eng, idx, _rng = engines
-    tight = copy.copy(eng)      # shares the index planes
-    tight.max_smems = 1
+@pytest.mark.parametrize("max_smems", [1, 2])
+def test_a_full_round_drops_seeds_as_the_jax_engine_does(engines, families,
+                                                         max_smems):
+    """With max_smems lowered, reads emit more SMEMs in rounds 1 and 3 than
+    they have slots: the port keeps the ones that found a slot and drops the
+    rest, read for read as the JAX device engine drops them (its rounds 1
+    and 3 as the fused programs, which hold the slots; its round 2 here is
+    the host-driven waves, which hold none, and no read fills round 2's 16
+    slots), and counts the dropped ones."""
+    _host, jax_eng, eng, _idx, _rng = engines
     reads = families["sampled"]
-    with pytest.raises(SeedCapacityError, match="no emission slot"):
-        tight.sorted_smems_batch_flat(reads)
-    with pytest.raises(SeedCapacityError):
-        tight.collect_smems_batch(reads)
+    ref = copy.copy(jax_eng)    # the fixture's engines are shared
+    ref.max_smems = max_smems
+    ref.fuse_step3 = True
+    want = _tuples(ref.collect_smems_batch(reads))
+    tight = copy.copy(eng)      # shares the index planes
+    tight.max_smems = max_smems
+    tight.dropped_smems = 0
+    assert _tuples(tight.collect_smems_batch(reads)) == want
+    dropped = tight.dropped_smems
+    assert dropped > 0
+    flat = tight.sorted_smems_batch_flat(reads)
+    assert _tuples(flat.to_lists()) == _sorted(want)
+    assert tight.dropped_smems == 2 * dropped
 
 
 def test_prepare_reads_equals_host_packing(engines, families):
