@@ -268,3 +268,151 @@ class Rounds:
                       eng.max_reseeds, **kw)
         return fn(di, qbuf, nf, self.lens, opt.max_mem_intv,
                   opt.min_seed_len + 1, eng.max_smems, **kw)
+
+
+# ------------------------------------------------- the analytic wide index
+# A port-owned copy of the JAX package's periodic index (its tests,
+# test_wide.py: periodic_index, expected_hit): a text whose suffix array and
+# whose answers have closed forms, so that an index of more than 2^31
+# suffixes is searched and checked without a suffix sort. Built on the
+# device: the host never holds its suffix array.
+
+
+def periodic_block(p: int, m: int, seed: int = 0):
+    """A block of p bases in {A, C, G} whose p rotations differ within m
+    bases, drawn as the JAX generator draws it: (block, wins, rot_order),
+    wins[k] the m-base window of rotation k, rot_order[k] the rotation of
+    the k-th smallest window."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    while True:
+        block = rng.integers(0, 3, p).astype(np.uint8)
+        wins = np.stack([np.roll(block, -i)[:m] for i in range(p)])
+        if len(np.unique(wins, axis=0)) == p:
+            break
+    return block, wins, np.lexsort(wins.T[::-1])
+
+
+def _short_key(block, j: int, m: int) -> tuple:
+    """The first 2m bases of the suffix of j < m bases, T past the text."""
+    import numpy as np
+
+    key = np.full(2 * m, 3, np.uint8)
+    key[:j] = block[len(block) - j:]
+    return tuple(key)
+
+
+def periodic_ranks(n: int, p: int, m: int, block, wins, rot_order):
+    """The closed form of the suffix array of block tiled n / p times: the
+    suffixes of m bases or more sort by (rotation, position), a rotation's
+    block of long_cnt[k] suffixes starting at rank starts[k]; the m - 1
+    short ones (j < m bases before the text's end) sit between rotation
+    blocks, after every rotation whose first j bases are at most theirs
+    (on a tie the T after the short suffix is larger), in the order of
+    their keys among each other. Returns (long_cnt, starts, short_pos,
+    short_rank), all int64."""
+    import numpy as np
+
+    assert n % p == 0 and p % 16 == 0
+    long_cnt = (n - m - rot_order.astype(np.int64)) // p + 1
+    ordered = wins[rot_order]
+    shorts = np.arange(1, m, dtype=np.int64)          # bases before the end
+    keys = [_short_key(block, int(j), m) for j in shorts]
+    # rotations at or below each short suffix on its j bases
+    below = np.array([
+        int(sum(tuple(w[:j]) <= key[:j] for w in ordered))
+        for j, key in zip(shorts, keys)], np.int64)
+    order = sorted(range(len(keys)), key=keys.__getitem__)
+    among = np.empty(len(keys), np.int64)
+    among[order] = np.arange(len(keys))
+    cum = np.concatenate([[0], np.cumsum(long_cnt)])
+    short_rank = cum[below] + among
+    starts = cum[:-1] + np.searchsorted(np.sort(below), np.arange(p),
+                                        side="right")
+    return long_cnt, starts, n - shorts, short_rank
+
+
+def periodic_index(n: int, p: int, m: int, seed: int = 0, device="cpu"):
+    """The periodic index's device planes in mode 1, wide
+    (index/device.DeviceIndex), built on ``device`` a rotation block at a
+    time, and (block, rot_order) for expected_hit. The P-RMI is the JAX
+    generator's stub: 4 leaves by first base, a flat model whose window is
+    the widest leaf."""
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch.index.device import DeviceIndex, fuse_rmi_params
+    from bwameme_tpu_torch.index.packing import pack_words
+
+    block, wins, rot_order = periodic_block(p, m, seed)
+    long_cnt, starts, short_pos, short_rank = periodic_ranks(
+        n, p, m, block, wins, rot_order)
+    dev = torch.device(device)
+    sa = torch.empty(n, dtype=torch.int64, device=dev)
+    for k in range(p):
+        phase, cnt = int(rot_order[k]), int(long_cnt[k])
+        sa[int(starts[k]): int(starts[k]) + cnt] = torch.arange(
+            phase, phase + p * cnt, p, dtype=torch.int64, device=dev)
+    sa[torch.from_numpy(short_rank).to(dev)] = torch.from_numpy(
+        short_pos).to(dev)
+    words = torch.from_numpy(pack_words(block).view(np.int32)).to(dev)
+    text32 = torch.cat([words.repeat(n // p),
+                        torch.full((4,), -1, dtype=torch.int32, device=dev)])
+    counts = np.bincount(block, minlength=4).astype(np.int64) * (n // p)
+    stub = _PrmiStub(counts)
+    params = torch.from_numpy(fuse_rmi_params(stub).view(np.int32)).to(dev)
+    di = DeviceIndex.from_tensors(
+        text32=text32, params=params, bits=2, n_sa=n, sa=sa,
+        params64=torch.from_numpy(stub.rmi_leaf_start).to(dev))
+    return di, block, rot_order
+
+
+class _PrmiStub:
+    """The JAX generator's 4-leaf P-RMI: leaf = first base, alpha = beta =
+    0, and an error window as wide as the widest leaf."""
+
+    def __init__(self, counts) -> None:
+        import numpy as np
+
+        self.rmi_leaf_start = np.concatenate([[0], np.cumsum(counts)])
+        width = int(counts.max())
+        self.rmi_alpha = np.zeros(4, np.float32)
+        self.rmi_beta = np.zeros(4, np.float32)
+        self.rmi_err_lo = np.full(4, width, np.int64)
+        self.rmi_err_hi = np.full(4, width + 1, np.int64)
+
+
+def expected_hit(block, rot_order, n: int, p: int, m: int, k: int, L: int):
+    """Closed-form (mlen, lb, cnt) of sa_query at min_intv 1 for the pattern
+    of the k-th rotation's first L bases (m <= L <= p)."""
+    import numpy as np
+
+    phase = int(rot_order[k])
+    pat = np.tile(block, 2)[phase: phase + L]
+    cnt = (n - L - phase) // p + 1
+    long_cnt = (n - m - rot_order.astype(np.int64)) // p + 1
+    before = 0          # short suffixes sorting strictly before the pattern
+    for j in range(1, m):
+        t = block[p - j:]
+        jj = min(j, L)
+        d = np.flatnonzero(t[:jj] != pat[:jj])
+        if len(d) and t[d[0]] < pat[d[0]]:
+            before += 1
+    return L, int(long_cnt[:k].sum()) + before, cnt
+
+
+def periodic_reads(block, n_reads: int, read_len: int, rng):
+    """Reads cut from the periodic text at random phases, one in two with a
+    T (a base the text never has) put in: the T splits the read's SMEMs."""
+    import numpy as np
+
+    p = len(block)
+    text = np.tile(block, -(-read_len // p) + 1)
+    reads = []
+    for i in range(n_reads):
+        c = text[int(rng.integers(0, p)):][:read_len].copy()
+        if i % 2:
+            c[int(rng.integers(0, read_len))] = 3
+        reads.append(c)
+    return reads

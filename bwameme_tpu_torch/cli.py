@@ -148,9 +148,12 @@ def build_parser() -> argparse.ArgumentParser:
                     "ported)")
     pm.add_argument("--mode", type=int, choices=[1, 2, 3, 4], default=None,
                     help="device memory tier of the index (reference MODE "
-                    "axis): 4=fused rank rows, 16 B/suffix, sub-2^31 texts "
-                    "(the default, and the only one ported); 3=positions"
-                    "+ktext, 2=positions+rank keys, 1=positions only")
+                    "axis), bytes a suffix narrow/wide: 4=fused rank rows "
+                    "16/20, 3=positions+ktext 12/16, 2=positions+rank keys "
+                    "12/16, 1=positions only 4/8; default: the fastest "
+                    "that fits three quarters of the device's memory "
+                    "(BWAMEME_HBM_BYTES overrides the card's size); int64 "
+                    "coordinates from 2^31 suffixes on")
     pm.add_argument("--shards", type=int, default=1,
                     help="shard the suffix-array index by key range over N "
                     "devices (not ported); 1 = single device")
@@ -165,7 +168,7 @@ def cmd_index(args) -> int:
 
     if args.algo != "meme":
         print(f"[index] -a {args.algo}: the FM-index and the persisted ERT "
-              "root are not ported yet (ROADMAP Queue 1 items 11-12)",
+              "root are not ported yet (ROADMAP Queue 1 items 6-7)",
               file=sys.stderr)
         return 1
     prefix = args.prefix or args.fasta
@@ -183,14 +186,11 @@ def cmd_index(args) -> int:
 
 
 def _not_ported(args) -> str | None:
-    if args.engine == "device" and args.mode not in (None, 4):
-        return (f"--mode {args.mode} is not ported yet: the device engine "
-                "holds the index in mode 4 only (ROADMAP Queue 1 item 10)")
     if args.ert or args.backend != "learned":
         return ("the ERT and FM-index backends are not ported yet (ROADMAP "
-                "Queue 1 items 11-12)")
+                "Queue 1 items 6-7)")
     if args.shards > 1 or args.dp_shards > 1:
-        return "--shards/--dp-shards are not ported yet (ROADMAP Queue 1 item 14)"
+        return "--shards/--dp-shards are not ported yet (ROADMAP Queue 1 item 8)"
     if args.profile_dir:
         return "--profile (a jax.profiler trace) has no counterpart in the port"
     return None
@@ -356,8 +356,11 @@ def cmd_mem(args) -> int:
     with timer.stage("index_load"):
         idx = load_index(args.prefix)
     if len(idx.text) >= 2**31:
-        print("[mem] texts of 2^31 bases or more need int64 device "
-              "coordinates, not ported yet (ROADMAP Queue 1 item 10)",
+        # the seeding takes wide coordinates; the extension, here as in the
+        # JAX package (bwameme_tpu/align/extend.py _pack_jobs), packs text
+        # offsets as int32
+        print("[mem] texts of 2^31 bases or more: the extension packs text "
+              "offsets as int32, as the JAX package does (ROADMAP Queue 3)",
               file=sys.stderr)
         return 1
     rg_id = rg_line = None
@@ -370,15 +373,15 @@ def cmd_mem(args) -> int:
     if args.engine == "device":
         from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
 
-        if idx.isa is None:
-            print("[mem] the index has no inverse suffix array (built with "
-                  "--no-isa): the device engine's mode 4 needs it, and the "
-                  "modes without it are not ported yet (ROADMAP Queue 1 "
-                  "item 10); use --engine host", file=sys.stderr)
-            return 1
         with timer.stage("index_upload"):
-            engine = DeviceSeedingEngine(idx, opt, lanes=args.batch,
-                                         device=device, mode=args.mode)
+            try:
+                engine = DeviceSeedingEngine(idx, opt, lanes=args.batch,
+                                             device=device, mode=args.mode)
+            except (ValueError, RuntimeError) as e:
+                # a layout the index cannot have (modes 3 and 4 of a
+                # --no-isa index) or that does not fit the device
+                print(f"[mem] {e}", file=sys.stderr)
+                return 1
     pes0 = None
     if args.insert_spec:
         pes0 = insert_size(args.insert_spec)

@@ -5,7 +5,7 @@ object a line.
 
     python3 bwameme_tpu_torch/kernel_bench.py launch
     python3 bwameme_tpu_torch/kernel_bench.py k1
-    python3 bwameme_tpu_torch/kernel_bench.py seed
+    python3 bwameme_tpu_torch/kernel_bench.py seed [--mode M] [--wide]
     python3 bwameme_tpu_torch/kernel_bench.py sw_full
 
 ``launch``: what one call of the flat row gather costs at the seeding
@@ -38,7 +38,9 @@ of index sectors the scalar contract reads for a read, as the plain version
 counts them (``ops.sa_search.Work.probes``). To share the index with another
 checkout, link its .bench_cache to this one's; on a tree whose plain
 versions do not count (``work=``) the rows of the batch sizes print and the
-rest fails.
+rest fails. ``--mode`` (1-4) and ``--wide`` choose the index's layout (the
+variants of the kernels); by default the ladder's choice, mode 4 narrow on
+this index.
 
 ``sw_full``: the time of one step of the full SW's wavefront, a forward
 pass over random targets of SW_STEP_ROWS rows (no early stop), for query
@@ -159,8 +161,9 @@ SEED_MBP = 100
 SEED_BATCHES = (4096, 16384, 32768, 65536)
 
 
-def bench_seed():
-    """Yields the rows as they are measured."""
+def bench_seed(mode: int | None = None, wide: bool | None = None):
+    """Yields the rows as they are measured, in the index layout of mode and
+    wide (DeviceIndex.from_host's defaults where None)."""
     import numpy as np
     import torch
 
@@ -172,7 +175,10 @@ def bench_seed():
 
     dev = torch.device("cuda", 0)
     idx = load_index(bu.get_index(SEED_MBP))
-    eng = DeviceSeedingEngine(idx, MemOptions(), lanes=BATCH, device=dev)
+    eng = DeviceSeedingEngine(idx, MemOptions(), lanes=BATCH, device=dev,
+                              mode=mode, wide=wide)
+    yield dict(what="the index's layout", mode=eng.di.mode,
+               wide=eng.di.wide, gib=eng.di.nbytes / 2**30)
     rng = np.random.default_rng(17)
     reads = bu.simulated_reads(idx.text, idx.l_pac, max(SEED_BATCHES), 151,
                                rng, bu.planted_repeats(SEED_MBP))
@@ -245,6 +251,11 @@ def bench_sw_full():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", choices=("launch", "k1", "seed", "sw_full"))
+    ap.add_argument("--mode", type=int, choices=(1, 2, 3, 4), default=None,
+                    help="seed: the index's memory mode (default: the "
+                    "ladder's)")
+    ap.add_argument("--wide", action="store_true", default=None,
+                    help="seed: int64 coordinates")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -258,7 +269,8 @@ def main() -> int:
     if args.what == "launch":
         print(json.dumps(bench_launch()))
     else:
-        rows = {"k1": bench_k1, "seed": bench_seed,
+        rows = {"k1": bench_k1,
+                "seed": lambda: bench_seed(args.mode, args.wide),
                 "sw_full": bench_sw_full}[args.what]()
         for row in rows:
             print(json.dumps(row), flush=True)

@@ -5,7 +5,8 @@ module without nvcc. A failed build raises.
 
 * The CUDA kernels: nvcc builds each source under ``csrc/`` into a shared
   library with a plain C interface, bound with ctypes (no PyTorch headers: a
-  build takes seconds, not minutes), all sources at the same time.
+  build takes seconds, not minutes), all libraries at the same time; the
+  seeding kernels as one library a memory mode (``LIBRARIES``).
 * The host libraries: g++ builds ``native/*.cpp`` (sources shared with
   bwameme_tpu, which builds them into ``native/build/``, a directory the
   port never writes).
@@ -32,18 +33,22 @@ NATIVE_DIR = os.path.join(os.path.dirname(PKG_DIR), "native")
 # band clamp's f32 division must round to nearest
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# per-source flags. seed_smem: the P-RMI prediction must round its multiply
-# and its add separately (the source also uses __fmul_rn/__fadd_rn)
-SOURCES = {
-    "banded_sw": (),
-    "gather_bench": (),
-    "seed_smem": ("-fmad=false",),
-    "sw_full": (),
+# library -> (its source under csrc/, extra nvcc flags). seed_smem: the P-RMI
+# prediction must round its multiply and its add separately (the source also
+# uses __fmul_rn/__fadd_rn); its variants build as a library a memory mode
+# (SEED_MODE), four nvcc side by side instead of one that takes four times
+# as long
+LIBRARIES = {
+    "banded_sw": ("banded_sw", ()),
+    "gather_bench": ("gather_bench", ()),
+    **{f"seed_smem_m{m}": ("seed_smem", ("-fmad=false", f"-DSEED_MODE={m}"))
+       for m in (1, 2, 3, 4)},
+    "sw_full": ("sw_full", ()),
 }
 
 
-def source_path(name: str) -> str:
-    return os.path.join(PKG_DIR, "csrc", f"{name}.cu")
+def source_path(source: str) -> str:
+    return os.path.join(PKG_DIR, "csrc", f"{source}.cu")
 
 
 def library_path(name: str) -> str:
@@ -52,7 +57,7 @@ def library_path(name: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class BuildResult:
-    paths: dict     # kernel source name -> shared library
+    paths: dict     # library name -> shared library
     seconds: float  # 0.0 when every library was already up to date
     log: str        # nvcc's output (ptxas registers, spills, shared memory)
 
@@ -71,7 +76,8 @@ def find_nvcc() -> str:
 
 
 def nvcc_command(nvcc: str, name: str, out: str) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, *SOURCES[name], "-o", out, source_path(name)]
+    source, flags = LIBRARIES[name]
+    return [nvcc, *NVCC_FLAGS, *flags, "-o", out, source_path(source)]
 
 
 def _stale(lib: str, src: str) -> bool:
@@ -80,10 +86,10 @@ def _stale(lib: str, src: str) -> bool:
 
 
 def build() -> BuildResult:
-    """Compile every stale library, one nvcc per source, all at once."""
-    paths = {name: library_path(name) for name in SOURCES}
-    todo = [name for name in SOURCES
-            if _stale(paths[name], source_path(name))]
+    """Compile every stale library, one nvcc a library, all at once."""
+    paths = {name: library_path(name) for name in LIBRARIES}
+    todo = [name for name in LIBRARIES
+            if _stale(paths[name], source_path(LIBRARIES[name][0]))]
     if not todo:
         return BuildResult(paths, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -98,9 +104,9 @@ def build() -> BuildResult:
     log, failed = [], []
     for name, tmp, proc in procs:
         out, _ = proc.communicate()
-        log.append(f"== {name}.cu\n{out}")
+        log.append(f"== {name}\n{out}")
         if proc.returncode != 0:
-            failed.append(f"{name}.cu ({proc.returncode})")
+            failed.append(f"{name} ({proc.returncode})")
         else:
             # atomic: a concurrent build never loads half a file
             os.replace(tmp, paths[name])

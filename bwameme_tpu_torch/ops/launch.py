@@ -8,9 +8,10 @@ launch was refused. What a launch costs on the host is kept short: the C
 function is bound once (``entry``), the stream is read as a raw handle, and
 the device guard is entered only when another device is current.
 ``stats.launches`` counts launches per kernel, and only launches, so a run
-can show that its main path went through the kernels; with ``stats.events``
-set to a list, each launch also appends a (name, start, end) triple of CUDA
-events.
+can show that its main path went through the kernels; a seeding kernel
+counts each variant (the index's layout) under its own name (``variant``).
+With ``stats.events`` set to a list, each launch also appends a (name,
+start, end) triple of CUDA events.
 """
 
 from __future__ import annotations
@@ -22,9 +23,32 @@ import torch
 
 from bwameme_tpu_torch.ops import build
 
+SEEDING = ("prmi_window", "sa_query", "seed_round1", "seed_round2",
+           "seed_round3")
+
+
+def variant(name: str, mode: int, wide: bool) -> str:
+    """The launch-count name of a seeding kernel's variant for an index of
+    ``mode`` (1-4) and width: the kernel's own name for mode 4 narrow,
+    ``name[m<mode>]`` or ``name[m<mode>,wide]`` for the others;
+    prmi_window, the same code in every mode, ``prmi_window[wide]``."""
+    if name == "prmi_window":
+        return name + ("[wide]" if wide else "")
+    if mode == 4 and not wide:
+        return name
+    return f"{name}[m{mode}{',wide' if wide else ''}]"
+
+
+def variants(name: str) -> list[str]:
+    """Every variant's name of a seeding kernel, mode 4 narrow first."""
+    return list(dict.fromkeys(variant(name, m, w) for w in (False, True)
+                              for m in (4, 1, 2, 3)))
+
+
 KERNELS = ("banded_sw_pairs", "banded_sw_coord", "gather_flat",
-           "gather_window", "gather_chain", "prmi_window", "sa_query",
-           "seed_round1", "seed_round2", "seed_round3", "sw_full")
+           "gather_window", "gather_chain", *(v for k in SEEDING
+                                              for v in variants(k)),
+           "sw_full")
 
 
 @dataclasses.dataclass
@@ -55,7 +79,7 @@ _entries: dict = {}
 
 
 def library(name: str, declare) -> ctypes.CDLL:
-    """The shared library built from csrc/<name>.cu, loaded once;
+    """The shared library ``name`` (ops/build.py LIBRARIES), loaded once;
     ``declare(lib)`` sets the argument types of its entry points."""
     lib = _libs.get(name)
     if lib is None:
@@ -65,11 +89,12 @@ def library(name: str, declare) -> ctypes.CDLL:
 
 
 def entry(lib_name: str, fn_name: str, declare):
-    """The C launcher ``fn_name`` of a library (names are unique across the
-    libraries), bound once: a launch pays one dictionary lookup for it."""
-    fn = _entries.get(fn_name)
+    """The C launcher ``fn_name`` of a library, bound once: a launch pays
+    one dictionary lookup for it."""
+    fn = _entries.get((lib_name, fn_name))
     if fn is None:
-        fn = _entries[fn_name] = getattr(library(lib_name, declare), fn_name)
+        fn = _entries[lib_name, fn_name] = getattr(
+            library(lib_name, declare), fn_name)
     return fn
 
 

@@ -1,22 +1,30 @@
 """Suffix-array search primitives of learned-index seeding: plain PyTorch.
 
-Port of the mode-4 path of bwameme_tpu/ops/sa_search.py (``make_search_fns``)
-as functions batched over queries. They are the plain versions of the
-``__device__`` functions in csrc/seed_smem.cu: the CPU tests hold them
-against the JAX package, and on the card the kernels are held against them.
-The public functions at the end take the same arguments, in the same order,
-as the functions ``make_search_fns`` returns.
+Port of bwameme_tpu/ops/sa_search.py (``make_search_fns``) for the P-RMI
+root in every memory mode and width, as functions batched over queries.
+They are the plain versions of the ``__device__`` functions in
+csrc/seed_smem.cu: the CPU tests hold them against the JAX package, and on
+the card the kernels are held against them. The public functions at the end
+take the same arguments, in the same order, as the functions
+``make_search_fns`` returns.
 
 * Patterns are 2-bit packed reads in uint32 words, 16 bases a word, most
   significant bits first, so unsigned word order is lexicographic base order.
   torch has no uint32 arithmetic: every packed word is widened to a
   non-negative int64 here (never compared as a signed int32), and ranks,
-  positions and lengths are int64 too.
+  positions and lengths are int64 in both widths.
 * ``prmi_window`` predicts a [lo, hi) window that is guaranteed to hold the
   lower bound; its one f32 step multiplies and adds with separate roundings,
-  as the error windows of models/prmi.py assume.
-* A compare reads one 16-byte rank row (text position + first 48 bases) and
-  goes to the packed text only for ties of 48 bases or more.
+  as the error windows of models/prmi.py assume. A wide index reads its leaf
+  starts from ``params64``.
+* A compare has a head that depends on the layout (index/device.py): mode 4
+  reads one rank row (text position + first 48 bases), mode 3 the position
+  and then 32 bases of ``ktext`` there, mode 2 the position and 32 bases of
+  ``key2`` beside it, mode 1 the position alone. From the first base the
+  head does not cover it reads the packed text 64 bases a segment. The
+  results are those of the JAX package's compares of each layout
+  (``cmp_ctx_rk``, ``suffix_cmp_flat``, ``suffix_cmp_deep``,
+  ``suffix_cmp_pos_only``): a layout moves only where the bases come from.
 * Loops end when no lane is active; a finished lane keeps its values, so the
   results equal the reference's fixed-round, lane-masked forms.
 * The work a search needs, whatever the design that does it: every function
@@ -24,13 +32,15 @@ as the functions ``make_search_fns`` returns.
   ``live`` (every lane by default) that says whether the lane really runs
   the step; lanes that only ride along in a masked loop add nothing. It
   keeps two counts. ``probes``, one entry a lane: the 32-byte index sectors
-  the scalar contract reads, one a rank row in range and one a 64-base text
-  segment of every step of its binary searches. And the sectors that the
-  answers stand on, which no design can leave unread: the leaf record that
-  locates the longest match, the rank rows at ip - 1 and ip and on both
-  sides of both borders of every interval, and of these rows' text the
-  bases from the 49th to the one that decides the compare. These are kept
-  by address, so a sector that two rows, two queries or two reads share is
+  the scalar contract reads, one for each rank-indexed plane a rank in range
+  reads (the rank row, or the position and, in modes 2 and 3, the key) and
+  one a 64-base text segment of every step of its binary searches. And the
+  sectors that the answers stand on, which no design can leave unread: the
+  leaf record (and in a wide index the leaf starts) that locates the
+  longest match, the rank-indexed entries at ip - 1 and ip and on both
+  sides of both borders of every interval, and of these suffixes the bases
+  past the head up to the one that decides the compare. These are kept by
+  address, so a sector that two ranks, two queries or two reads share is
   counted once (``Work.answer_sectors``): the least a launch can move.
 """
 
@@ -43,15 +53,26 @@ from bwameme_tpu_torch.index.device import DeviceIndex, words_u32
 FULL = 0xFFFFFFFF
 I64 = torch.int64
 SECTOR = 32                     # bytes the memory moves at a time
-RANK_ROW, LEAF_RECORD = 16, 24  # bytes
-# sector ids of the three index arrays, kept apart
-IN_RK, IN_TEXT, IN_PARAMS = 0, 1 << 40, 2 << 40
+LEAF_RECORD, KEY = 24, 8        # bytes
+# sector ids of the index's planes, kept apart: the rank-indexed plane (rank
+# rows or positions), the keys (ktext, key2), the packed text, the leaf
+# records and the wide leaf starts
+IN_RK, IN_KEY, IN_TEXT, IN_PARAMS, IN_PARAMS64 = (k << 40 for k in range(5))
+
+
+def rank_bytes(di: DeviceIndex) -> int:
+    """Bytes of the rank-indexed plane a probe reads first: a rank row, or
+    a position."""
+    if di.mode == 4:
+        return 20 if di.wide else 16
+    return 8 if di.wide else 4
 
 
 class Work:
     """What ``n`` lanes' searches need of the index (see the module's
     docstring): ``probes`` (n,) int64, and the addresses of the sectors the
-    answers stand on."""
+    answers stand on. Lanes that touch nothing add the id -1, so that no
+    count waits for the device."""
 
     def __init__(self, n: int, device) -> None:
         self.probes = torch.zeros(n, dtype=I64, device=device)
@@ -62,38 +83,53 @@ class Work:
         if sum(t.numel() for t in self._ids) > 1 << 24:
             self._ids = [self.answer_ids()]
 
+    def touch_span(self, space: int, at, size: int, live) -> None:
+        """Every sector of ``size`` bytes at each byte offset ``at`` of the
+        live lanes."""
+        first, last = at // SECTOR, (at + size - 1) // SECTOR
+        self.touch(torch.where(live, space + first, -1))
+        self.touch(torch.where(live & (last > first), space + last, -1))
+
     def answer_ids(self):
-        """The distinct sectors touched, sorted: rank rows below IN_TEXT,
-        text from IN_TEXT, leaf records from IN_PARAMS."""
-        return torch.unique(torch.cat(self._ids))
+        """The distinct sectors touched, sorted: rank-indexed entries below
+        IN_KEY, keys from IN_KEY, text from IN_TEXT, leaf records from
+        IN_PARAMS."""
+        ids = torch.unique(torch.cat(self._ids))
+        return ids[ids >= 0]
 
     def answer_sectors(self, leaves: bool = True) -> int:
         ids = self.answer_ids()
         return int(ids.numel() if leaves else (ids < IN_PARAMS).sum())
 
     def touch_leaf(self, di: DeviceIndex, khi, live) -> None:
-        """The leaf record of a key, where it straddles two sectors both."""
+        """The leaf record of a key, where it straddles two sectors both;
+        in a wide index also its two leaf starts."""
         leaf = (khi >> (32 - di.bits)).clamp(max=di.params.shape[0] - 1)
-        at = leaf[torch.ones_like(leaf, dtype=torch.bool) & live] * LEAF_RECORD
-        self.touch(IN_PARAMS + torch.stack(
-            [at // SECTOR, (at + LEAF_RECORD - 1) // SECTOR]))
+        live = torch.ones_like(leaf, dtype=torch.bool) & live
+        self.touch_span(IN_PARAMS, leaf * LEAF_RECORD, LEAF_RECORD, live)
+        if di.wide:
+            self.touch_span(IN_PARAMS64, leaf * 8, 16, live)
 
-    def touch_compare(self, di: DeviceIndex, rank, sa_pos, v, lcp, row_only):
-        """What the compare of pattern[:v] with the suffix at ``rank`` (lanes
-        in range and live only) stands on: the rank row, and, unless the
-        row's 48 bases decide it, the text from the 49th base to the first
-        that differs or the pattern's last. Past the text's end all is T,
-        which needs no read."""
-        self.touch(IN_RK + rank * RANK_ROW // SECTOR)
-        start = sa_pos + 48
+    def touch_compare(self, di: DeviceIndex, rank, sa_pos, v, lcp,
+                      head_only, live, max_bases: int):
+        """What the compare of pattern[:v] with the suffix at ``rank`` (the
+        live lanes, ranks in range) stands on: the rank-indexed entries and,
+        unless the head decides it, the text from the first base past the
+        head to the first that differs or the pattern's last (at most
+        max_bases). Past the text's end all is T, which needs no read."""
+        rb = rank_bytes(di)
+        self.touch_span(IN_RK, rank * rb, rb, live)
+        if di.mode in (2, 3):
+            at = sa_pos if di.mode == 3 else rank
+            self.touch(torch.where(live, IN_KEY + at * KEY // SECTOR, -1))
+        start = sa_pos + di.head_bases
         end = (sa_pos + torch.minimum(lcp + 1, v)).clamp(max=di.n_sa)
-        deep = ~row_only & (end > start)
-        first, last = start[deep] >> 7, (end[deep] - 1) >> 7   # 128 bases
-        if first.numel():
-            span = torch.arange(int((last - first).max()) + 1,
-                                device=first.device)
-            ids = first[:, None] + span
-            self.touch(IN_TEXT + ids[ids <= last[:, None]])
+        deep = live & ~head_only & (end > start)
+        first, last = start >> 7, (end - 1) >> 7   # 128 bases a sector
+        ids = first[:, None] + torch.arange(max_bases // 128 + 2,
+                                            device=first.device)
+        self.touch(torch.where(deep[:, None] & (ids <= last[:, None]),
+                               IN_TEXT + ids, -1))
 
 
 def _combine(w0, w1, sh):
@@ -133,7 +169,11 @@ def prmi_window(di: DeviceIndex, khi, klo):
     ab = rec[:, 2:4].contiguous().view(torch.float32)
     alpha, beta = ab[:, 0], ab[:, 1]
     recw = words_u32(rec)
-    ls, le, elo, ehi = recw[:, 0], recw[:, 1], recw[:, 4], recw[:, 5]
+    elo, ehi = recw[:, 4], recw[:, 5]
+    if di.wide:     # leaf starts past 2^32 live in the int64 plane
+        ls, le = di.params64[leaf], di.params64[leaf + 1]
+    else:
+        ls, le = recw[:, 0], recw[:, 1]
     # err_lo / err_hi are int32 in the reference
     elo = torch.where(elo >= 2**31, elo - 2**32, elo)
     ehi = torch.where(ehi >= 2**31, ehi - 2**32, ehi)
@@ -157,13 +197,14 @@ def text64_at(di: DeviceIndex, pos):
 
 
 def ctx_words(qbuf32) -> int:
-    """Pattern words a ctx needs for a query buffer: 3 ride the rank row,
-    then 4 for each 64-base text segment up to the buffer's read length."""
+    """Pattern words a ctx needs for a query buffer, whatever the head: up
+    to 3 for the head, then 4 for each 64-base text segment up to the
+    buffer's read length."""
     bases = (qbuf32.shape[1] - 3) * 16
-    return 3 + 4 * max(0, -(-(bases - 48) // 64))
+    return 3 + 4 * max(0, -(-bases // 64))
 
 
-def make_ctx_rk(qbuf32, row, pivot):
+def make_ctx(qbuf32, row, pivot):
     """The pattern's 16-base words from base ``pivot`` of query row ``row``,
     never reading past the row's last word."""
     n_words = ctx_words(qbuf32)
@@ -192,8 +233,24 @@ def _multiword_cmp(swords, kwords, total: int):
     return less, lcp
 
 
-def cmp_ctx_rk(di: DeviceIndex, aw, v, sa_idx, work=None, live=True,
-               probe=True, answer=False):
+def suffix_heads(di: DeviceIndex, idx):
+    """(text positions, head words) of the suffixes at ranks ``idx`` (in
+    range): the layout's first ``di.head_bases`` bases, 16 a word."""
+    if di.mode == 4:
+        r0 = words_u32(di.rk[idx])
+        if di.wide:     # (pos_lo, pos_hi, key_hi, key_lo, b48)
+            return r0[:, 0] | (r0[:, 1] << 32), [r0[:, 2], r0[:, 3],
+                                                 r0[:, 4]]
+        return r0[:, 0], [r0[:, 1], r0[:, 2], r0[:, 3]]
+    pos = di.sa[idx].to(I64)
+    if di.mode == 1:
+        return pos, []
+    k = words_u32(di.ktext[pos] if di.mode == 3 else di.key2[idx])
+    return pos, [k[:, 0], k[:, 1]]
+
+
+def cmp_ctx(di: DeviceIndex, aw, v, sa_idx, work=None, live=True,
+            probe=True, answer=False):
     """(less, lcp) of suffix rank sa_idx against the ctx pattern[:v]. A rank
     below 0 is less with lcp 0; one at n_sa or above is not less, lcp 0.
     With ``work``: ``probe`` says the scalar contract makes this compare,
@@ -201,27 +258,32 @@ def cmp_ctx_rk(di: DeviceIndex, aw, v, sa_idx, work=None, live=True,
     oob = (sa_idx < 0) | (sa_idx >= di.n_sa)
     reads = ~oob & live
     probe = probe and work is not None
-    if probe:
-        work.probes += reads                    # the rank row
+    if probe:   # the rank-indexed plane, and the key of modes 2 and 3
+        work.probes += reads * (2 if di.mode in (2, 3) else 1)
     idx = sa_idx.clamp(0, di.n_sa - 1)
-    r0 = words_u32(di.rk[idx])
-    sa_pos = r0[:, 0]
-    less, l48 = _multiword_cmp([r0[:, 1], r0[:, 2], r0[:, 3]], aw[:3], 48)
-    vc = v.clamp(0, 48)
-    diffb = l48 < vc
-    lcp = torch.minimum(l48, vc)
+    sa_pos, head = suffix_heads(di, idx)
+    hb = di.head_bases
+    if head:
+        less, lh = _multiword_cmp(head, aw[: len(head)], hb)
+    else:
+        less, lh = torch.zeros_like(idx, dtype=torch.bool), torch.zeros_like(
+            idx)
+    vc = v.clamp(0, hb)
+    diffb = lh < vc
+    lcp = torch.minimum(lh, vc)
     less = less & diffb
-    resolved = diffb | (v <= 48)
-    row_only = resolved
-    n_deep = (len(aw) - 3) // 4
+    resolved = diffb | (v <= hb)
+    head_only = resolved
+    w0 = hb // 16
+    n_deep = (len(aw) - w0) // 4
     for k in range(n_deep):
         if bool(resolved.all()):
             break
-        off = 48 + 64 * k
+        off = hb + 64 * k
         if probe:
             work.probes += reads & ~resolved    # a 64-base text segment
         dr = text64_at(di, sa_pos + off)
-        lk, l64 = _multiword_cmp(dr, aw[3 + 4 * k: 7 + 4 * k], 64)
+        lk, l64 = _multiword_cmp(dr, aw[w0 + 4 * k: w0 + 4 * k + 4], 64)
         rem = v - off
         vck = rem.clamp(0, 64)
         diffk = l64 < vck
@@ -229,8 +291,8 @@ def cmp_ctx_rk(di: DeviceIndex, aw, v, sa_idx, work=None, live=True,
         lcp = torch.where(resolved, lcp, off + torch.minimum(l64, vck))
         resolved = resolved | diffk | (rem <= 64)
     if answer and work is not None:
-        work.touch_compare(di, idx[reads], sa_pos[reads], v[reads],
-                           lcp[reads], row_only[reads])
+        work.touch_compare(di, idx, sa_pos, torch.broadcast_to(v, idx.shape),
+                           lcp, head_only, reads, 16 * len(aw))
     lcp = torch.where(oob, 0, lcp)
     less = (less & ~oob) | (sa_idx < 0)
     return less, lcp
@@ -244,7 +306,7 @@ def lower_bound_ctx(di: DeviceIndex, ctx, v, wlo, whi, strict_greater=False,
     while bool((lo < hi).any()):
         mid = (lo + hi) >> 1
         active = lo < hi
-        less, lcp = cmp_ctx_rk(di, ctx, v, mid, work, active & live)
+        less, lcp = cmp_ctx(di, ctx, v, mid, work, active & live)
         pred = less | ((lcp >= v) & strict_greater)
         lo = torch.where(active & pred, mid + 1, lo)
         hi = torch.where(active & ~pred, mid, hi)
@@ -264,12 +326,12 @@ def find_longest_ctx(di: DeviceIndex, ctx, v, work=None, live=True):
     if work is not None:
         work.touch_leaf(di, khi_p, live)
     ip = lower_bound_ctx(di, ctx, v, wlo, whi, work=work, live=live)
-    _, l0 = cmp_ctx_rk(di, ctx, v, ip - 1, work, live)
-    _, l1 = cmp_ctx_rk(di, ctx, v, ip, work, live)
+    _, l0 = cmp_ctx(di, ctx, v, ip - 1, work, live)
+    _, l1 = cmp_ctx(di, ctx, v, ip, work, live)
     mlen = torch.maximum(l0, l1)
     if work is not None:
         for rank in (ip - 1, ip):
-            cmp_ctx_rk(di, ctx, v, rank, work, live & (mlen < v), probe=False,
+            cmp_ctx(di, ctx, v, rank, work, live & (mlen < v), probe=False,
                        answer=True)
     return mlen, ip
 
@@ -277,8 +339,8 @@ def find_longest_ctx(di: DeviceIndex, ctx, v, work=None, live=True):
 def full_match_row(di: DeviceIndex, ctx, v, ip, work: Work, live) -> None:
     """The one row a match of all of pattern[:v] stands on, of the two
     beside ``find_longest_ctx``'s ip, for the ``live`` lanes."""
-    _, l0 = cmp_ctx_rk(di, ctx, v, ip - 1)
-    cmp_ctx_rk(di, ctx, v, torch.where(l0 >= v, ip - 1, ip), work, live,
+    _, l0 = cmp_ctx(di, ctx, v, ip - 1)
+    cmp_ctx(di, ctx, v, torch.where(l0 >= v, ip - 1, ip), work, live,
                probe=False, answer=True)
 
 
@@ -296,7 +358,7 @@ def interval_at_ctx(di: DeviceIndex, ctx, l, work=None, live=True, used=True):
                          strict_greater=True, work=work, live=live)
     if work is not None:        # both sides of both borders
         for rank in (lb - 1, lb, ub - 1, ub):
-            cmp_ctx_rk(di, ctx, l, rank, work, live & used, probe=False,
+            cmp_ctx(di, ctx, l, rank, work, live & used, probe=False,
                        answer=True)
     return lb, ub - lb
 
@@ -328,8 +390,8 @@ def sa_query_ctx(di: DeviceIndex, ctx, v, min_intv, work=None):
         cnt2 = torch.where(mlen == 0, di.n_sa, cnt2)
         sat = (cnt2 >= min_intv) | (mlen == 0)
         widen = ~done & ~sat
-        _, l0 = cmp_ctx_rk(di, ctx, l_eff, lb2 - 1, work, widen)
-        _, l1 = cmp_ctx_rk(di, ctx, l_eff, lb2 + cnt2, work, widen)
+        _, l0 = cmp_ctx(di, ctx, l_eff, lb2 - 1, work, widen)
+        _, l1 = cmp_ctx(di, ctx, l_eff, lb2 + cnt2, work, widen)
         mlen = torch.where(done | sat, mlen, torch.maximum(l0, l1))
         lb = torch.where(done, lb, lb2)
         cnt = torch.where(done, cnt, cnt2)
@@ -347,7 +409,7 @@ def rmi_window(di: DeviceIndex, khi, klo):
 
 def suffix_cmp(di: DeviceIndex, qbuf32, row, pivot, v, sa_idx):
     """(less, lcp) of suffix rank sa_idx against pattern[:v]."""
-    return cmp_ctx_rk(di, make_ctx_rk(qbuf32, row, pivot), v, sa_idx)
+    return cmp_ctx(di, make_ctx(qbuf32, row, pivot), v, sa_idx)
 
 
 def lcp_at(di: DeviceIndex, qbuf32, row, pivot, cap, sa_idx):
@@ -356,11 +418,11 @@ def lcp_at(di: DeviceIndex, qbuf32, row, pivot, cap, sa_idx):
 
 
 def find_longest(di: DeviceIndex, qbuf32, row, pivot, v):
-    return find_longest_ctx(di, make_ctx_rk(qbuf32, row, pivot), v)
+    return find_longest_ctx(di, make_ctx(qbuf32, row, pivot), v)
 
 
 def interval_at(di: DeviceIndex, qbuf32, row, pivot, l):
-    return interval_at_ctx(di, make_ctx_rk(qbuf32, row, pivot), l)
+    return interval_at_ctx(di, make_ctx(qbuf32, row, pivot), l)
 
 
 def sa_query_min1(di: DeviceIndex, qbuf32, row, pivot, v, work=None,
@@ -369,12 +431,12 @@ def sa_query_min1(di: DeviceIndex, qbuf32, row, pivot, v, work=None,
     pattern[:v]; v <= 0 gives (0, 0, n_sa). ``interval_from`` (int or a
     tensor, one a lane): the caller reads lb and cnt only of a match this
     long or longer (see ``interval_at_ctx``'s ``used``)."""
-    return sa_query_min1_ctx(di, make_ctx_rk(qbuf32, row, pivot), v, work,
+    return sa_query_min1_ctx(di, make_ctx(qbuf32, row, pivot), v, work,
                              interval_from)
 
 
 def sa_query(di: DeviceIndex, qbuf32, row, pivot, v, min_intv, work=None):
     """The widening fixed point: the longest l whose interval holds at least
     min_intv suffixes, as (l, lb, cnt); v <= 0 gives (0, 0, n_sa)."""
-    return sa_query_ctx(di, make_ctx_rk(qbuf32, row, pivot), v, min_intv,
+    return sa_query_ctx(di, make_ctx(qbuf32, row, pivot), v, min_intv,
                         work)

@@ -14,9 +14,11 @@ the CPU path and what the kernels are held against on the card. Read prep
 and pack are elementwise/scan glue (XLA in the reference) and stay torch ops
 on every device.
 
-A round returns ``(slots, nsm, dropped)``: slots (4, R, M) int32 planes
-start, end, sa_lo, hitcount in emission order, nsm (R,) the slots used, and
-dropped (R,) the emissions that did not fit in M slots. Those are lost, as
+A round returns ``(slots, nsm, dropped)``: slots (4, R, M) planes start,
+end, sa_lo, hitcount in emission order, int32 or, over a wide index, int64
+(as the JAX engine's wide slot planes; read coordinates fit either), nsm
+(R,) int32 the slots used, and dropped (R,) int32 the emissions that did not
+fit in M slots. Those are lost, as
 the reference loses them; the engine counts them and says so on stderr.
 
 The plain rounds and ``sa_query_torch`` take an optional ``work``, an
@@ -97,9 +99,9 @@ def prepare_reads(mat: torch.Tensor, lens: torch.Tensor):
 class _Emitter:
     """Emission slots of one round, written lane by lane in emission order."""
 
-    def __init__(self, R: int, M: int, dev) -> None:
+    def __init__(self, R: int, M: int, dev, dtype) -> None:
         self.M = M
-        self.slots = torch.zeros((4, R, M), dtype=torch.int32, device=dev)
+        self.slots = torch.zeros((4, R, M), dtype=dtype, device=dev)
         self.nsm = torch.zeros(R, dtype=I64, device=dev)
         self.dropped = torch.zeros(R, dtype=I64, device=dev)
 
@@ -108,7 +110,7 @@ class _Emitter:
         lanes = torch.nonzero(fit)[:, 0]
         if lanes.numel():
             vals = torch.stack([start, end, lb, cnt])[:, lanes]
-            self.slots[:, lanes, self.nsm[lanes]] = vals.to(torch.int32)
+            self.slots[:, lanes, self.nsm[lanes]] = vals.to(self.slots.dtype)
         self.nsm += fit
         self.dropped += mask & ~fit
 
@@ -144,7 +146,7 @@ def seed_round1_torch(di: DeviceIndex, qbuf, nf, nr, nvf, lens, minseed: int,
     phase, p = enter_outer(torch.zeros(R, dtype=I64, device=dev))
     phase = torch.where(l < minseed, DONE, phase)
     spb = p.clone()
-    out = _Emitter(R, M, dev)
+    out = _Emitter(R, M, dev, di.rank_dtype)
     while bool((phase != DONE).any()):
         active = phase != DONE
         is_left = phase == LEFT
@@ -202,7 +204,7 @@ def seed_round2_torch(di: DeviceIndex, qbuf, nf, nr, lens, slots1, nsm1,
     phase = torch.full((R,), CURSOR, dtype=I64, device=dev)
     k, p, npv, psp = zeros.clone(), zeros.clone(), zeros.clone(), zeros.clone()
     mi = torch.ones(R, dtype=I64, device=dev)
-    out = _Emitter(R, M, dev)
+    out = _Emitter(R, M, dev, di.rank_dtype)
     while True:
         # cursor lanes move to their next qualifying slot, or finish
         is_cur = phase == CURSOR
@@ -258,7 +260,7 @@ def _third_round_core(di: DeviceIndex, qbuf, row, pivot, v, min_intv: int,
     """The level walk at one pivot per lane
     (bwameme_tpu/seeding/engine.py:1367 third_round_core): (emit, e_len,
     e_lb, e_cnt, advance)."""
-    ctx = ss.make_ctx_rk(qbuf, row, pivot)
+    ctx = ss.make_ctx(qbuf, row, pivot)
     lmax, _ = ss.find_longest_ctx(di, ctx, v.clamp_min(1), work, v > 0)
     lmax = torch.where(v <= 0, 0, lmax)
     done = lmax < min_seed
@@ -278,8 +280,8 @@ def _third_round_core(di: DeviceIndex, qbuf, row, pivot, v, min_intv: int,
         advance = torch.where(fire_sat, cur_l + 1, advance)
         done = done | fire_sat
 
-        _, l0 = ss.cmp_ctx_rk(di, ctx, cur_l, lb - 1, work, ~done)
-        _, l1 = ss.cmp_ctx_rk(di, ctx, cur_l, lb + cnt, work, ~done)
+        _, l0 = ss.cmp_ctx(di, ctx, cur_l, lb - 1, work, ~done)
+        _, l1 = ss.cmp_ctx(di, ctx, cur_l, lb + cnt, work, ~done)
         nxt = torch.maximum(l0, l1)
         fire_low = ~done & (nxt < min_seed)
         emit = emit | fire_low
@@ -320,7 +322,7 @@ def seed_round3_torch(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
             pv = torch.where(need, pv + v.clamp_min(1), pv)
 
     pv, done = resolve_skips(torch.zeros(R, dtype=I64, device=dev), lim <= 0)
-    out = _Emitter(R, M, dev)
+    out = _Emitter(R, M, dev, di.rank_dtype)
     while not bool(done.all()):
         v = torch.where(done, 0, _tab(nf, lanes, pv) - pv)
         piv = torch.where(done, 0, pv)
@@ -354,30 +356,33 @@ def seed_round3(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
     return fn(di, qbuf, nf, lens, min_intv, min_seed, M)
 
 
-# ------- the primitives alone, plain, in the int32 form their kernels take
+# ------------ the primitives alone, plain, in the form their kernels take
 
 
 def prmi_window_torch(di: DeviceIndex, khi, klo):
-    """Plain version of seed_smem_cuda.prmi_window: (lo, hi) int32 windows
-    of n keys given as int32 storage of uint32 words."""
+    """Plain version of seed_smem_cuda.prmi_window: (lo, hi) windows of n
+    keys given as int32 storage of uint32 words, int32 (int64 over a wide
+    index)."""
     lo, hi = ss.prmi_window(di, ss.words_u32(khi), ss.words_u32(klo))
-    return lo.to(torch.int32), hi.to(torch.int32)
+    return lo.to(di.rank_dtype), hi.to(di.rank_dtype)
 
 
 def sa_query_torch(di: DeviceIndex, qbuf, row, pivot, v, min_intv,
                    work=None):
-    """Plain version of seed_smem_cuda.sa_query: (3, n) int32 mlen, lb, cnt
-    of n (row, pivot, v, min_intv) jobs given as int32 tensors."""
+    """Plain version of seed_smem_cuda.sa_query: (3, n) mlen, lb, cnt of n
+    (row, pivot, v, min_intv) jobs given as int32 tensors, int32 (int64
+    over a wide index)."""
     return torch.stack(ss.sa_query(
         di, qbuf, row.to(I64), pivot.to(I64), v.to(I64),
-        min_intv.to(I64), work)).to(torch.int32)
+        min_intv.to(I64), work)).to(di.rank_dtype)
 
 
 # ------------------------------------------------------------------- pack
 
 
 def pack_rounds(rounds, cap: int) -> torch.Tensor:
-    """Compact the rounds' emission slots into one flat int32 buffer, grouped
+    """Compact the rounds' emission slots into one flat buffer of the slots'
+    dtype (int64 carries a wide index's sa_lo and hitcount), grouped
     by read, each read's entries in round then emission order (the sort-free
     variant of bwameme_tpu/seeding/engine.py:254-276: cumsum + scatter; the
     stable (start, end) order is restored on the host). Layout:
@@ -394,8 +399,8 @@ def pack_rounds(rounds, cap: int) -> torch.Tensor:
     tgt = torch.where(vflat, pos, cap).clamp(max=cap)
     flat = slots.reshape(4, -1)
     sten = (flat[0] << 10) | flat[1].clamp(max=1023)
-    body = torch.zeros((3, cap + 1), dtype=torch.int32, device=slots.device)
+    body = torch.zeros((3, cap + 1), dtype=slots.dtype, device=slots.device)
     body[:, tgt] = torch.stack([sten, flat[2], flat[3]])
-    counts = valid.sum(1, dtype=torch.int32)
-    dropped = sum(d.sum(dtype=torch.int32) for _, _, d in rounds)
+    counts = valid.sum(1, dtype=slots.dtype)
+    dropped = sum(d.sum(dtype=slots.dtype) for _, _, d in rounds)
     return torch.cat([dropped.reshape(1), counts, body[:, :cap].reshape(-1)])

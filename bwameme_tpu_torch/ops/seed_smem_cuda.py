@@ -1,6 +1,8 @@
 """ctypes wrappers of the Hopper seeding kernels (csrc/seed_smem.cu): the
 three rounds and sa_query, a warp a read or job, and prmi_window, a thread a
-key.
+key, each in the variant of the index's layout (its mode, 1-4, and its
+width), whose launches are counted under the variant's own name
+(``ops.launch.variant``).
 
 Checks, launch and launch counts are those of ops/launch.py. The plain
 PyTorch versions live in ops/seed_smem.py and ops/sa_search.py;
@@ -17,14 +19,17 @@ import ctypes
 import torch
 
 from bwameme_tpu_torch.index.device import DeviceIndex
-from bwameme_tpu_torch.ops.launch import check, cuda_device, entry, launch
+from bwameme_tpu_torch.ops.launch import (check, cuda_device, entry, launch,
+                                          variant)
 
 _WHAT = "the CUDA seeding kernels"
 
 
 def _declare(lib) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    index = [P, P, LL, P, I, I, I]
+    # mode, wide, rk, sa, keys, text32, n_text_words, params, params64,
+    # n_leaf, bits, n_sa
+    index = [I, I, P, P, P, P, LL, P, P, I, I, LL]
     lib.seed_round1_launch.argtypes = index + [
         P, I, P, P, P, I, P, I, I, I, P, P, P, P, P]
     lib.seed_round2_launch.argtypes = index + [
@@ -39,18 +44,39 @@ def _declare(lib) -> None:
         fn.restype = I
 
 
-def _entry(fn_name: str):
-    return entry("seed_smem", fn_name, _declare)
+def _entry(mode: int, fn_name: str):
+    """A launcher of the library of a mode's variants (ops/build.py)."""
+    return entry(f"seed_smem_m{mode}", fn_name, _declare)
 
 
-def _index_args(di: DeviceIndex, dev: torch.device) -> tuple:
-    check(di.rk, "rk", torch.int32, (di.n_sa, 4), dev)
-    check(di.text32, "text32", torch.int32, (None,), dev)
-    check(di.params, "params", torch.int32, (None, 6), dev)
-    if di.rk.data_ptr() % 16:
+def _ptr(x) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def _index_args(di: DeviceIndex, dev: torch.device,
+                leaves_only: bool = False) -> tuple:
+    """The launchers' index arguments, every plane they read checked
+    (DeviceIndex checked the planes' dtypes and shapes when it was made).
+    ``leaves_only``: the kernel reads the leaf records alone (prmi_window),
+    and the rank-indexed planes go as null."""
+    planes = di.planes
+    if leaves_only:
+        planes = {k: planes[k] for k in ("params", "params64") if k in planes}
+    for name, x in planes.items():
+        check(x, name, x.dtype, tuple(x.shape), dev)
+    if "rk" in planes and not di.wide and di.rk.data_ptr() % 16:
         raise ValueError("rk: rank rows must be 16-byte aligned")
-    return (di.rk.data_ptr(), di.text32.data_ptr(), di.text32.numel(),
-            di.params.data_ptr(), di.params.shape[0], di.bits, di.n_sa)
+    for name in ("ktext", "key2", "params64", "sa"):
+        x = planes.get(name)    # a key is one 8-byte load
+        if x is not None and x.data_ptr() % (
+                x.element_size() * (2 if x.dim() == 2 else 1)):
+            raise ValueError(f"{name}: not aligned to its loads")
+    keys = planes.get("ktext", planes.get("key2"))
+    return (di.mode, int(di.wide), _ptr(planes.get("rk")),
+            _ptr(planes.get("sa")), _ptr(keys), di.text32.data_ptr(),
+            di.text32.numel(), di.params.data_ptr(),
+            _ptr(planes.get("params64")), di.params.shape[0], di.bits,
+            di.n_sa)
 
 
 def _query_args(qbuf, tables, lens, dev) -> tuple:
@@ -65,8 +91,8 @@ def _query_args(qbuf, tables, lens, dev) -> tuple:
     return R, qbuf.shape[1], Lp
 
 
-def _outputs(R: int, M: int, dev):
-    return (torch.empty((4, R, M), dtype=torch.int32, device=dev),
+def _outputs(di: DeviceIndex, R: int, M: int, dev):
+    return (torch.empty((4, R, M), dtype=di.rank_dtype, device=dev),
             torch.empty((R,), dtype=torch.int32, device=dev),
             torch.empty((R,), dtype=torch.int32, device=dev))
 
@@ -88,10 +114,11 @@ def seed_round1(di: DeviceIndex, qbuf, nf, nr, nvf, lens, minseed: int,
     """Kernel form of seed_smem.seed_round1_torch."""
     dev = cuda_device(qbuf, _WHAT)
     R, W, Lp = _query_args(qbuf, (nf, nr, nvf), lens, dev)
-    slots, nsm, dropped = _outputs(R, M, dev)
+    slots, nsm, dropped = _outputs(di, R, M, dev)
     cnt = _counts_ptr(counts, R, dev)
     if R:
-        launch("seed_round1", _entry("seed_round1_launch"), dev,
+        launch(variant("seed_round1", di.mode, di.wide),
+               _entry(di.mode, "seed_round1_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
                nr.data_ptr(), nvf.data_ptr(), Lp, lens.data_ptr(), R,
                minseed, M, slots.data_ptr(), nsm.data_ptr(),
@@ -105,12 +132,13 @@ def seed_round2(di: DeviceIndex, qbuf, nf, nr, lens, slots1, nsm1,
     """Kernel form of seed_smem.seed_round2_torch."""
     dev = cuda_device(qbuf, _WHAT)
     R, W, Lp = _query_args(qbuf, (nf, nr), lens, dev)
-    check(slots1, "slots1", torch.int32, (4, R, None), dev)
+    check(slots1, "slots1", di.rank_dtype, (4, R, None), dev)
     check(nsm1, "nsm1", torch.int32, (R,), dev)
-    slots, nsm, dropped = _outputs(R, M, dev)
+    slots, nsm, dropped = _outputs(di, R, M, dev)
     cnt = _counts_ptr(counts, R, dev)
     if R:
-        launch("seed_round2", _entry("seed_round2_launch"), dev,
+        launch(variant("seed_round2", di.mode, di.wide),
+               _entry(di.mode, "seed_round2_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
                nr.data_ptr(), Lp, lens.data_ptr(), R, slots1.data_ptr(),
                nsm1.data_ptr(), slots1.shape[2], split_len, split_width,
@@ -124,10 +152,11 @@ def seed_round3(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
     """Kernel form of seed_smem.seed_round3_torch."""
     dev = cuda_device(qbuf, _WHAT)
     R, W, Lp = _query_args(qbuf, (nf,), lens, dev)
-    slots, nsm, dropped = _outputs(R, M, dev)
+    slots, nsm, dropped = _outputs(di, R, M, dev)
     cnt = _counts_ptr(counts, R, dev)
     if R:
-        launch("seed_round3", _entry("seed_round3_launch"), dev,
+        launch(variant("seed_round3", di.mode, di.wide),
+               _entry(di.mode, "seed_round3_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
                Lp, lens.data_ptr(), R, min_intv, min_seed, M,
                slots.data_ptr(), nsm.data_ptr(), dropped.data_ptr(),
@@ -137,16 +166,18 @@ def seed_round3(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
 
 def prmi_window(di: DeviceIndex, khi, klo):
     """The P-RMI window alone: khi, klo (n,) int32 storage of uint32 key
-    words; returns (lo, hi), (n,) int32."""
+    words; returns (lo, hi), (n,) int32 (int64 over a wide index)."""
     dev = cuda_device(khi, _WHAT)
     check(khi, "khi", torch.int32, (None,), dev)
     n = khi.shape[0]
     check(klo, "klo", torch.int32, (n,), dev)
-    lo = torch.empty((n,), dtype=torch.int32, device=dev)
+    lo = torch.empty((n,), dtype=di.rank_dtype, device=dev)
     hi = torch.empty_like(lo)
     if n:
-        launch("prmi_window", _entry("prmi_window_launch"), dev,
-               *_index_args(di, dev), khi.data_ptr(), klo.data_ptr(), n,
+        launch(variant("prmi_window", di.mode, di.wide),
+               _entry(di.mode, "prmi_window_launch"), dev,
+               *_index_args(di, dev, leaves_only=True), khi.data_ptr(),
+               klo.data_ptr(), n,
                lo.data_ptr(), hi.data_ptr())
     return lo, hi
 
@@ -154,17 +185,18 @@ def prmi_window(di: DeviceIndex, khi, klo):
 def sa_query(di: DeviceIndex, qbuf, row, pivot, v, min_intv, counts=None):
     """sa_query alone over n jobs: qbuf (rows, W) int32 storage, row, pivot,
     v, min_intv (n,) int32 with row in [0, rows) and pivot >= 0; returns
-    (3, n) int32 mlen, lb, cnt."""
+    (3, n) mlen, lb, cnt, int32 (int64 over a wide index)."""
     dev = cuda_device(qbuf, _WHAT)
     check(qbuf, "qbuf", torch.int32, (None, None), dev)
     check(row, "row", torch.int32, (None,), dev)
     n = row.shape[0]
     for name, x in (("pivot", pivot), ("v", v), ("min_intv", min_intv)):
         check(x, name, torch.int32, (n,), dev)
-    out = torch.empty((3, n), dtype=torch.int32, device=dev)
+    out = torch.empty((3, n), dtype=di.rank_dtype, device=dev)
     cnt = _counts_ptr(counts, n, dev)
     if n:
-        launch("sa_query", _entry("sa_query_launch"), dev,
+        launch(variant("sa_query", di.mode, di.wide),
+               _entry(di.mode, "sa_query_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), qbuf.shape[1],
                row.data_ptr(), pivot.data_ptr(), v.data_ptr(),
                min_intv.data_ptr(), n, out.data_ptr(), cnt)

@@ -1,8 +1,10 @@
 """Batched device seeding engine on PyTorch.
 
 Port of ``DeviceSeedingEngine`` (bwameme_tpu/seeding/engine.py) for the
-default configuration: the learned index (P-RMI root), mode 4, int32
-coordinates, one device. A batch is prepared on the device
+learned index (the P-RMI root) on one device, in every memory mode (1-4) and
+in narrow (int32) or wide (int64) coordinates (index/device.py); wide slot
+planes carry sa_lo and the hitcount as int64, read coordinates stay small.
+A batch is prepared on the device
 (ops/seed_smem.prepare_reads), seeded by the three rounds - on a CUDA device
 the hand-written kernels, one launch a round, a warp running one read's
 state machine to its end, its lanes probing a whole P-RMI window's ranks in
@@ -53,11 +55,14 @@ MAX_READ_LEN = 512
 
 class DeviceSeedingEngine:
     def __init__(self, idx, opt, lanes: int = 1024, device="cuda",
-                 mode: int | None = None):
+                 mode: int | None = None, wide: bool | None = None):
         """``lanes`` is the batch size the caller intends (the reference's
         fixed lane count; any batch size runs, see the module's docstring
         for the sizes the kernels are designed for). ``device`` is explicit:
-        the card by default, the CPU for the tests."""
+        the card by default, the CPU for the tests. ``mode`` and ``wide``
+        choose the index's layout as the JAX engine's do: by default the
+        fastest mode that fits the device's memory, and wide coordinates
+        from 2^31 suffixes on (``DeviceIndex.from_host``)."""
         self.idx = idx
         self.opt = opt
         self.lanes = lanes
@@ -65,14 +70,15 @@ class DeviceSeedingEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not "
                                "available")
-        self.di = DeviceIndex.from_host(idx, self.device, mode=mode)
+        self.di = DeviceIndex.from_host(idx, self.device, mode=mode,
+                                        wide=wide)
         self.max_smems = 96       # emission slots a read, rounds 1 and 3
         self.max_reseeds = 16     # emission slots a read, round 2
         self.pack_cap_per_read = 24
         self.dropped_smems = 0    # emissions that found no slot
 
-    # chaining reads positions from here; the rank rows hold them on the
-    # device, the host index holds them for the host
+    # chaining reads positions from here; the device planes hold them for
+    # the device, the host index for the host
     @property
     def sa_positions(self):
         return self.idx.sa

@@ -52,21 +52,36 @@ of which ends the run with a non-zero exit and no result line when it fails:
    N, from the planted repeats), kernel == plain exactly and, through the
    engine, == the port's HostSeedingEngine on 128 of them. Then the rounds
    on 253 reads that stress a warp-a-read search (a count that fills no
-   block; reads from repeats, of 19-40 bp, of 500 bp, with N), on this index
-   and on a 2 Mbp genome with tiled and dispersed repeats under a coarse
-   P-RMI whose windows are wider than 32 x 30 ranks, kernel == plain
-   exactly, with the most SMEMs a read emits in a round beside its slots.
-   A seeding kernel's byte bound is reckoned from what the
+   block; reads from repeats, of 19-40 bp, of 500 bp, with N) on a 2 Mbp
+   genome with tiled and dispersed repeats under a coarse P-RMI whose
+   windows are wider than 32 x 30 ranks, kernel == plain exactly, with the
+   most SMEMs a read emits in a round beside its slots. Then the same keys,
+   jobs and reads in mode 1 (positions only: every compare walks the packed
+   text), each kernel == plain, timed; and the wide mode-1 engine over the
+   main run's 8192 reads, whose SMEMs must equal the narrow mode-4
+   engine's. A seeding kernel's byte bound is reckoned from what the
    answers stand on, whatever the design: the distinct index sectors that
-   hold the leaf record, the rank rows beside every insertion point and
-   interval border and the text that decides their compares, counted by
-   the plain version over the whole launch (answer_sectors). Beside it
-   stand the sectors the scalar contract's binary searches read
+   hold the leaf record, the rank-indexed entries beside every insertion
+   point and interval border and the text that decides their compares,
+   counted by the plain version over the whole launch (answer_sectors).
+   Beside it stand the sectors the scalar contract's binary searches read
    (work_sectors) and the sectors and dependent steps the kernel counted
-   of itself (kernel_sectors, latency_steps).
+   of itself (kernel_sectors, latency_steps). A variant's plain ms is the
+   plain version's run that also counts this work.
+4b. layouts: on the bench genome cut to SIDE_MBP, modes 2 and 3 and modes
+   1-4 in wide (int64) coordinates: each one's path (the engine over 1024
+   reads, counted from 0), then prmi_window, sa_query and the three rounds
+   against their plain versions, timed, with their bounds.
+4c. jumbo: more than 2^31 suffixes (2^31 + 2^27) on one card in mode 1
+   wide, the analytic periodic index (bench_util.periodic_index) built on
+   the card; sa_query == its closed form on 96 rotations (some lb past
+   2^31), prmi_window and the three rounds == plain. Its seconds and peak
+   device memory.
 5. end to end: ``bwameme_tpu_torch.cli mem`` with its default engine (the
    device engine) on 8192 single-end 151 bp reads of the bench genome in
-   batches of 4096 (the main path). Then, on the bench genome cut to 2 Mbp
+   batches of 4096 (the main path), and the same with --mode 1, whose SAM
+   must be byte-identical (index_upload, align and peak device memory of
+   both). Then, on the bench genome cut to 2 Mbp
    (SIDE_MBP: built in seconds, so that no run but the main ones pays 100
    Mbp of rank rows), 128 short reads with the default engine, on 64 reads
    with two deletions under -w 20 (the band-retry ladder), and with
@@ -79,7 +94,8 @@ of which ends the run with a non-zero exit and no result line when it fails:
    byte-identical to a CPU run of --engine host on the same 100 Mbp index
    (no rank rows to assemble); the SAM records of the 128 short reads of
    the 2 Mbp genome are byte-identical
-   from the card, from a CPU run of the plain versions and from --engine
+   from the card (in modes 4, 3, 2 and 1, and on the index saved without
+   its ISA), from a CPU run of the plain versions and from --engine
    host, those of the deletion reads to a CPU run of --engine host (the
    scalar seeding and the plain banded SW), and those of the long reads to
    their CPU run.
@@ -90,11 +106,12 @@ of which ends the run with a non-zero exit and no result line when it fails:
    0: it must launch each seeding round once a batch, the extension and
    sw_full; at least 95% of the pairs are flagged proper and 90% of the
    rescued mates lie at their source. 64 pairs of the 2 Mbp genome under
-   -I 400,40 give the same SAM from the card (as one -p interleaved file),
-   from a CPU run of the plain versions and from --engine host (the serial
-   host rescue, which launches no sw_full).
+   -I 400,40 give the same SAM from the card (as one -p interleaved file,
+   in modes 4 and 1), from a CPU run of the plain versions and from
+   --engine host (the serial host rescue, which launches no sw_full).
 
-Prints a JSON line of per-kernel numbers, then, last, {"ok": true, ...}.
+Prints a JSON line of per-kernel numbers (a seeding kernel's every
+variant, with ptxas's registers), then, last, {"ok": true, ...}.
 Exits 2 with no result when no CUDA device is visible or the port is not
 beside this file.
 """
@@ -136,6 +153,22 @@ LAUNCH_PATH = {
     "sa_query": "the search entry points, one call each",
     "sw_full": "mem, default engine, 2 x 151 bp pairs",
 }
+
+
+def launch_path(name: str) -> str:
+    """The path a kernel's variant is counted on: the seeding rounds of mode
+    1 on mem --mode 1, those of the other layouts on the engine over the
+    side genome's reads (phase 4b), the primitives on one call each."""
+    base, _, tag = name.partition("[")
+    if not tag or base in ("prmi_window", "sa_query"):
+        return LAUNCH_PATH[base]
+    if tag == "m1]":
+        return "mem --mode 1, 151 bp reads"
+    mode, _, wide = tag.rstrip("]").partition(",")
+    return (f"engine, mode {mode[1:]}{' wide' if wide else ''}, "
+            f"{LAYOUT_READS} reads of the {SIDE_MBP:g} Mbp genome")
+
+
 SW_KEYS = ("score", "qle", "tle", "gtle", "gscore", "max_off")
 # published peaks of one H100 SXM: HBM bytes/s; int32 operations/s outside
 # the tensor cores, taken as half the 67 TFLOP/s float32 rate (an SM has half
@@ -179,6 +212,20 @@ JOBS_PER_READ = 26
 N_STRESS = 253
 COARSE_MBP = 2
 COARSE_RMI_BITS = 2
+# phase 4b: the layouts no main path takes, on the side genome (reads a
+# layout, keys for prmi_window); phase 4c: the jumbo index of more than 2^31
+# suffixes (a block of JUMBO_P bases tiled, windows of JUMBO_M bases tell
+# its rotations apart), queried on JUMBO_ROTATIONS rotations, JUMBO_KEYS
+# keys and JUMBO_READS reads
+LAYOUTS = ((2, False), (3, False), (1, True), (2, True), (3, True),
+           (4, True))
+LAYOUT_READS = 1024
+LAYOUT_KEYS = 1 << 16
+JUMBO_P, JUMBO_M = 4096, 16
+JUMBO_N = (2**31 + 2**27) // JUMBO_P * JUMBO_P
+JUMBO_ROTATIONS = 96
+JUMBO_KEYS = 1 << 16
+JUMBO_READS = 256
 # phase 5b: 2 x 151 bp pairs, insert N(mean, sd); every RESCUED-th pair's
 # second mate only a rescue can place
 N_PAIRS = 4096
@@ -189,6 +236,10 @@ RESCUED = 8
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+# the stages and peak device memory of the last run_mem
+LAST_RUN: dict = {}
 
 
 def check(cond, msg: str) -> None:
@@ -936,9 +987,9 @@ def coarse_index(mbp: float, rmi_bits: int):
 def compare_rounds(batch, dev, count_work: bool):
     """Each round's kernel against its plain version on one batch
     (bench_util.Rounds), all values equal. Yields (k, the kernel's result,
-    max abs err, the plain version's wall ms, the work that a second run of
-    the plain version counted (ops.sa_search.Work; None unless asked), the
-    kernel's own counts (2, R))."""
+    max abs err, the plain version's wall ms, the work it counted on that
+    run (ops.sa_search.Work; None unless asked: the wall ms then includes
+    the counting), the kernel's own counts (2, R))."""
     import torch
 
     from bwameme_tpu_torch.ops.sa_search import Work
@@ -946,17 +997,15 @@ def compare_rounds(batch, dev, count_work: bool):
     for k in range(3):
         counts = torch.zeros((2, batch.R), dtype=torch.int32, device=dev)
         res = batch.run(k, batch.kernels[k], counts=counts)
+        work = Work(batch.R, dev) if count_work else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = batch.run(k, batch.plain[k])
+        want = batch.run(k, batch.plain[k], work=work)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        work = Work(batch.R, dev) if count_work else None
-        if count_work:
-            batch.run(k, batch.plain[k], work=work)
         err = round_err(res, want)
-        check(err == 0, f"seed_round{k + 1} differs from its plain "
-              f"version: {err}")
+        check(err == 0, f"{variant_of(batch.eng.di, f'seed_round{k + 1}')} "
+              f"differs from its plain version: {err}")
         yield k, res, err, plain_ms, work, counts
 
 
@@ -997,39 +1046,19 @@ def seeding_row(err, kern, plain_ms, work, counts, chain_us: float,
         latency_steps=steps, latency_bound_ms=steps * chain_us / 1e3)
 
 
-def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
-                 chain_us: float):
-    """``chain_us``: us a dependent 16-byte load at a batch's lanes, as
-    ``phase_gather`` measured it."""
+def variant_of(di, name: str) -> str:
+    from bwameme_tpu_torch.ops.launch import variant
+
+    return variant(name, di.mode, di.wide)
+
+
+def window_keys(idx, rng, n_keys: int):
+    """Keys for prmi_window: stored keys of random ranks, a third cut to
+    19..31 bases and padded with zeros, a third padded with ones, as
+    interval_at and find_longest pad them; returns (ranks, khi, klo) with
+    the key words as int32 storage on the host."""
     import numpy as np
-    import torch
 
-    from bwameme_tpu_torch.bench_util import (Rounds, cuda_ms, get_index,
-                                              planted_repeats,
-                                              simulated_reads)
-    from bwameme_tpu_torch.index.build import load_index
-    from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
-    from bwameme_tpu_torch.ops.launch import stats
-    from bwameme_tpu_torch.ops.sa_search import Work
-    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
-    from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine
-    from bwameme_tpu_torch.utils.config import MemOptions
-
-    report = {}
-    idx = load_index(get_index(mbp))
-    opt = MemOptions()
-    t0 = time.perf_counter()
-    eng = DeviceSeedingEngine(idx, opt, lanes=n_reads, device=dev)
-    torch.cuda.synchronize()
-    di = eng.di
-    plane_gib = sum(t.numel() * 4 for t in (di.rk, di.text32, di.params)) / 2**30
-    log(f"device index: {plane_gib:.2f} GiB (rank rows {di.rk.shape[0]} x 16 B,"
-        f" {di.params.shape[0]} leaves, widest window {di.max_width}) built "
-        f"and uploaded in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(17)
-
-    # P-RMI windows: stored keys, and keys cut to 19..31 bases and padded
-    # with zeros / ones as interval_at and find_longest pad them
     ranks = rng.integers(0, idx.n_sa, n_keys)
     khi = np.asarray(idx.key_hi)[ranks].astype(np.uint32)
     klo = np.asarray(idx.key_lo)[ranks].astype(np.uint32)
@@ -1042,118 +1071,211 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
     klo[:third] &= ml[:third]
     khi[third: 2 * third] = (khi & mh | ~mh)[third: 2 * third]
     klo[third: 2 * third] = (klo & ml | ~ml)[third: 2 * third]
-    kh = torch.from_numpy(khi.view(np.int32)).to(dev)
-    kl = torch.from_numpy(klo.view(np.int32)).to(dev)
-    got = seed_smem_cuda.prmi_window(di, kh, kl)
-    want = seed_smem.prmi_window_torch(di, kh, kl)
-    torch.cuda.synchronize()
-    err = max(abs_err(got[0], want[0]), abs_err(got[1], want[1]))
-    check(err == 0, f"prmi_window differs from its plain version: {err}")
-    exact = 2 * third
-    lo, hi = got[0][exact:].cpu().numpy(), got[1][exact:].cpu().numpy()
-    # a window holds its key's lower bound: the key's own rank too, unless
-    # the key repeats (the planted repeats)
-    inside = ((lo <= ranks[exact:]) & (ranks[exact:] <= hi)).mean()
-    check(inside >= 0.99, f"only {inside:.4f} of the stored keys' ranks lie "
-          "inside their windows")
-    log(f"prmi_window == plain on {n_keys} keys (max abs err {err}; a third "
-        f"zero-padded, a third one-padded; {100 * inside:.3f}% of the stored keys' ranks inside "
-        f"their windows, mean width {float((hi - lo).mean()):.1f})")
-    report["prmi_window"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: seed_smem_cuda.prmi_window(
-            di, kh, kl), 20),
-        plain_ms=cuda_ms(lambda: seed_smem.prmi_window_torch(di, kh, kl), 5),
-        library_ms=None,
-        bound_ms=n_keys * (SECTOR + 16) / HBM_BPS * 1e3, bound_by="bytes")
+    return ranks, khi.view(np.int32), klo.view(np.int32)
 
-    # reads, prepared on the card as the engine prepares them
-    reads = simulated_reads(idx.text, idx.l_pac, n_reads, 151, rng,
-                            planted_repeats(mbp))
-    batch = Rounds(eng, reads, dev)
-    qbuf, nf, nr, nvf = batch.prep
-    R = n_reads
 
-    # sa_query jobs cut from the reads: both strands, whole windows and cut
-    # ones, min_intv from 1 up
-    J = JOBS_PER_READ
-    rd = np.repeat(np.arange(R), J)
-    piv = rng.integers(0, 151, R * J)
-    rev = rng.integers(0, 2, R * J)
+def query_jobs(batch, rng, per_read: int, dev):
+    """sa_query jobs cut from a batch's reads: both strands, whole windows
+    and cut ones, min_intv from 1 up; (row, pivot, v, min_intv) int32."""
+    import numpy as np
+    import torch
+
+    R = batch.R
+    _, nf, nr, _ = batch.prep
+    rd = np.repeat(np.arange(R), per_read)
+    lens = batch.lens.cpu().numpy()[rd]
+    piv = (rng.random(R * per_read) * np.maximum(lens, 1)).astype(np.int64)
+    rev = rng.integers(0, 2, R * per_read)
     nf_h, nr_h = nf.cpu().numpy(), nr.cpu().numpy()
     full = np.where(rev == 1, nr_h[rd, piv], nf_h[rd, piv]) - piv
-    v = np.where(rng.random(R * J) < 0.7, full,
-                 (rng.random(R * J) * (full + 1)).astype(np.int64))
-    mi = rng.choice([1, 1, 1, 2, 3, 11, 21, 501], R * J)
-    jobs = [torch.from_numpy(a.astype(np.int32)).to(dev)
+    v = np.where(rng.random(R * per_read) < 0.7, full,
+                 (rng.random(R * per_read) * (full + 1)).astype(np.int64))
+    mi = rng.choice([1, 1, 1, 2, 3, 11, 21, 501], R * per_read)
+    return [torch.from_numpy(a.astype(np.int32)).to(dev)
             for a in (rd + rev * R, piv, v, mi)]
-    counts = torch.zeros((2, R * J), dtype=torch.int32, device=dev)
-    work = Work(R * J, dev)
+
+
+def check_layout(eng, reads, kh, kl, dev, chain_us: float, rng):
+    """Every seeding kernel of the engine's layout against its plain
+    version on the card: prmi_window on the keys kh, kl (host int32
+    storage), sa_query on JOBS_PER_READ jobs a read, the three rounds on the
+    reads; each one's report row (times, bound, the plain version's
+    counts), keyed by the variant's name. Returns (report, the batch, the
+    jobs, the sa_query result)."""
+    import torch
+
+    from bwameme_tpu_torch.bench_util import Rounds, cuda_ms
+    from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
+    from bwameme_tpu_torch.ops.sa_search import Work
+
+    di, report = eng.di, {}
+    rb = 8 if di.wide else 4
+    khd, kld = (torch.from_numpy(k).to(dev) for k in (kh, kl))
+    got = seed_smem_cuda.prmi_window(di, khd, kld)
+    want = seed_smem.prmi_window_torch(di, khd, kld)
+    torch.cuda.synchronize()
+    err = max(abs_err(got[0], want[0]), abs_err(got[1], want[1]))
+    name = variant_of(di, "prmi_window")
+    check(err == 0, f"{name} differs from its plain version: {err}")
+    n = len(kh)
+    # a key's leaf record (and wide leaf starts) in one sector each, the
+    # key read and the window written once
+    report[name] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: seed_smem_cuda.prmi_window(
+            di, khd, kld), 20),
+        plain_ms=cuda_ms(lambda: seed_smem.prmi_window_torch(
+            di, khd, kld), 5),
+        library_ms=None, bound_by="bytes",
+        bound_ms=n * (SECTOR * (2 if di.wide else 1) + 8 + 2 * rb)
+        / HBM_BPS * 1e3)
+
+    batch = Rounds(eng, reads, dev)
+    qbuf, nf, _, _ = batch.prep
+    R = batch.R
+    jobs = query_jobs(batch, rng, JOBS_PER_READ, dev)
+    n = jobs[0].shape[0]
+    counts = torch.zeros((2, n), dtype=torch.int32, device=dev)
+    work = Work(n, dev)
     got = seed_smem_cuda.sa_query(di, qbuf, *jobs, counts=counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     want = seed_smem.sa_query_torch(di, qbuf, *jobs, work=work)
     torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     err = abs_err(got, want)
-    check(err == 0, f"sa_query differs from its plain version: {err}")
-    report["sa_query"] = row = seeding_row(
-        err, lambda: seed_smem_cuda.sa_query(di, qbuf, *jobs),
-        cuda_ms(lambda: seed_smem.sa_query_torch(di, qbuf, *jobs), 1),
-        work, counts, chain_us, R * J * 28)
-    log(f"sa_query == plain on {R * J} jobs (max abs err {err}; longest "
-        f"match {int(got[0].max())}, {int((got[0] > 48).sum())} past 48 "
-        f"bases; the answers stand on {row['answer_sectors']} distinct index "
-        f"sectors, {row['answer_sectors'] / (R * J):.1f} a job; the scalar "
-        f"searches read {row['work_sectors'] / (R * J):.1f} a job, at most "
-        f"{int(work.probes.max())}; the kernel "
-        f"{row['kernel_sectors'] / (R * J):.1f} sectors and "
-        f"{float(counts[1].float().mean()):.1f} dependent steps a job, at "
-        f"most {row['latency_steps']}); kernel {row['ms']:.4f} ms a call alone, "
-        f"{row['device_ms']:.4f} ms on the card")
-
-    # the three rounds: kernel == plain on the whole batch
+    name = variant_of(di, "sa_query")
+    check(err == 0, f"{name} differs from its plain version: {err}")
+    report[name] = seeding_row(
+        err, lambda: seed_smem_cuda.sa_query(di, qbuf, *jobs), plain_ms,
+        work, counts, chain_us, n * (16 + 3 * rb))
     table_bytes = 4 * (qbuf.numel() + 3 * nf.numel() + R)
     for k, res, err, plain_ms, work, counts in compare_rounds(batch, dev,
                                                              True):
-        name = f"seed_round{k + 1}"
+        name = variant_of(di, f"seed_round{k + 1}")
         check(int(res[2].sum()) == 0, f"{name} ran out of emission slots")
-        report[name] = row = seeding_row(
+        report[name] = seeding_row(
             err, lambda: batch.run(k, batch.kernels[k]), plain_ms, work,
-            counts, chain_us,
-            table_bytes + 4 * int(res[1].sum()) * 4)
-        log(f"{name} == plain on {R} reads (max abs err {err}): "
-            f"{int(res[1].sum())} SMEMs; the answers stand on "
+            counts, chain_us, table_bytes + int(res[1].sum()) * 4 * rb)
+    return report, batch, jobs, got
+
+
+def log_rounds(report, di, R: int) -> None:
+    for k in range(3):
+        name = variant_of(di, f"seed_round{k + 1}")
+        row = report[name]
+        log(f"{name} == plain on {R} reads (max abs err "
+            f"{row['max_abs_err']}): the answers stand on "
             f"{row['answer_sectors']} distinct index sectors, "
             f"{row['answer_sectors'] / R:.0f} a read; the scalar searches "
-            f"read {row['work_sectors'] / R:.0f} a read, at most "
-            f"{int(work.probes.max())}; the kernel "
-            f"{row['kernel_sectors'] / R:.0f} "
-            f"sectors and {float(counts[1].float().mean()):.0f} dependent "
-            f"steps a read, at most {row['latency_steps']} (x {chain_us:.3f} "
-            f"us a dependent load at {R} lanes = "
-            f"{row['latency_bound_ms']:.3f} ms for the slowest read); kernel "
-            f"{row['ms']:.4f} ms a call alone, {row['device_ms']:.4f} ms on "
-            f"the card, plain {plain_ms:.0f} ms (one run)")
+            f"read {row['work_sectors'] / R:.0f} a read; the kernel "
+            f"{row['kernel_sectors'] / R:.0f} sectors a read, the slowest "
+            f"read {row['latency_steps']} dependent steps "
+            f"({row['latency_bound_ms']:.3f} ms); kernel {row['ms']:.4f} ms "
+            f"a call alone, {row['device_ms']:.4f} ms on the card, plain "
+            f"{row['plain_ms']:.0f} ms (one run, counting its work)")
 
-    # reads that stress a warp-a-read search, on this index and on a cut
-    # genome under a coarse P-RMI; batch sizes that fill no block
+
+def fastq_codes(path: str):
+    """The reads of a FASTQ file as code arrays (the pipeline's encoding)."""
+    import numpy as np
+
+    from bwameme_tpu_torch.index.packing import NT4_TABLE
+    from bwameme_tpu_torch.io.fastq import read_chunks
+
+    return [NT4_TABLE[np.frombuffer(r.seq.encode(), dtype=np.uint8)]
+            for chunk in read_chunks(path, chunk_bp=1 << 30) for r in chunk]
+
+
+def flat_smems(eng, reads, batch: int):
+    """The engine's FlatSmems of the reads, batch by batch, as tuples."""
+    out = []
+    for i in range(0, len(reads), batch):
+        flat = eng.sorted_smems_batch_flat(reads[i: i + batch])
+        check(flat is not None, "the packed SMEM buffer overflowed")
+        out += [[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
+                for lst in flat.to_lists()]
+    return out
+
+
+def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
+                 chain_us: float, main_fq: str):
+    """``chain_us``: us a dependent 16-byte load at a batch's lanes, as
+    ``phase_gather`` measured it; ``main_fq``: the main mem run's reads."""
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch.bench_util import (Rounds, get_index,
+                                              planted_repeats,
+                                              simulated_reads)
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.ops import seed_smem_cuda
+    from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+    from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    idx = load_index(get_index(mbp))
+    opt = MemOptions()
+    t0 = time.perf_counter()
+    eng = DeviceSeedingEngine(idx, opt, lanes=n_reads, device=dev)
+    torch.cuda.synchronize()
+    di = eng.di
+    check((di.mode, di.wide) == (4, False), "the bench index's default "
+          f"layout is mode {di.mode}{' wide' if di.wide else ''}")
+    log(f"device index: {di.nbytes / 2**30:.2f} GiB (rank rows "
+        f"{di.rk.shape[0]} x 16 B, {di.params.shape[0]} leaves, widest "
+        f"window {di.max_width}) built and uploaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(17)
+    ranks, kh, kl = window_keys(idx, rng, n_keys)
+    reads = simulated_reads(idx.text, idx.l_pac, n_reads, 151, rng,
+                            planted_repeats(mbp))
+    report, batch, jobs, got = check_layout(eng, reads, kh, kl, dev,
+                                            chain_us, rng)
+    lo, hi = (w.cpu().numpy()[2 * (n_keys // 3):]
+              for w in seed_smem_cuda.prmi_window(
+                  di, *(torch.from_numpy(k).to(dev) for k in (kh, kl))))
+    exact = ranks[2 * (n_keys // 3):]
+    # a window holds its key's lower bound: the key's own rank too, unless
+    # the key repeats (the planted repeats)
+    inside = ((lo <= exact) & (exact <= hi)).mean()
+    check(inside >= 0.99, f"only {inside:.4f} of the stored keys' ranks lie "
+          "inside their windows")
+    log(f"prmi_window == plain on {n_keys} keys (a third zero-padded, a "
+        f"third one-padded; {100 * inside:.3f}% of the stored keys' ranks "
+        f"inside their windows, mean width {float((hi - lo).mean()):.1f})")
+    row = report["sa_query"]
+    n = jobs[0].shape[0]
+    log(f"sa_query == plain on {n} jobs (longest match "
+        f"{int(got[0].max())}, {int((got[0] > 48).sum())} past 48 bases; "
+        f"the answers stand on {row['answer_sectors']} distinct index "
+        f"sectors, {row['answer_sectors'] / n:.1f} a job; the scalar "
+        f"searches read {row['work_sectors'] / n:.1f} a job; the kernel "
+        f"{row['kernel_sectors'] / n:.1f} sectors a job, at most "
+        f"{row['latency_steps']} dependent steps); kernel {row['ms']:.4f} ms "
+        f"a call alone, {row['device_ms']:.4f} ms on the card")
+    log_rounds(report, di, n_reads)
+
+    # reads that stress a warp-a-read search on a cut genome under a coarse
+    # P-RMI (windows wider than 32 x 30 ranks, runs of equal suffixes wider
+    # than any probe); a batch size that fills no block
     t0 = time.perf_counter()
     coarse, regions = coarse_index(COARSE_MBP, COARSE_RMI_BITS)
     coarse_eng = DeviceSeedingEngine(coarse, opt, lanes=N_STRESS, device=dev)
     check(coarse_eng.di.max_width > 32 * 30, "the coarse index's windows are "
           f"only {coarse_eng.di.max_width} ranks wide")
-    for label, e, regs in (("the bench index", eng, planted_repeats(mbp)),
-                           ("the coarse index", coarse_eng, regions)):
-        sreads = stress_reads(e.idx.text, e.idx.l_pac, N_STRESS, rng, regs)
-        stress = Rounds(e, sreads, dev)
-        found = [(int(res[1].sum()), int(res[1].max()), int(res[2].sum()),
-                  int(counts[1].max()))
-                 for _, res, _, _, _, counts in compare_rounds(stress, dev,
-                                                               False)]
-        log(f"stress reads on {label} (widest window {e.di.max_width}): "
-            f"the three rounds == plain on {N_STRESS} reads of 19-500 bp "
-            f"(from repeats, with N); a round's SMEMs, the most a read "
-            f"emits (of its {e.max_smems} slots in rounds 1 and 3, "
-            f"{e.max_reseeds} in round 2), emissions past the slots, most "
-            f"steps of a read: {found}")
-    log(f"stress cases took {time.perf_counter() - t0:.1f} s")
+    sreads = stress_reads(coarse.text, coarse.l_pac, N_STRESS, rng, regions)
+    stress = Rounds(coarse_eng, sreads, dev)
+    found = [(int(res[1].sum()), int(res[1].max()), int(res[2].sum()),
+              int(counts[1].max()))
+             for _, res, _, _, _, counts in compare_rounds(stress, dev, False)]
+    log(f"stress reads on the coarse index (widest window "
+        f"{coarse_eng.di.max_width}): the three rounds == plain on "
+        f"{N_STRESS} reads of 19-500 bp (from repeats, with N); a round's "
+        f"SMEMs, the most a read emits (of its {coarse_eng.max_smems} slots "
+        f"in rounds 1 and 3, {coarse_eng.max_reseeds} in round 2), "
+        f"emissions past the slots, most steps of a read: {found}; "
+        f"{time.perf_counter() - t0:.1f} s")
     del coarse_eng, stress
 
     # through the engine, against the scalar oracle
@@ -1162,29 +1284,226 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
     want = [[(s.start, s.end, s.sa_lo, s.hitcount)
              for s in host.sorted_smems(c)] for c in reads[:n_cmp]]
     host_s = time.perf_counter() - t0
-    flat = eng.sorted_smems_batch_flat(reads)
-    check(flat is not None, "the packed SMEM buffer overflowed")
-    got = [[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
-           for lst in flat.to_lists()[:n_cmp]]
-    check(got == want, "device SMEMs differ from the HostSeedingEngine's")
+    flat = flat_smems(eng, reads, n_reads)
+    check(flat[:n_cmp] == want, "device SMEMs differ from the "
+          "HostSeedingEngine's")
     lists = eng.sorted_smems_batch(reads[:n_cmp])
     check([[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
            for lst in lists] == want, "device SMEM lists differ from the "
           "HostSeedingEngine's")
     log(f"device SMEMs == HostSeedingEngine on {n_cmp} reads "
         f"({sum(map(len, want))} SMEMs; the oracle took {host_s:.1f} s); "
-        f"{int(flat.off[-1])} SMEMs in the batch of {R}")
+        f"{sum(map(len, flat))} SMEMs in the batch of {n_reads}")
 
     # the primitives have no caller on the mem path (the rounds inline
     # them): their path is this run of the two entry points, counted from 0
+    qbuf = batch.prep[0]
     stats.reset()
-    seed_smem_cuda.prmi_window(di, kh, kl)
+    seed_smem_cuda.prmi_window(di, *(torch.from_numpy(k).to(dev)
+                                     for k in (kh, kl)))
     seed_smem_cuda.sa_query(di, qbuf, *jobs)
     torch.cuda.synchronize()
     for name in ("prmi_window", "sa_query"):
         report[name]["launches"] = stats.launches[name]
         check(report[name]["launches"] > 0, f"{name} was not launched")
-    return report
+
+    # mode 1 (positions only) at full width: the same keys, jobs and reads
+    t0 = time.perf_counter()
+    eng1 = DeviceSeedingEngine(idx, opt, lanes=n_reads, device=dev, mode=1)
+    torch.cuda.synchronize()
+    up1 = time.perf_counter() - t0
+    r1, b1, jobs1, _ = check_layout(eng1, reads, kh, kl, dev, chain_us,
+                                    np.random.default_rng(17 + 1))
+    # prmi_window is one kernel in every mode: its row stays mode 4's
+    r1.pop("prmi_window")
+    report.update(r1)
+    log(f"mode 1 at {mbp:g} Mbp: {eng1.di.nbytes / 2**30:.2f} GiB of planes "
+        f"(mode 4: {di.nbytes / 2**30:.2f}), built and uploaded in "
+        f"{up1:.1f} s; prmi_window, sa_query ({jobs1[0].shape[0]} jobs) and "
+        "the three rounds == plain")
+    log_rounds(report, eng1.di, n_reads)
+    stats.reset()
+    seed_smem_cuda.sa_query(eng1.di, b1.prep[0], *jobs1)
+    torch.cuda.synchronize()
+    report["sa_query[m1]"]["launches"] = stats.launches["sa_query[m1]"]
+    del eng1, b1
+
+    # the wide mode-1 engine over the main run's reads: its SMEMs == the
+    # narrow mode-4 engine's (the wide variants' launches on this path)
+    main_reads = fastq_codes(main_fq)
+    t0 = time.perf_counter()
+    eng1w = DeviceSeedingEngine(idx, opt, lanes=n_reads, device=dev, mode=1,
+                                wide=True)
+    torch.cuda.synchronize()
+    up1w = time.perf_counter() - t0
+    stats.reset()
+    wide = flat_smems(eng1w, main_reads, n_reads)
+    launches = {k: v for k, v in stats.launches.items() if v}
+    check(all(launches.get(variant_of(eng1w.di, f"seed_round{k}"), 0) > 0
+              for k in (1, 2, 3)), f"the wide engine launched {launches}")
+    check(flat_smems(eng, main_reads, n_reads) == wide, "the wide mode-1 "
+          "engine's SMEMs differ from the narrow mode-4 engine's")
+    log(f"wide mode-1 engine ({eng1w.di.nbytes / 2**30:.2f} GiB of planes, "
+        f"uploaded in {up1w:.1f} s): FlatSmems == the narrow mode-4 "
+        f"engine's on the main run's {len(main_reads)} reads "
+        f"({sum(map(len, wide))} SMEMs); launches {launches}")
+    return report, {"engine, mode 1 wide": launches}
+
+
+def phase_layouts(dev, chain_us: float):
+    """The layouts the main paths do not take (modes 2 and 3, and 2-4
+    wide), on the bench genome cut to SIDE_MBP: each one's path, the engine
+    over LAYOUT_READS reads with every count at 0, then every kernel of the
+    layout against its plain version, timed, with its bound."""
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch.bench_util import (get_index, planted_repeats,
+                                              simulated_reads)
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.ops import seed_smem_cuda
+    from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    idx = load_index(get_index(SIDE_MBP))
+    opt = MemOptions()
+    rng = np.random.default_rng(23)
+    _, kh, kl = window_keys(idx, rng, LAYOUT_KEYS)
+    reads = simulated_reads(idx.text, idx.l_pac, LAYOUT_READS, 151, rng,
+                            planted_repeats(SIDE_MBP))
+    report, by_path = {}, {}
+    for mode, wide in LAYOUTS:
+        t0 = time.perf_counter()
+        eng = DeviceSeedingEngine(idx, opt, lanes=LAYOUT_READS, device=dev,
+                                  mode=mode, wide=wide)
+        di = eng.di
+        path = f"engine, mode {mode}{' wide' if wide else ''}"
+        stats.reset()
+        flat = flat_smems(eng, reads, LAYOUT_READS)
+        by_path[path] = {k: v for k, v in stats.launches.items() if v}
+        rows, batch, jobs, _ = check_layout(eng, reads, kh, kl, dev,
+                                            chain_us, rng)
+        # prmi_window is one kernel in every mode: its narrow row is the
+        # search phase's, its wide row the first wide layout's
+        rows = {k: v for k, v in rows.items()
+                if k != "prmi_window" and k not in report}
+        stats.reset()
+        if "prmi_window[wide]" in rows:
+            seed_smem_cuda.prmi_window(di, *(torch.from_numpy(k).to(dev)
+                                             for k in (kh, kl)))
+        seed_smem_cuda.sa_query(di, batch.prep[0], *jobs)
+        torch.cuda.synchronize()
+        for name in rows:
+            rows[name]["launches"] = (
+                by_path[path].get(name, 0) if name.startswith("seed_round")
+                else stats.launches[name])
+        report.update(rows)
+        log(f"{path} at {SIDE_MBP:g} Mbp ({di.nbytes / 2**20:.1f} MiB of "
+            f"planes): {sum(map(len, flat))} SMEMs of {LAYOUT_READS} reads; "
+            "prmi_window, sa_query and the rounds == plain; ms alone / on "
+            "the card: " + ", ".join(
+                f"{n} {r['ms']:.4f}" + (f" / {r['device_ms']:.4f}"
+                                        if "device_ms" in r else "")
+                for n, r in rows.items())
+            + f"; {time.perf_counter() - t0:.1f} s")
+        del eng, batch
+    return report, by_path
+
+
+def phase_jumbo(dev):
+    """More than 2^31 suffixes on one card, mode 1 wide: the analytic
+    periodic index (bench_util.periodic_index: a block of JUMBO_P bases
+    tiled to JUMBO_N), built on the card. sa_query against the closed form
+    on JUMBO_ROTATIONS rotations, some lb past 2^31; prmi_window and the
+    three rounds against their plain versions (keys of every leaf, reads cut
+    from the text)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch.bench_util import (Rounds, expected_hit,
+                                              periodic_index, periodic_reads)
+    from bwameme_tpu_torch.index.packing import pack_words
+    from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
+    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    p, m, n = JUMBO_P, JUMBO_M, JUMBO_N
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    di, block, rot = periodic_index(n, p, m, seed=9, device=dev)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    check(di.n_sa > 2**31 and (di.mode, di.wide) == (1, True),
+          "the jumbo index is not a wide mode-1 index past 2^31 suffixes")
+
+    # sa_query against the closed form
+    rng = np.random.default_rng(31)
+    ks = np.unique(np.concatenate([[0, 1, p // 2, p - 2, p - 1],
+                                   rng.integers(0, p, JUMBO_ROTATIONS)]))
+    L = 48
+    tile2 = np.tile(block, 2)
+    pats = np.stack([tile2[int(rot[k]): int(rot[k]) + L] for k in ks])
+    words = np.stack([pack_words(c) for c in pats])
+    qbuf = np.full((len(ks), L // 16 + 3), 0xFFFFFFFF, np.uint32)
+    qbuf[:, : L // 16] = words
+    qbuf = torch.from_numpy(qbuf.view(np.int32)).to(dev)
+    jobs = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        np.arange(len(ks)), np.zeros(len(ks)), np.full(len(ks), L),
+        np.ones(len(ks)))]
+    got = seed_smem_cuda.sa_query(di, qbuf, *jobs)
+    want = seed_smem.sa_query_torch(di, qbuf, *jobs)
+    err = abs_err(got, want)
+    check(err == 0, f"sa_query[m1,wide] differs from its plain version on "
+          f"the jumbo index: {err}")
+    hits = got.cpu().numpy()
+    closed = np.array([expected_hit(block, rot, n, p, m, int(k), L)
+                       for k in ks]).T
+    check((hits == closed).all(), "sa_query on the jumbo index differs "
+          "from the closed form")
+    n_big = int((hits[1] > 2**31).sum())
+    check(n_big > 0, "no lb of the jumbo queries passes 2^31")
+
+    # prmi_window on keys of every leaf (a base, then random bits)
+    leaf = rng.integers(0, 4, JUMBO_KEYS).astype(np.uint64)
+    key = (leaf << np.uint64(62)) | rng.integers(
+        0, 1 << 62, JUMBO_KEYS, dtype=np.uint64)
+    kh = torch.from_numpy((key >> np.uint64(32)).astype(np.uint32)
+                          .view(np.int32)).to(dev)
+    kl = torch.from_numpy((key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+                          .view(np.int32)).to(dev)
+    wg = seed_smem_cuda.prmi_window(di, kh, kl)
+    wp = seed_smem.prmi_window_torch(di, kh, kl)
+    werr = max(abs_err(wg[0], wp[0]), abs_err(wg[1], wp[1]))
+    check(werr == 0, f"prmi_window[wide] differs from its plain version on "
+          f"the jumbo index: {werr}")
+
+    # the three rounds on reads cut from the text
+    eng = types.SimpleNamespace(
+        di=di, opt=MemOptions(), max_smems=96, max_reseeds=16,
+        _batch_matrix=DeviceSeedingEngine._batch_matrix)
+    reads = periodic_reads(block, JUMBO_READS, 151, rng)
+    batch = Rounds(eng, reads, dev)
+    found = []
+    for _, res, _, _, _, _ in compare_rounds(batch, dev, False):
+        used = (torch.arange(res[0].shape[2], device=dev)[None, :]
+                < res[1][:, None])
+        lbs = res[0][2][used]
+        found.append((int(res[1].sum()), int(lbs.max()) if lbs.numel() else 0))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"jumbo: {n} suffixes (2^31 + {n - 2**31}; a {p}-base block, m = "
+        f"{m}), mode 1 wide, {di.nbytes / 2**30:.2f} GiB of planes built on "
+        f"the card in {built:.1f} s; sa_query == closed form == plain on "
+        f"{len(ks)} rotations ({n_big} lb past 2^31, the largest "
+        f"{int(hits[1].max())}); prmi_window == plain on {JUMBO_KEYS} keys "
+        f"of the 4 leaves (windows up to {int((wg[1] - wg[0]).max())} "
+        f"ranks); the three rounds == plain on {JUMBO_READS} reads (SMEMs, "
+        f"largest first sa_lo: {found}); peak device memory {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del di, batch, eng
 
 
 # ---------------------------------------------------- phase 5: end to end
@@ -1249,14 +1568,29 @@ def run_mem(cli, prefix: str, reads: str, out: str, device: str,
             flags=(), reads2: str | None = None) -> tuple[float, dict]:
     """cli.main mem on one device (the default engine unless the flags say
     otherwise), with every kernel's launch count set to 0 just before;
-    returns its wall time and the counts read just after. reads2: the
-    second mates' file of a paired-end run."""
+    returns its wall time and the counts read just after, and leaves the
+    run's stages (index_load, index_upload, align, write, s) and, on the
+    card, its peak device memory (peak_mib) in LAST_RUN. reads2: the second
+    mates' file of a paired-end run."""
+    import torch
+
     from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.utils import timer
 
     old = os.environ.pop("BWAMEME_PLATFORM", None)
     if device == "cpu":
         os.environ["BWAMEME_PLATFORM"] = "cpu"
+    made = []
+
+    class Recording(timer.StageTimer):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    plain_timer, timer.StageTimer = timer.StageTimer, Recording
     try:
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
         stats.reset()
         t0 = time.perf_counter()
         rc = cli.main(["mem", *flags, prefix, reads,
@@ -1264,23 +1598,60 @@ def run_mem(cli, prefix: str, reads: str, out: str, device: str,
         wall = time.perf_counter() - t0
         launches = dict(stats.launches)
     finally:
+        timer.StageTimer = plain_timer
         os.environ.pop("BWAMEME_PLATFORM", None)
         if old is not None:
             os.environ["BWAMEME_PLATFORM"] = old
+    LAST_RUN.clear()
+    LAST_RUN.update(dict(made[0].totals) if made else {})
+    if device != "cpu":
+        LAST_RUN["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     check(rc == 0, f"mem on {device} exited {rc}")
     check(device != "cpu" or not any(launches.values()),
           f"a CPU run launched kernels: {launches}")
     return wall, launches
 
 
+def write_main_reads(mbp: float, n_reads: int) -> str:
+    """The main single-end run's reads (phase 5), written before the search
+    phase, whose wide mode-1 engine seeds them too."""
+    import numpy as np
+
+    from bwameme_tpu_torch.bench_util import CACHE, get_index
+    from bwameme_tpu_torch.index.build import load_index
+
+    work = os.path.join(CACHE, "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "short.fq")
+    idx = load_index(get_index(mbp))
+    write_reads(path, idx.text, idx.l_pac, n_reads, 151,
+                np.random.default_rng(11))
+    return path
+
+
+def no_isa_copy(prefix: str) -> str:
+    """The index at ``prefix`` saved again without its inverse suffix array,
+    as ``index --no-isa`` builds it."""
+    import dataclasses
+
+    from bwameme_tpu_torch.index.build import load_index, save_index
+
+    out = prefix + "_noisa"
+    if not os.path.isdir(out + ".meme"):
+        save_index(dataclasses.replace(load_index(prefix), isa=None), out)
+    return out
+
+
 def phase_end_to_end(mbp: float, n_reads: int, n_long: int, batch: int,
-                     n_cmp: int):
-    """The main path, the default engine on n_reads short reads of the
-    bench genome at ``mbp``; then, on the bench genome cut to SIDE_MBP (its
-    index built in seconds, and no run pays 100 Mbp of rank rows), the runs
-    held against each other: n_cmp short reads on the card, on the CPU and
-    with --engine host, the long reads (--engine host) and the deletion
-    reads (-w 20) on the card and on the CPU."""
+                     n_cmp: int, short_fq: str):
+    """The main path, the default engine on the n_reads short reads of the
+    bench genome at ``mbp`` in ``short_fq``, and the same reads with --mode
+    1, SAM for SAM; then, on the bench genome cut to SIDE_MBP (its index
+    built in seconds, and no run pays 100 Mbp of rank rows), the runs held
+    against each other: n_cmp short reads on the card (modes 4, 3, 2 and 1
+    and an index without the ISA), on the CPU and with --engine host, the
+    long reads (--engine host) and the deletion reads (-w 20) on the card
+    and on the CPU."""
     import numpy as np
     import torch
 
@@ -1293,10 +1664,7 @@ def phase_end_to_end(mbp: float, n_reads: int, n_long: int, batch: int,
     prefix, side = get_index(mbp), get_index(SIDE_MBP)
     work = os.path.join(CACHE, "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    rng = np.random.default_rng(11)
-    short_fq = os.path.join(work, "short.fq")
-    idx = load_index(prefix)
-    write_reads(short_fq, idx.text, idx.l_pac, n_reads, 151, rng)
+    rng = np.random.default_rng(12)
     main_head_fq = os.path.join(work, "short_main_head.fq")
     with open(short_fq) as f, open(main_head_fq, "w") as g:
         g.writelines(f.readlines()[: 4 * n_cmp])
@@ -1322,7 +1690,8 @@ def phase_end_to_end(mbp: float, n_reads: int, n_long: int, batch: int,
         ("--batch", str(batch)))
     gpu_ms = stats.device_ms()
     stages = dict(TPROF.totals)
-    peak = torch.cuda.max_memory_allocated()
+    main_run = dict(LAST_RUN)
+    peak = main_run["peak_mib"] * 2**20
     stats.events = None
     n_batches = -(-n_reads // batch)
     got = by_path["device"]
@@ -1331,8 +1700,39 @@ def phase_end_to_end(mbp: float, n_reads: int, n_long: int, batch: int,
               f"{n_batches} batches of the default mem path")
     check(got["banded_sw_coord"] >= 2 * n_batches, "banded_sw_coord: "
           f"{got['banded_sw_coord']} launches for {n_batches} batches")
+    # mode 1 (positions only) on the same reads: the same SAM
+    wall1, by_path["mode1"] = run_mem(
+        cli, prefix, short_fq, sam("short.m1.gpu.sam"), "cuda",
+        ("--batch", str(batch), "--mode", "1"))
+    mode1_run = dict(LAST_RUN)
+    for name in seeding:
+        check(by_path["mode1"][f"{name}[m1]"] == n_batches,
+              f"{name}[m1]: {by_path['mode1'][f'{name}[m1]']} launches for "
+              f"{n_batches} batches of mem --mode 1")
+    check(sam_records(sam("short.m1.gpu.sam")) == sam_records(
+        sam("short.gpu.sam")), "mem --mode 1 SAM differs from mode 4's")
+    log(f"mem --mode 1 == mode 4, SAM for SAM, on {n_reads} reads at {mbp:g} "
+        "Mbp; index_upload / align / peak device memory: mode 4 "
+        f"{main_run['index_upload']:.2f} s / {main_run['align']:.2f} s / "
+        f"{main_run['peak_mib']:.1f} MiB (wall {wall:.2f} s), mode 1 "
+        f"{mode1_run['index_upload']:.2f} s / {mode1_run['align']:.2f} s / "
+        f"{mode1_run['peak_mib']:.1f} MiB (wall {wall1:.2f} s)")
     _, by_path["head"] = run_mem(cli, side, head_fq, sam("short_head.gpu.sam"),
                                  "cuda", ("--batch", str(batch)))
+    # the side genome in modes 3, 2 and 1, and without its ISA (auto: mode 2)
+    side_runs = {}
+    for label, pre, flags in (("m3", side, ("--mode", "3")),
+                              ("m2", side, ("--mode", "2")),
+                              ("m1", side, ("--mode", "1")),
+                              ("noisa", no_isa_copy(side), ())):
+        _, side_runs[label] = run_mem(
+            cli, pre, head_fq, sam(f"short_head.{label}.gpu.sam"), "cuda",
+            ("--batch", str(batch), *flags))
+    mode_of = {"m3": "[m3]", "m2": "[m2]", "m1": "[m1]", "noisa": "[m2]"}
+    for label, counts in side_runs.items():
+        check(all(counts[f"{k}{mode_of[label]}"] for k in seeding),
+              f"the {label} run on the side genome launched {counts}")
+    by_path.update((f"head_{k}", v) for k, v in side_runs.items())
     check(all(by_path["head"][k] for k in seeding),
           f"the device engine on the short reads launched {by_path['head']}")
     wall_long, by_path["host_long"] = run_mem(
@@ -1402,6 +1802,9 @@ def phase_end_to_end(mbp: float, n_reads: int, n_long: int, batch: int,
     check(gpu_head == sam_records(sam("short_head.host.sam")),
           f"device-engine SAM differs from --engine host SAM on {n_cmp} "
           "short reads")
+    for label in side_runs:
+        check(gpu_head == sam_records(sam(f"short_head.{label}.gpu.sam")),
+              f"the {label} SAM differs from mode 4's on {n_cmp} short reads")
     run_mem(cli, side, long_fq, sam("long.cpu.sam"), "cpu",
             ("--engine", "host"))
     check(sam_records(sam("long.gpu.sam")) == sam_records(sam("long.cpu.sam")),
@@ -1412,8 +1815,9 @@ def phase_end_to_end(mbp: float, n_reads: int, n_long: int, batch: int,
     check(sam_records(sam("deletions.gpu.sam"))
           == sam_records(sam("deletions.cpu.sam")),
           "GPU SAM differs from CPU SAM on the band-retry reads")
-    log(f"on the {SIDE_MBP:g} Mbp genome: GPU SAM (device engine) == CPU SAM "
-        f"(plain versions) == --engine host SAM on {n_cmp} short reads; GPU "
+    log(f"on the {SIDE_MBP:g} Mbp genome: GPU SAM (device engine, modes 4, "
+        f"3, 2, 1 and the index without the ISA) == CPU SAM (plain "
+        f"versions) == --engine host SAM on {n_cmp} short reads; GPU "
         f"== CPU on all {n_long} long reads ({ok_l}/{n_l} long at source) "
         f"and 64 two-deletion reads at -w 20 (device engine against the "
         f"CPU's --engine host; {retry} band-retry launches)")
@@ -1540,6 +1944,7 @@ def phase_pairs(mbp: float, n_pairs: int, batch: int, n_cmp: int):
         wall, by_path["pe"] = run_mem(cli, prefix, r1, sam("pairs.gpu.sam"),
                                       "cuda", ("--batch", str(batch)),
                                       reads2=r2)
+        pe_run = dict(LAST_RUN)
         gpu_ms = stats.device_ms()
     finally:
         sw_full.sw_full_coord = coord
@@ -1566,7 +1971,9 @@ def phase_pairs(mbp: float, n_pairs: int, batch: int, n_cmp: int):
     cells = int((jobs[0].astype(np.int64) * jobs[2]).sum())
     log(f"paired-end ({mbp:g} Mbp, {n_pairs} pairs of 2 x 151 bp, insert "
         f"N{INSERT}, default engine, batches of {batch}): {n_pairs / wall:.1f}"
-        f" pairs/s over {wall:.2f} s wall (index load and upload included); "
+        f" pairs/s over {wall:.2f} s wall (index_upload "
+        f"{pe_run['index_upload']:.2f} s, align {pe_run['align']:.2f} s, peak "
+        f"device memory {pe_run['peak_mib']:.1f} MiB); "
         f"{placed['proper']} proper, {placed['at_source']}/{placed['mates']} "
         f"mates at their source, {placed['rescued_at_source']}/"
         f"{placed['rescued']} of the mates only a rescue places")
@@ -1586,6 +1993,8 @@ def phase_pairs(mbp: float, n_pairs: int, batch: int, n_cmp: int):
     fixed = ("-I", ",".join(map(str, INSERT)))
     _, by_path["pe_head"] = run_mem(cli, side, hp, sam("head.gpu.sam"),
                                     "cuda", ("-p", *fixed))
+    _, by_path["pe_head_m1"] = run_mem(cli, side, hp, sam("head.m1.gpu.sam"),
+                                       "cuda", ("-p", *fixed, "--mode", "1"))
     run_mem(cli, side, h1, sam("head.cpu.sam"), "cpu", fixed, reads2=h2)
     _, by_path["pe_head_host"] = run_mem(
         cli, side, h1, sam("head.host.sam"), "cuda",
@@ -1596,6 +2005,10 @@ def phase_pairs(mbp: float, n_pairs: int, batch: int, n_cmp: int):
     check(head == sam_records(sam("head.host.sam")), "paired-end "
           f"device-engine SAM differs from --engine host SAM on {n_cmp} "
           "pairs")
+    check(head == sam_records(sam("head.m1.gpu.sam")), "paired-end mem "
+          f"--mode 1 SAM differs from mode 4's on {n_cmp} pairs")
+    check(all(by_path["pe_head_m1"][f"seed_round{k}[m1]"] for k in (1, 2, 3)),
+          f"mem -p --mode 1 launched {by_path['pe_head_m1']}")
     check(by_path["pe_head"]["sw_full"] > 0, "sw_full was not launched on "
           "the head's path")
     check(by_path["pe_head_host"]["sw_full"] == 0, "--engine host launched "
@@ -1603,8 +2016,9 @@ def phase_pairs(mbp: float, n_pairs: int, batch: int, n_cmp: int):
     for path, counts in by_path.items():
         log(f"kernel launches, {path}: "
             f"{ {k: v for k, v in counts.items() if v} }")
-    log(f"paired-end GPU SAM (device engine, -p {' '.join(fixed)}) == CPU SAM "
-        f"(plain versions) == --engine host SAM on {n_cmp} pairs of the "
+    log(f"paired-end GPU SAM (device engine, -p {' '.join(fixed)}, modes 4 "
+        f"and 1) == CPU SAM (plain versions) == --engine host SAM on "
+        f"{n_cmp} pairs of the "
         f"{SIDE_MBP:g} Mbp genome ({len(head)} records)")
     return by_path
 
@@ -1628,6 +2042,18 @@ def finish_index_build(proc: subprocess.Popen) -> None:
     check(proc.returncode == 0, f"the index build exited {proc.returncode}")
 
 
+def mangled(name: str) -> str:
+    """The part of a seeding variant's mangled kernel name that ptxas
+    reports it under: seed_round1[m1,wide] -> seed_round1_kernelILi1ExE."""
+    base, _, tag = name.partition("[")
+    tags = tag.rstrip("]").split(",") if tag else []
+    mode = next((int(t[1:]) for t in tags if t.startswith("m")), 4)
+    rank = "x" if "wide" in tags else "i"
+    if base == "prmi_window":
+        return f"prmi_window_kernelI{rank}E"
+    return f"{base}_kernelILi{mode}E{rank}E"
+
+
 def main() -> int:
     import torch
 
@@ -1639,6 +2065,8 @@ def main() -> int:
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from bwameme_tpu_torch.ops.launch import SEEDING, variant, variants
+
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     kind = torch.cuda.get_device_name(0)
@@ -1665,28 +2093,47 @@ def main() -> int:
         timed("kernel_times", lambda: (time_banded(), time_sw_full()))
         gather, chain_us = timed("gather", phase_gather, dev)
         report.update(gather)
-        report.update(timed("search", phase_search, dev, GENOME_MBP, BATCH,
-                            N_CMP, N_KEYS, chain_us))
-        by_path = timed("single_end", phase_end_to_end, GENOME_MBP, N_READS,
-                        N_LONG, BATCH, N_CMP)
+        main_fq = timed("main_reads", write_main_reads, GENOME_MBP, N_READS)
+        search, by_path = timed("search", phase_search, dev, GENOME_MBP,
+                                BATCH, N_CMP, N_KEYS, chain_us, main_fq)
+        report.update(search)
+        layouts, layout_paths = timed("layouts", phase_layouts, dev,
+                                      chain_us)
+        report.update(layouts)
+        by_path.update(layout_paths)
+        timed("jumbo", phase_jumbo, dev)
+        by_path.update(timed("single_end", phase_end_to_end, GENOME_MBP,
+                             N_READS, N_LONG, BATCH, N_CMP, main_fq))
         by_path.update(timed("paired_end", phase_pairs, GENOME_MBP, N_PAIRS,
                              BATCH, N_CMP_PAIRS))
     finally:
         if index_proc.poll() is None:
             index_proc.kill()
             index_proc.wait()
-    # the default mem run's counts; the pair form runs on the long reads' path
+    # the default mem run's counts; the pair form runs on the long reads'
+    # path; mode 1's rounds on mem --mode 1
     for name in ("banded_sw_coord", "seed_round1", "seed_round2",
                  "seed_round3"):
         report[name]["launches"] = by_path["device"][name]
+    for k in (1, 2, 3):
+        name = variant(f"seed_round{k}", 1, False)
+        report[name]["launches"] = by_path["mode1"][name]
     report["banded_sw_pairs"]["launches"] = by_path["host_long"][
         "banded_sw_pairs"]
     report["sw_full"]["launches"] = by_path["pe"]["sw_full"]
     log(f"smoke passed in {time.perf_counter() - t0:.1f} s; phases (s): "
         f"{took}")
-    kernels = [dict(name=name, route="cuda", source=CSRC + src, replaces=repl,
-                    launch_path=LAUNCH_PATH[name], **report[name])
-               for name, (src, repl) in KERNELS.items()]
+    kernels = []
+    for name, (src, repl) in KERNELS.items():
+        for v in variants(name) if name in SEEDING else [name]:
+            entry = dict(name=v, route="cuda", source=CSRC + src,
+                         replaces=repl, launch_path=launch_path(v),
+                         **report[v])
+            if name in SEEDING:
+                usage = ptxas_usage(build_log, mangled(v))
+                entry.update(registers=usage["registers"],
+                             spill_stores=usage["spill_stores"])
+            kernels.append(entry)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched by no path")
     log(f"card: {smi}")

@@ -238,12 +238,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_build_command_targets_hopper_without_fast_math():
-    for name in build.SOURCES:          # one library, one nvcc, a source
+    for name, (source, _) in build.LIBRARIES.items():   # one nvcc each
         cmd = build.nvcc_command("nvcc", name, "lib.so")
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert "--use_fast_math" not in cmd and "-use_fast_math" not in cmd
-        src = build.source_path(name)
+        src = build.source_path(source)
         assert cmd[-1] == src and src.endswith(".cu")
         assert src.startswith(build.PKG_DIR) and os.path.isfile(src)
-    # the P-RMI prediction must not contract its multiply and add
-    assert "-fmad=false" in build.nvcc_command("nvcc", "seed_smem", "lib.so")
+    # the P-RMI prediction must not contract its multiply and add, in the
+    # library of every mode's variants
+    for m in (1, 2, 3, 4):
+        cmd = build.nvcc_command("nvcc", f"seed_smem_m{m}", "lib.so")
+        assert "-fmad=false" in cmd and f"-DSEED_MODE={m}" in cmd

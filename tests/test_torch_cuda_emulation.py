@@ -62,6 +62,7 @@ SHIM_HEADER = r"""// A stand-in for <cuda_runtime.h> that lets g++ compile the p
 #define __launch_bounds__(...)
 using std::max;
 using std::min;
+struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 struct EmuDim { unsigned x; };
 static EmuDim blockIdx, blockDim, threadIdx;
@@ -84,6 +85,8 @@ static inline float __fdiv_rn(float a, float b) { volatile float r = a / b; retu
 static inline float __uint2float_rn(uint32_t x) { return (float)x; }
 static inline float __int2float_rn(int x) { return (float)x; }
 static inline int __float2int_rz(float x) { return (int)x; }
+static inline long long __float2ll_rz(float x) { return (long long)x; }
+static inline float __ll2float_rn(long long x) { return (float)x; }
 static inline float __uint_as_float(uint32_t x) {
     float f;
     memcpy(&f, &x, 4);
@@ -240,7 +243,8 @@ static inline void emu_run_grid(unsigned grid, unsigned block,
 #endif
 """
 LAUNCH = re.compile(
-    r"([\w<>]+)<<<(.*?),\s*(\w+),\s*\w+,\s*\(cudaStream_t\)stream>>>\(", re.S)
+    r"(\w+(?:<[\w ,]+>)?)<<<(.*?),\s*(\w+),\s*\w+,\s*\(cudaStream_t\)stream>>>\(",
+    re.S)
 DYNAMIC_SHARED = re.compile(r"extern __shared__ int (\w+)\[\];")
 # name -> (launches in the source, extra g++ flags)
 EMULATED = {"seed_smem": (5, ("-DEMU_FIBERS",)), "gather_bench": (2, ()),
@@ -258,7 +262,7 @@ def emulated_libs(tmp_path_factory):
     for name, (n_launches, flags) in EMULATED.items():
         with open(build.source_path(name)) as f:
             src, n = LAUNCH.subn(
-                lambda m: f"EMU_LAUNCH({m[1]}, {m[2]}, {m[3]}, ", f.read())
+                lambda m: f"EMU_LAUNCH(({m[1]}), {m[2]}, {m[3]}, ", f.read())
         assert n == n_launches
         # a block's dynamic shared memory: the most a block may ask for
         src = DYNAMIC_SHARED.sub(r"static int \1[232448 / 4];", src)
@@ -269,6 +273,9 @@ def emulated_libs(tmp_path_factory):
                         *flags, "-shared", "-fPIC", f"-I{out}", "-o",
                         paths[name], str(cpp)], check=True,
                        capture_output=True)
+    # the card's build makes a library of each mode's variants; this one
+    # holds all of them
+    paths.update((f"seed_smem_m{m}", paths["seed_smem"]) for m in (1, 2, 3, 4))
     return paths
 
 
@@ -627,6 +634,131 @@ def test_plain_sector_count_is_the_work(world, on_emulation):
         assert w.answer_sectors() < int(w.probes.sum())
 
 
+LAYOUTS = [(1, False), (2, False), (3, False), (1, True), (2, True),
+           (3, True), (4, True)]
+
+
+@pytest.mark.parametrize("mode,wide", LAYOUTS,
+                         ids=[f"mode{m}{'_wide' if w else ''}"
+                              for m, w in LAYOUTS])
+def test_kernel_variants_of_every_layout(world, on_emulation, monkeypatch,
+                                         mode, wide):
+    """Every variant of the seeding kernels (modes 1-3, and 1-4 wide; mode 4
+    narrow is every test above): prmi_window on every stored key, sa_query
+    on jobs of every length and min_intv, the three rounds, each against its
+    plain version, and the engine's whole path against the host oracle. The
+    variant's launches are counted under its own name."""
+    idx, opt = world["idx"], world["opt"]
+    w = dict(world, eng=DeviceSeedingEngine(idx, opt, device="cpu",
+                                            mode=mode, wide=wide))
+    di = w["eng"].di
+    assert (di.mode, di.wide) == (mode, wide)
+    rank = torch.int64 if wide else torch.int32
+    kh = torch.from_numpy(idx.key_hi.astype(np.uint32).view(np.int32))
+    kl = torch.from_numpy(idx.key_lo.astype(np.uint32).view(np.int32))
+    got = seed_smem_cuda.prmi_window(di, kh, kl)
+    want = seed_smem.prmi_window_torch(di, kh, kl)
+    assert got[0].dtype == rank and torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+    rng = np.random.default_rng(mode + 10 * wide)
+    qbuf, nf, nr, _ = world["prep"]
+    R = world["lens"].shape[0]
+    rd = rng.integers(0, R, 300)
+    piv = rng.integers(0, np.maximum(world["lens"].numpy()[rd], 1))
+    rev = rng.integers(0, 2, 300)
+    full = np.where(rev == 1, nr.numpy()[rd, piv], nf.numpy()[rd, piv]) - piv
+    v = np.where(rng.random(300) < 0.6, full,
+                 (rng.random(300) * (full + 1)).astype(np.int64))
+    jobs = [torch.from_numpy(a.astype(np.int32)) for a in
+            (rd + rev * R, piv, v, rng.choice([1, 2, 3, 9, 21, 1000], 300))]
+    counts = torch.zeros((2, 300), dtype=torch.int32)
+    got = seed_smem_cuda.sa_query(di, qbuf, *jobs, counts=counts)
+    assert got.dtype == rank
+    assert torch.equal(got, seed_smem.sa_query_torch(di, qbuf, *jobs))
+    assert int(got[0].max()) > 112
+    assert bool((counts[:, jobs[2] > 0] > 0).all())
+
+    k1, k2, k3 = _three_rounds_equal(w)
+    assert all(k[0].dtype == rank for k in (k1, k2, k3))
+    assert int(k1[1].sum()) > 0 and int(k2[1].sum()) > 0
+    monkeypatch.setattr(seed_smem, "_on_cuda", lambda x: True)
+    host = HostSeedingEngine(idx, opt)
+    want = [[(s.start, s.end, s.sa_lo, s.hitcount)
+             for s in host.sorted_smems(c)] for c in world["reads"]]
+    flat = w["eng"].sorted_smems_batch_flat(world["reads"])
+    assert [[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
+            for lst in flat.to_lists()] == want
+    for name in ("prmi_window", "sa_query", "seed_round1", "seed_round2",
+                 "seed_round3"):
+        assert launch.stats.launches[launch.variant(name, mode, wide)] >= 1
+        if name != "prmi_window" or wide:
+            assert launch.stats.launches[name] == 0
+
+
+def test_wide_prmi_window_on_a_human_scale_leaf_table(on_emulation):
+    """The wide window on a synthetic leaf table of 6.2e9 suffixes (a human
+    text and its reverse complement): leaf starts past 2^31 and 2^32, where
+    the fused records' uint32 starts wrap, and a leaf whose predictions pass
+    2^31 (a __float2int_rz would saturate); against numpy's separately
+    rounded float32 on every key, 8 a leaf and each leaf's ends. The
+    kernel reads the leaf records alone, so the suffix array is a stand-in
+    of no memory."""
+    rng = np.random.default_rng(71)
+    bits, n_sa = 12, 6_200_000_000
+    L = 1 << bits
+    # leaves of ~1.5e6 suffixes, and one of 3e9 (a skewed leaf, whose
+    # predictions pass 2^31)
+    sizes = rng.integers(1, 2 * (n_sa - 3 * 10**9) // L, L)
+    sizes = (sizes * ((n_sa - 3 * 10**9) / sizes.sum())).astype(np.int64)
+    sizes[5] = 3 * 10**9
+    ls = np.zeros(L + 1, np.int64)
+    ls[1:] = np.cumsum(sizes)
+    ls[-1] = n_sa
+    cnt = (ls[1:] - ls[:-1]).astype(np.float32)
+    alpha = (rng.random(L) * 50 - 25).astype(np.float32)
+    beta = (cnt / np.float32(2.0**(64 - bits))
+            * rng.uniform(0.9, 1.1, L)).astype(np.float32)
+    elo = rng.integers(0, 3000, L).astype(np.int64)
+    ehi = rng.integers(0, 3000, L).astype(np.int64)
+    ehi[::97] = 2**31 - 1                   # the widest window a record holds
+    params = np.empty((L, 6), np.uint32)
+    params[:, 0] = ls[:-1].astype(np.uint32)
+    params[:, 1] = ls[1:].astype(np.uint32)
+    params[:, 2], params[:, 3] = alpha.view(np.uint32), beta.view(np.uint32)
+    params[:, 4], params[:, 5] = elo, ehi
+    di = ss.DeviceIndex(
+        text32=torch.full((8,), -1, dtype=torch.int32),
+        params=torch.from_numpy(params.view(np.int32)), bits=bits,
+        n_sa=n_sa, mode=1, wide=True,
+        sa=torch.zeros(1, dtype=torch.int64).expand(n_sa),
+        params64=torch.from_numpy(ls))
+    leaf = np.repeat(np.arange(L, dtype=np.uint64), 8)
+    rel = rng.integers(0, 1 << (64 - bits), len(leaf), dtype=np.uint64)
+    rel[::8] = 0
+    rel[1::8] = (1 << (64 - bits)) - 1
+    key = (leaf << np.uint64(64 - bits)) | rel
+    khi = (key >> np.uint64(32)).astype(np.uint32)
+    klo = (key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    args = [torch.from_numpy(k.view(np.int32)) for k in (khi, klo)]
+    got = seed_smem_cuda.prmi_window(di, *args)
+    assert launch.stats.launches["prmi_window[wide]"] == 1
+    # numpy: every float32 step rounded on its own, as models/prmi.py's
+    # windows assume
+    lf = leaf.astype(np.int64)
+    relf = ((khi & np.uint32((1 << (32 - bits)) - 1)).astype(np.float32)
+            * np.float32(4294967296.0) + klo.astype(np.float32))
+    predf = np.minimum(np.maximum(alpha[lf] + beta[lf] * relf,
+                                  np.float32(0)), cnt[lf])
+    pred = ls[lf] + predf.astype(np.int64)
+    lo = np.maximum(pred - elo[lf], 0)
+    hi = np.minimum(pred + ehi[lf], n_sa)
+    assert (got[0].numpy() == lo).all() and (got[1].numpy() == hi).all()
+    assert torch.equal(got[0], ss.prmi_window(di, *map(ss.words_u32, args))[0])
+    assert lo.max() > 2**32 and (pred - ls[lf]).max() > 2**31
+    assert (params[:, 0].astype(np.int64) != ls[:-1]).any()
+
+
 @pytest.mark.parametrize("width", [4, 128])
 def test_gather_kernels(on_emulation, width):
     rng = np.random.default_rng(width)
@@ -650,8 +782,9 @@ def test_launch_refused_raises(world, on_emulation, monkeypatch):
     """A launcher that reports a CUDA error makes the wrapper raise: no
     fallback to the plain version."""
     di = world["eng"].di
-    seed_smem_cuda._entry("prmi_window_launch")     # bound, then replaced
-    monkeypatch.setitem(launch._entries, "prmi_window_launch", lambda *a: 9)
+    seed_smem_cuda._entry(4, "prmi_window_launch")  # bound, then replaced
+    monkeypatch.setitem(launch._entries, ("seed_smem_m4", "prmi_window_launch"),
+                        lambda *a: 9)
     z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         seed_smem_cuda.prmi_window(di, z, z)

@@ -1,8 +1,7 @@
 """The port's DeviceIndex against the JAX package's, byte for byte: the state
-that carries across (mode-4 rank rows, packed text with guard words, fused
-P-RMI leaf records). Tolerance zero: every plane is integer words."""
-
-import types
+that carries across (the planes of every mode and width, packed text with
+guard words, fused P-RMI leaf records, wide leaf starts). Tolerance zero:
+every plane is integer words."""
 
 import numpy as np
 import pytest
@@ -53,9 +52,9 @@ def test_scalars_and_guard_words(planes):
 
 def test_from_numpy_round_trip(planes):
     _idx, jd, di = planes
-    back = DeviceIndex.from_numpy(np.asarray(jd.rk), np.asarray(jd.text32),
+    back = DeviceIndex.from_numpy(np.asarray(jd.text32),
                                   np.asarray(jd.params), jd.bits, jd.n_sa,
-                                  "cpu")
+                                  "cpu", rk=np.asarray(jd.rk))
     for plane in ("rk", "text32", "params"):
         assert torch.equal(getattr(back, plane), getattr(di, plane))
     assert (back.bits, back.n_sa) == (di.bits, di.n_sa)
@@ -77,17 +76,31 @@ def test_device_text_is_the_same_words(planes):
     assert torch.equal(DeviceText.from_host(idx, "cpu").text32, di.text32)
 
 
-@pytest.mark.parametrize("kw,exc,msg", [
-    (dict(mode=1), NotImplementedError, "Queue 1 item 10"),
-    (dict(mode=3), NotImplementedError, "Queue 1 item 10"),
-    (dict(n_sa=2**31), ValueError, "Queue 1 item 10"),
-    (dict(isa=None), ValueError, "inverse suffix array"),
-], ids=["mode1", "mode3", "wide", "no_isa"])
-def test_what_is_not_ported_raises(planes, kw, exc, msg):
+@pytest.mark.parametrize("mode,wide", [(1, False), (1, True), (3, False),
+                                       (4, True)],
+                         ids=["mode1", "mode1_wide", "mode3", "mode4_wide"])
+def test_planes_of_each_layout_equal_jax(planes, mode, wide):
+    """The planes of a layout, from the host index and carried across from
+    the JAX package's DeviceIndex of the same layout (tests/test_torch_modes.py
+    holds every layout's search against the JAX package's)."""
     idx = planes[0]
-    mode = kw.pop("mode", None)
-    fake = types.SimpleNamespace(n_sa=idx.n_sa, isa=idx.isa)
-    for k, v in kw.items():
-        setattr(fake, k, v)
-    with pytest.raises(exc, match=msg):
-        DeviceIndex.from_host(fake, "cpu", mode=mode)
+    jd = JaxDeviceIndex.from_host(idx, mode=mode, wide=wide)
+    di = DeviceIndex.from_host(idx, "cpu", mode=mode, wide=wide)
+    assert (di.mode, di.wide) == (mode, wide)
+    names = [k for k in ("rk", "sa", "ktext", "key2", "params64")
+             if getattr(jd, k) is not None]
+    assert sorted(names) == sorted(k for k in di.planes
+                                   if k not in ("text32", "params"))
+    for name in names + ["text32", "params"]:
+        want, got = np.asarray(getattr(jd, name)), getattr(di, name).numpy()
+        assert got.shape == want.shape and got.tobytes() == want.tobytes()
+    back = DeviceIndex.from_numpy(
+        np.asarray(jd.text32), np.asarray(jd.params), jd.bits, jd.n_sa,
+        "cpu", **{k: np.asarray(getattr(jd, k)) for k in names})
+    for name, t in di.planes.items():
+        assert torch.equal(getattr(back, name), t)
+
+
+def test_the_kmer_root_is_not_ported(planes):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        DeviceIndex.from_host(planes[0], "cpu", ert_bits=0)
