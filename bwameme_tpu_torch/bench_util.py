@@ -146,15 +146,13 @@ def run_coord_round(fn, opt, text32, codes, left, right, h0, mat, **kw):
 
 
 def get_index(mbp: float) -> str:
-    """The bench genome (bench.py:get_index: seed 2024, 200 planted
-    repeats), built once and cached under .bench_cache/. The index is
+    """The bench genome's learned index (``bench_genome``), built once and
+    cached under .bench_cache/. The index is
     written into a directory of its own and moved into place file by file,
     its .meme directory last: a build killed half way leaves no .meme
     directory, which is what marks an index as cached."""
     import shutil
     import tempfile
-
-    import numpy as np
 
     from bwameme_tpu_torch.index import bntseq
     from bwameme_tpu_torch.index.build import build_index, save_index
@@ -165,14 +163,8 @@ def get_index(mbp: float) -> str:
         return prefix
     os.makedirs(CACHE, exist_ok=True)
     t0 = time.perf_counter()
-    rng = np.random.default_rng(2024)
-    n = int(mbp * 1e6)
-    code = rng.integers(0, 4, n).astype(np.uint8)
-    for _ in range(200):
-        src = int(rng.integers(0, n - 5000))
-        dst = int(rng.integers(0, n - 5000))
-        ln = int(rng.integers(300, 3000))
-        code[dst: dst + ln] = code[src: src + ln]
+    code = bench_genome(mbp)
+    n = len(code)
     bns = bntseq.BntSeq(l_pac=n, contigs=[bntseq.Contig("chrB", "", 0, n, 0)],
                         ambs=[], code=code)
     idx = build_index(bns)
@@ -186,6 +178,57 @@ def get_index(mbp: float) -> str:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"index: built {mbp:g} Mbp in {time.perf_counter() - t0:.1f} s "
           f"(n_sa={idx.n_sa}, rmi_bits={idx.rmi_bits})", flush=True)
+    return prefix
+
+
+def bench_genome(mbp: float):
+    """The bench genome's codes (bench.py:get_index: seed 2024, 200 planted
+    repeats)."""
+    import numpy as np
+
+    rng = np.random.default_rng(2024)
+    n = int(mbp * 1e6)
+    code = rng.integers(0, 4, n).astype(np.uint8)
+    for _ in range(200):
+        src = int(rng.integers(0, n - 5000))
+        dst = int(rng.integers(0, n - 5000))
+        ln = int(rng.integers(300, 3000))
+        code[dst: dst + ln] = code[src: src + ln]
+    return code
+
+
+def get_fm_index(mbp: float) -> str:
+    """The bench genome's FM-index files beside its learned index's prefix
+    (``prefix.fmi.npz`` and ``prefix.bwt.2bit.64``), as ``index -a mem2``
+    writes them, built once from the genome's codes; written into a
+    directory of their own and moved into place, the .fmi.npz last, whose
+    presence marks them as cached. Returns the prefix."""
+    import shutil
+    import tempfile
+
+    from bwameme_tpu_torch.index.fmi_store import save_fm_index
+    from bwameme_tpu_torch.index.fmindex import (build_fm_index,
+                                                 write_bwt_2bit_64)
+
+    prefix = os.path.join(CACHE, f"bench_{mbp:g}mbp")
+    if os.path.exists(prefix + ".fmi.npz"):
+        print(f"FM-index: cached {os.path.relpath(prefix, ROOT)}", flush=True)
+        return prefix
+    os.makedirs(CACHE, exist_ok=True)
+    t0 = time.perf_counter()
+    fm = build_fm_index(bench_genome(mbp))
+    t1 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix=".building.", dir=CACHE)
+    try:
+        name = os.path.join(tmp, os.path.basename(prefix))
+        write_bwt_2bit_64(fm, name)
+        save_fm_index(name, fm)
+        for f in sorted(os.listdir(tmp), key=lambda f: f.endswith(".npz")):
+            os.replace(os.path.join(tmp, f), os.path.join(CACHE, f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"FM-index: built {mbp:g} Mbp in {t1 - t0:.1f} s, written in "
+          f"{time.perf_counter() - t1:.1f} s (n={fm.n})", flush=True)
     return prefix
 
 

@@ -8,7 +8,9 @@ learned-index seeding on the device (``--engine device``, the default; the
 host engine with ``--engine host``), native chaining, extension in the CUDA
 kernel, for pairs mate rescue in the full-SW CUDA kernel (the serial host
 SW with ``--engine host``), native finalization; it writes the same SAM
-header and records as bwameme_tpu. The flags are bwameme_tpu's (bwa-mem's
+header and records as bwameme_tpu. ``-Z`` (``--backend ert``) seeds from the
+ERT k-mer root and ``--backend fmi`` from the FM-index (``index -a
+mem2|ert|all`` persists them). The flags are bwameme_tpu's (bwa-mem's
 single-letter names); what is not ported yet exits 1 naming its ROADMAP
 item.
 
@@ -166,11 +168,6 @@ def build_parser() -> argparse.ArgumentParser:
 def cmd_index(args) -> int:
     from bwameme_tpu_torch.index.build import build_from_fasta, save_index
 
-    if args.algo != "meme":
-        print(f"[index] -a {args.algo}: the FM-index and the persisted ERT "
-              "root are not ported yet (ROADMAP Queue 1 items 6-7)",
-              file=sys.stderr)
-        return 1
     prefix = args.prefix or args.fasta
     t0 = time.time()
     idx = build_from_fasta(
@@ -182,13 +179,33 @@ def cmd_index(args) -> int:
     save_index(idx, prefix)
     print(f"[index] saved to {prefix}.meme/ (+ .pac/.ann/.amb)",
           file=sys.stderr)
+    if args.algo in ("mem2", "all"):
+        from bwameme_tpu_torch.index.fmi_store import save_fm_index
+        from bwameme_tpu_torch.index.fmindex import (build_fm_index,
+                                                     write_bwt_2bit_64)
+
+        t0 = time.time()
+        fm = build_fm_index(idx.bns.code)
+        save_fm_index(prefix, fm)   # uncompressed: see index/fmi_store.py
+        write_bwt_2bit_64(fm, prefix)
+        print(f"[index] FM-index built in {time.time()-t0:.1f}s -> "
+              f"{prefix}.fmi.npz + {prefix}.bwt.2bit.64", file=sys.stderr)
+    if args.algo in ("ert", "all"):
+        import numpy as np
+
+        from bwameme_tpu_torch.index.ert import build_kmer_table, pick_ert_bits
+
+        t0 = time.time()
+        bits = pick_ert_bits(idx.n_sa)
+        tab = build_kmer_table(idx.key_hi, bits)
+        np.savez(prefix + ".ert.npz", kmer_table=tab,
+                 kmer_bits=np.int64(bits))
+        print(f"[index] ERT k-mer root (K={bits}) built in "
+              f"{time.time()-t0:.1f}s -> {prefix}.ert.npz", file=sys.stderr)
     return 0
 
 
 def _not_ported(args) -> str | None:
-    if args.ert or args.backend != "learned":
-        return ("the ERT and FM-index backends are not ported yet (ROADMAP "
-                "Queue 1 items 6-7)")
     if args.shards > 1 or args.dp_shards > 1:
         return "--shards/--dp-shards are not ported yet (ROADMAP Queue 1 item 8)"
     if args.profile_dir:
@@ -332,6 +349,53 @@ def select_device():
     return torch.device("cuda") if torch.cuda.is_available() else None
 
 
+def ert_bits(prefix: str, idx) -> int:
+    """The k-mer root's size for ``mem -Z``, as bwameme_tpu.cli.cmd_mem
+    finds it: a persisted root (``index -a ert``) fixes it, else 0 (the size
+    index/ert.pick_ert_bits gives). A reference-built ``.kmer_table`` beside
+    the index is checked against the index's key plane and reported (its
+    tree offsets have no use here)."""
+    import numpy as np
+
+    bits = 0
+    if os.path.exists(prefix + ".ert.npz"):
+        with np.load(prefix + ".ert.npz") as z:
+            bits = int(z["kmer_bits"])
+    if os.path.exists(prefix + ".kmer_table"):
+        from bwameme_tpu_torch.index.ert import (load_kmer_table,
+                                                 validate_reference_kmer_table)
+
+        st = validate_reference_kmer_table(
+            idx.key_hi, load_kmer_table(prefix + ".kmer_table"))
+        print(f"[mem] reference .kmer_table validated: "
+              f"{st['present_checked']} present + "
+              f"{st['uniform_checked']} uniform k-mers, "
+              f"{st['mismatches']} mismatches", file=sys.stderr)
+    return bits
+
+
+def fmi_engine(args, idx, opt, device, timer):
+    """The FM-index seeding engine for ``--backend fmi``: the index from
+    ``prefix.fmi.npz``, else from a reference ``prefix.bwt.2bit.64``, else
+    built at load; the device engine (``FmiDeviceEngine``) or, with
+    ``--engine host``, the scalar ``FmiHostEngine``."""
+    from bwameme_tpu_torch.index import fmindex
+    from bwameme_tpu_torch.seeding.fmi_engine import (FmiDeviceEngine,
+                                                      FmiHostEngine)
+
+    with timer.stage("fmi_load"):
+        if os.path.exists(args.prefix + ".fmi.npz"):
+            fm = fmindex.load_fm_index(args.prefix)
+        elif os.path.exists(args.prefix + fmindex.CP_FILENAME_SUFFIX):
+            fm = fmindex.read_bwt_2bit_64(args.prefix)
+        else:
+            fm = fmindex.build_fm_index(idx.bns.code)
+    if args.engine == "host":
+        return FmiHostEngine(idx, opt, fm=fm)
+    with timer.stage("index_upload"):
+        return FmiDeviceEngine(idx, opt, fm=fm, device=device)
+
+
 def cmd_mem(args) -> int:
     from bwameme_tpu_torch.index.build import load_index
     from bwameme_tpu_torch.io import fastq, sam
@@ -341,6 +405,13 @@ def cmd_mem(args) -> int:
     msg = _not_ported(args)
     if msg:
         print(f"[mem] {msg}", file=sys.stderr)
+        return 1
+    if args.ert:
+        args.backend = "ert"
+    if args.backend == "ert" and args.engine == "host":
+        print("[mem] --backend ert requires the device engine (the host "
+              "oracle implements the learned/FMI contracts only)",
+              file=sys.stderr)
         return 1
     opt = mem_options(args)
     if opt is None:
@@ -370,13 +441,23 @@ def cmd_mem(args) -> int:
             if f.startswith("ID:"):
                 rg_id = f[3:]
     engine = None
-    if args.engine == "device":
+    if args.backend == "fmi":
+        try:
+            engine = fmi_engine(args, idx, opt, device, timer)
+        except ValueError as e:     # an FM-index text past 2^31 bases
+            print(f"[mem] {e}", file=sys.stderr)
+            return 1
+    elif args.engine == "device":
         from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
 
+        kw = {}
+        if args.backend == "ert":
+            kw = dict(root="kmer", ert_bits=ert_bits(args.prefix, idx))
         with timer.stage("index_upload"):
             try:
                 engine = DeviceSeedingEngine(idx, opt, lanes=args.batch,
-                                             device=device, mode=args.mode)
+                                             device=device, mode=args.mode,
+                                             **kw)
             except (ValueError, RuntimeError) as e:
                 # a layout the index cannot have (modes 3 and 4 of a
                 # --no-isa index) or that does not fit the device

@@ -1,12 +1,13 @@
-// Learned-index SMEM seeding for Hopper (sm_90a): the P-RMI search primitives
-// and the three seeding rounds, a warp a read.
+// Learned-index and ERT SMEM seeding for Hopper (sm_90a): the search
+// primitives from a P-RMI or a k-mer root and the three seeding rounds, a
+// warp a read.
 //
 // Replaces the XLA programs of bwameme_tpu/seeding/engine.py
 // (_build_fused_step1 :1081, _build_fused_step2b :823, _build_fused_step3
 // :1281) over the search primitives of bwameme_tpu/ops/sa_search.py
-// (prmi_window :563, text64_at :593, make_ctx_rk/cmp_ctx_rk :756-852,
-// lower_bound_ctx :890, find_longest_ctx :919, interval_at_ctx :937,
-// sa_query_min1 :1071, sa_query :1083). On the TPU every read of the batch
+// (kmer_window :556, prmi_window :563, text64_at :593, make_ctx_rk/
+// cmp_ctx_rk :756-852, lower_bound_ctx :890, find_longest_ctx :919,
+// interval_at_ctx :937, sa_query_min1 :1071, sa_query :1083). On the TPU every read of the batch
 // is a lane of one masked while_loop, and each loop step pays for the whole
 // batch; here a warp runs one read's state machine to its end, as the scalar
 // contract states it (seeding/host_engine.py: step1, one_pos, the third
@@ -42,13 +43,24 @@
 //   windows fit, each searched by half a warp in the same step.
 //
 // One design serves every layout of the index (index/device.py): each entry
-// point is a template on the memory mode (1-4) and on the rank type (int, or
-// long long for a wide index of 2^31 suffixes or more), eight variants. The
-// mode changes only the head of a compare, where the suffix's first bases
-// come from: 48 from the rank row (mode 4), 32 from ktext at the position
-// (3) or from key2 beside it (2), none (1); the position comes from the row
-// or from sa[r]. From the first base the head does not cover, every variant
-// walks the packed text. A wide index reads its leaf starts from params64.
+// point is a template on the memory mode (1-4), on the rank type (int, or
+// long long for a wide index of 2^31 suffixes or more) and on the root,
+// sixteen variants. The mode changes only the head of a compare, where the
+// suffix's first bases come from: 48 from the rank row (mode 4), 32 from
+// ktext at the position (3) or from key2 beside it (2), none (1); the
+// position comes from the row or from sa[r]. From the first base the head
+// does not cover, every variant walks the packed text. A wide index reads its
+// leaf starts from params64.
+//
+// The root changes only where a search's first window comes from
+// (bwameme_tpu/ops/sa_search.py:591): the P-RMI leaf record's prediction,
+// or, for the ERT backend (KMER), the k-mer table's entries m and m + 1 of
+// the key's first kmer_bits bases (:556), loaded as a leaf record is. Its
+// windows are exact, every rank of the k-mer: narrow on a random text (3
+// ranks on average at 100 Mbp under a 13-base root), as wide as a repeat's
+// copies elsewhere, which tree_round narrows as it narrows a coarse
+// P-RMI's. A template parameter, not a branch: an untaken branch cost narrow
+// round 2 up to 23% on an H100 (PERF.md).
 //
 // Every lane of a warp runs the same control flow on the same scalars (they
 // come from uniform loads, ballots and shuffles), so no lane leaves a loop in
@@ -93,6 +105,8 @@ template <typename RT> struct Index {
     int n_leaf;
     int bits;
     RT n_sa;
+    const RT* kmer_table;    // ERT root: (4^kmer_bits + 1) first ranks
+    int kmer_bits;
     // a kernel copies its Index parameter into a local and fills in the rest
     int lane;
     // what the warp counts of itself when asked: the 32-byte sectors of rank
@@ -211,10 +225,34 @@ __device__ __forceinline__ void leaf_window(const Index<RT>& ix,
     hi = (RT)(h > ix.n_sa ? ix.n_sa : h);
 }
 
-template <typename RT>
-__device__ __forceinline__ void prmi_window(const Index<RT>& ix, uint32_t khi,
+// The root of a search, loaded apart from its use as a leaf record is: the
+// P-RMI leaf record of the key, or the k-mer table's entries m and m + 1 of
+// its first kmer_bits bases (in ls64 and le64; m clipped to the table).
+template <bool KMER, typename RT>
+__device__ __forceinline__ Leaf load_root(const Index<RT>& ix, uint32_t khi) {
+    if constexpr (KMER) {
+        const uint32_t last = (1u << (2 * ix.kmer_bits)) - 1u;
+        uint32_t m = khi >> (32 - 2 * ix.kmer_bits);  // kmer_bits in 1..16
+        if (m > last) m = last;
+        Leaf r{};
+        r.ls64 = (long long)__ldg(ix.kmer_table + m);
+        r.le64 = (long long)__ldg(ix.kmer_table + m + 1);
+        return r;
+    } else {
+        return load_leaf(ix, khi);
+    }
+}
+
+template <bool KMER, typename RT>
+__device__ __forceinline__ void root_window(const Index<RT>& ix,
+                                            const Leaf& r, uint32_t khi,
                                             uint32_t klo, RT& lo, RT& hi) {
-    leaf_window(ix, load_leaf(ix, khi), khi, klo, lo, hi);
+    if constexpr (KMER) {
+        lo = (RT)r.ls64;
+        hi = (RT)r.le64;
+    } else {
+        leaf_window(ix, r, khi, klo, lo, hi);
+    }
 }
 
 // The head of the suffix at rank r (in range): its text position, and its
@@ -439,13 +477,14 @@ template <typename RT> struct Probed {
 };
 
 // longest match of pattern[:v] over the suffix array (key padded with ones)
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 __device__ int find_longest(Index<RT>& ix, const Pat& p, int v,
                             Probed<RT>& P) {
     uint32_t mh, ml;
     keep_masks(v, mh, ml);
+    const uint32_t kh = (p.k0 & mh) | ~mh, kl = (p.k1 & ml) | ~ml;
     RT wlo, whi;
-    prmi_window(ix, (p.k0 & mh) | ~mh, (p.k1 & ml) | ~ml, wlo, whi);
+    root_window<KMER>(ix, load_root<KMER>(ix, kh), kh, kl, wlo, whi);
     ix.steps += 1;
     const RT ip = lower_bound<MODE>(ix, p, v, wlo, whi, false, 2, P.lanes);
     const int l0 =
@@ -458,18 +497,20 @@ __device__ int find_longest(Index<RT>& ix, const Pat& p, int v,
 
 // Interval of pattern[:l] by two searches (zeros pad the lower key, ones the
 // upper), and b0, b1: the lcps of the ranks that border it, lb - 1 and
-// lb + cnt. Both leaf records are loaded together; two windows of at most 14
+// lb + cnt. Both roots (two leaf records, or the four table entries m_a,
+// m_a + 1, m_t, m_t + 1) are loaded together; two windows of at most 14
 // ranks are searched in one step, half a warp each.
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 __device__ void interval_at(Index<RT>& ix, const Pat& p, int l, RT& lb,
                             RT& cnt, int& b0, int& b1) {
     uint32_t mh, ml;
     keep_masks(l, mh, ml);
     const uint32_t ah = p.k0 & mh, al = p.k1 & ml;
-    const Leaf ra = load_leaf(ix, ah), rb = load_leaf(ix, ah | ~mh);
+    const Leaf ra = load_root<KMER>(ix, ah),
+               rb = load_root<KMER>(ix, ah | ~mh);
     RT alo, ahi, blo, bhi, ub;
-    leaf_window(ix, ra, ah, al, alo, ahi);
-    leaf_window(ix, rb, ah | ~mh, al | ~ml, blo, bhi);
+    root_window<KMER>(ix, ra, ah, al, alo, ahi);
+    root_window<KMER>(ix, rb, ah | ~mh, al | ~ml, blo, bhi);
     ix.steps += 1;
     constexpr int HALF = WARP / 2;
     if (ahi - alo <= HALF - 2 && bhi - blo <= HALF - 2) {
@@ -519,24 +560,24 @@ __device__ bool lanes_interval(const Probed<RT>& P, int l, RT& lb, RT& cnt,
 
 // one level of a walk down the match lengths: from the lanes while they
 // show it, by the two searches from then on
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 __device__ void interval_level(Index<RT>& ix, const Pat& p, Probed<RT>& P,
                                int l, RT& lb, RT& cnt, int& b0, int& b1) {
     if (P.held && lanes_interval(P, l, lb, cnt, b0, b1)) return;
     P.held = false;
-    interval_at<MODE>(ix, p, l, lb, cnt, b0, b1);
+    interval_at<MODE, RT, KMER>(ix, p, l, lb, cnt, b0, b1);
 }
 
 // the widening fixed point: longest l whose interval holds >= min_intv
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 __device__ void sa_query(Index<RT>& ix, const Pat& p, int v, RT min_intv,
                          int& mlen, RT& lb, RT& cnt) {
     Probed<RT> P;
-    mlen = v <= 0 ? 0 : find_longest<MODE>(ix, p, v, P);
+    mlen = v <= 0 ? 0 : find_longest<MODE, RT, KMER>(ix, p, v, P);
     for (;;) {
         if (mlen == 0) { lb = 0; cnt = ix.n_sa; return; }
         int b0, b1;
-        interval_level<MODE>(ix, p, P, mlen, lb, cnt, b0, b1);
+        interval_level<MODE, RT, KMER>(ix, p, P, mlen, lb, cnt, b0, b1);
         if (cnt >= min_intv) return;
         mlen = imax(b0, b1);
     }
@@ -654,7 +695,7 @@ __device__ __forceinline__ int enter_outer(const int32_t* nf,
 }
 
 // round 1: the zigzag sweep (host_engine.py step1, engine.py :1081)
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 __global__ void __launch_bounds__(READ_THREADS, READ_BLOCKS)
 seed_round1_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
                    const int32_t* lens, int R, int minseed, int M, RT* slots,
@@ -681,7 +722,8 @@ seed_round1_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
         const Pat pat = make_pat(qbuf, W, left ? R + i : i, piv);
         int mlen;
         RT lb, cnt;
-        sa_query<MODE>(ix, pat, v, first_interval<RT>(), mlen, lb, cnt);
+        sa_query<MODE, RT, KMER>(ix, pat, v, first_interval<RT>(), mlen, lb,
+                                 cnt);
         if (left) {
             p = p - mlen + 1;
             phase = l - p < minseed ? DONE : RIGHT_Z;
@@ -707,7 +749,7 @@ seed_round1_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
 // round 2: reseed round-1 SMEMs with len >= split_len and hitcount <=
 // split_width from their middle at min_intv = hitcount + 1 (host_engine.py
 // one_pos, engine.py :823); slots1 are round 1's planes (R, M1)
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 __global__ void __launch_bounds__(READ_THREADS, ROUND2_BLOCKS)
 seed_round2_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
                    const int32_t* lens, int R, const RT* slots1,
@@ -735,8 +777,9 @@ seed_round2_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
         if (tab(nf, tb.Lp, piv) == piv) continue;  // an N at the pivot
         const RT mi = cn + 1;
         const bool prev_valid = piv > 0 && tab(nf, tb.Lp, piv - 1) != piv - 1;
-        sa_query<MODE>(ix, make_pat(qbuf, W, i, piv),
-                       tab(nf, tb.Lp, piv) - piv, mi, mlen, lb, cnt);
+        sa_query<MODE, RT, KMER>(ix, make_pat(qbuf, W, i, piv),
+                                 tab(nf, tb.Lp, piv) - piv, mi, mlen, lb,
+                                 cnt);
         if (!prev_valid) {
             if (mlen >= minseed) emit(s, piv, piv + mlen, lb, cnt);
             continue;
@@ -745,12 +788,14 @@ seed_round2_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
         int p = piv, psp = piv;
         while (p < npv) {
             const int lp = l - 1 - p;
-            sa_query<MODE>(ix, make_pat(qbuf, W, R + i, lp),
-                           tab(nr, tb.Lp, lp) - lp, mi, mlen, lb, cnt);
+            sa_query<MODE, RT, KMER>(ix, make_pat(qbuf, W, R + i, lp),
+                                     tab(nr, tb.Lp, lp) - lp, mi, mlen, lb,
+                                     cnt);
             p = p - mlen + 1;
             if (npv - p < minseed) break;
-            sa_query<MODE>(ix, make_pat(qbuf, W, i, p),
-                           tab(nf, tb.Lp, p) - p, mi, mlen, lb, cnt);
+            sa_query<MODE, RT, KMER>(ix, make_pat(qbuf, W, i, p),
+                                     tab(nf, tb.Lp, p) - p, mi, mlen, lb,
+                                     cnt);
             if (mlen >= minseed) emit(s, p, p + mlen, lb, cnt);
             int sp = p + mlen;
             if (sp <= psp) sp = psp + 1;  // progress guard
@@ -764,7 +809,7 @@ seed_round2_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
 // round 3: the bwt seed strategy (host_engine.py :271-313, engine.py :1281,
 // :1367): at each pivot walk the match levels down from the longest until an
 // interval holds min_intv suffixes or the level falls below min_seed
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 __global__ void __launch_bounds__(READ_THREADS, READ_BLOCKS)
 seed_round3_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
                    const int32_t* lens, int R, int min_intv, int min_seed,
@@ -783,11 +828,11 @@ seed_round3_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
         if (v < min_seed) { pv += imax(v, 1); continue; }  // N, short window
         const Pat pat = make_pat(qbuf, W, i, pv);
         Probed<RT> P;
-        const int lmax = find_longest<MODE>(ix, pat, v, P);
+        const int lmax = find_longest<MODE, RT, KMER>(ix, pat, v, P);
         if (lmax < min_seed) { pv += imax(min_seed, 1); continue; }
         int cur_l = lmax, b0, b1, advance;
         RT lb, cnt, prev_lb = 0, prev_cnt = 0;
-        interval_level<MODE>(ix, pat, P, cur_l, lb, cnt, b0, b1);
+        interval_level<MODE, RT, KMER>(ix, pat, P, cur_l, lb, cnt, b0, b1);
         for (;;) {
             if (cnt >= min_intv) {
                 if (prev_cnt > 0)
@@ -804,7 +849,8 @@ seed_round3_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
             prev_lb = lb;
             prev_cnt = cnt;
             cur_l = imax(nxt, 1);
-            interval_level<MODE>(ix, pat, P, cur_l, lb, cnt, b0, b1);
+            interval_level<MODE, RT, KMER>(ix, pat, P, cur_l, lb, cnt, b0,
+                                           b1);
         }
         pv += imax(advance, 1);
     }
@@ -813,21 +859,20 @@ seed_round3_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
 }
 
 // the primitives alone, to hold them against their plain versions on the
-// card: a window is one record a key, so a thread a key (the same for every
-// mode: a variant a width); sa_query a warp a job
-template <typename RT>
-__global__ void prmi_window_kernel(Index<RT> ix, const uint32_t* khi,
-                                   const uint32_t* klo, int n, RT* lo,
-                                   RT* hi) {
+// card: a window is one root a key, so a thread a key (the same for every
+// mode: a variant a width and a root); sa_query a warp a job
+template <typename RT, bool KMER>
+__global__ void window_kernel(Index<RT> ix, const uint32_t* khi,
+                              const uint32_t* klo, int n, RT* lo, RT* hi) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     RT a, b;
-    prmi_window(ix, khi[i], klo[i], a, b);
+    root_window<KMER>(ix, load_root<KMER>(ix, khi[i]), khi[i], klo[i], a, b);
     lo[i] = a;
     hi[i] = b;
 }
 
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 __global__ void __launch_bounds__(READ_THREADS, READ_BLOCKS)
 sa_query_kernel(Index<RT> ixp, const uint32_t* qbuf, int W,
                 const int32_t* row, const int32_t* pivot, const int32_t* v,
@@ -837,8 +882,8 @@ sa_query_kernel(Index<RT> ixp, const uint32_t* qbuf, int W,
     if (!warp_job(ix, n, counts, i)) return;
     int mlen;
     RT lb, cnt;
-    sa_query<MODE>(ix, make_pat(qbuf, W, row[i], pivot[i]), v[i],
-                   (RT)min_intv[i], mlen, lb, cnt);
+    sa_query<MODE, RT, KMER>(ix, make_pat(qbuf, W, row[i], pivot[i]), v[i],
+                             (RT)min_intv[i], mlen, lb, cnt);
     if (ix.lane == 0) {
         out[i] = mlen;
         out[n + i] = lb;
@@ -850,8 +895,9 @@ sa_query_kernel(Index<RT> ixp, const uint32_t* qbuf, int W,
 // ------------------------------------------------------------- launchers
 
 // The index as every launcher takes it: the mode's planes (those it does
-// not have are null), the packed text, the leaf records, and with wide set
-// the int64 leaf starts; n_sa as int64.
+// not have are null), the packed text, the leaf records, with wide set the
+// int64 leaf starts, and for the ERT root the k-mer table (null and 0
+// otherwise); n_sa as int64.
 struct IndexArgs {
     const void* rk;
     const void* sa;
@@ -863,6 +909,8 @@ struct IndexArgs {
     int n_leaf;
     int bits;
     long long n_sa;
+    const void* kmer_table;
+    int kmer_bits;
 };
 
 template <typename RT> static Index<RT> make_index(const IndexArgs& a) {
@@ -870,7 +918,8 @@ template <typename RT> static Index<RT> make_index(const IndexArgs& a) {
                      (const uint2*)a.keys, (const uint32_t*)a.text32,
                      a.n_text_words, (const uint32_t*)a.params,
                      (const long long*)a.params64, a.n_leaf, a.bits,
-                     (RT)a.n_sa, 0, false, 0, 0};
+                     (RT)a.n_sa, (const RT*)a.kmer_table, a.kmer_bits, 0,
+                     false, 0, 0};
 }
 
 static const int KEY_THREADS = 128;
@@ -881,11 +930,11 @@ static int warp_blocks(int n) {
     return (n + per_block - 1) / per_block;
 }
 
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 static int round1(const IndexArgs& ia, const void* qbuf, int W, Tables tb,
                   const void* lens, int R, int minseed, int M, void* slots,
                   void* nsm, void* dropped, void* counts, void* stream) {
-    seed_round1_kernel<MODE, RT><<<warp_blocks(R), READ_THREADS, 0,
+    seed_round1_kernel<MODE, RT, KMER><<<warp_blocks(R), READ_THREADS, 0,
                                    (cudaStream_t)stream>>>(
         make_index<RT>(ia), (const uint32_t*)qbuf, W, tb,
         (const int32_t*)lens, R, minseed, M, (RT*)slots, (int32_t*)nsm,
@@ -893,13 +942,13 @@ static int round1(const IndexArgs& ia, const void* qbuf, int W, Tables tb,
     return (int)cudaGetLastError();
 }
 
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 static int round2(const IndexArgs& ia, const void* qbuf, int W, Tables tb,
                   const void* lens, int R, const void* slots1,
                   const void* nsm1, int M1, int split_len, int split_width,
                   int minseed, int M, void* slots, void* nsm, void* dropped,
                   void* counts, void* stream) {
-    seed_round2_kernel<MODE, RT><<<warp_blocks(R), READ_THREADS, 0,
+    seed_round2_kernel<MODE, RT, KMER><<<warp_blocks(R), READ_THREADS, 0,
                                    (cudaStream_t)stream>>>(
         make_index<RT>(ia), (const uint32_t*)qbuf, W, tb,
         (const int32_t*)lens, R, (const RT*)slots1, (const int32_t*)nsm1, M1,
@@ -908,12 +957,12 @@ static int round2(const IndexArgs& ia, const void* qbuf, int W, Tables tb,
     return (int)cudaGetLastError();
 }
 
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 static int round3(const IndexArgs& ia, const void* qbuf, int W, Tables tb,
                   const void* lens, int R, int min_intv, int min_seed, int M,
                   void* slots, void* nsm, void* dropped, void* counts,
                   void* stream) {
-    seed_round3_kernel<MODE, RT><<<warp_blocks(R), READ_THREADS, 0,
+    seed_round3_kernel<MODE, RT, KMER><<<warp_blocks(R), READ_THREADS, 0,
                                    (cudaStream_t)stream>>>(
         make_index<RT>(ia), (const uint32_t*)qbuf, W, tb,
         (const int32_t*)lens, R, min_intv, min_seed, M, (RT*)slots,
@@ -921,22 +970,22 @@ static int round3(const IndexArgs& ia, const void* qbuf, int W, Tables tb,
     return (int)cudaGetLastError();
 }
 
-template <typename RT>
+template <typename RT, bool KMER>
 static int window(const IndexArgs& ia, const void* khi, const void* klo,
                   int n, void* lo, void* hi, void* stream) {
-    prmi_window_kernel<RT><<<(n + KEY_THREADS - 1) / KEY_THREADS,
+    window_kernel<RT, KMER><<<(n + KEY_THREADS - 1) / KEY_THREADS,
                              KEY_THREADS, 0, (cudaStream_t)stream>>>(
         make_index<RT>(ia), (const uint32_t*)khi, (const uint32_t*)klo, n,
         (RT*)lo, (RT*)hi);
     return (int)cudaGetLastError();
 }
 
-template <int MODE, typename RT>
+template <int MODE, typename RT, bool KMER>
 static int query(const IndexArgs& ia, const void* qbuf, int W,
                  const void* row, const void* pivot, const void* v,
                  const void* min_intv, int n, void* out, void* counts,
                  void* stream) {
-    sa_query_kernel<MODE, RT><<<warp_blocks(n), READ_THREADS, 0,
+    sa_query_kernel<MODE, RT, KMER><<<warp_blocks(n), READ_THREADS, 0,
                                 (cudaStream_t)stream>>>(
         make_index<RT>(ia), (const uint32_t*)qbuf, W, (const int32_t*)row,
         (const int32_t*)pivot, (const int32_t*)v, (const int32_t*)min_intv,
@@ -944,13 +993,26 @@ static int query(const IndexArgs& ia, const void* qbuf, int W,
     return (int)cudaGetLastError();
 }
 
-// F<MODE, RT>(...) of the layout's variant; cudaErrorInvalidValue for a mode
-// outside 1..4 or one this build leaves out. Built with SEED_MODE set, the
-// library holds that mode's two variants alone (ops/build.py builds a
-// library a mode, side by side); without it, all eight.
-#define CASES(M, F, ...)                                                    \
-    case 2 * M: return F<M, int>(__VA_ARGS__);                              \
-    case 2 * M + 1: return F<M, long long>(__VA_ARGS__);
+// F<MODE, RT, KMER>(...) of the layout's variant; cudaErrorInvalidValue for a
+// mode outside 1..4 or a variant this build leaves out. Built with SEED_MODE
+// and SEED_ROOT set (0: the P-RMI, 1: the k-mer root), the library holds that
+// mode's two widths of that root alone (ops/build.py builds a library a mode
+// and a root, side by side); without them, all sixteen.
+#if !defined(SEED_ROOT) || SEED_ROOT == 0
+#define ROOT_P(M, F, ...)                                                   \
+    case 4 * M: return F<M, int, false>(__VA_ARGS__);                       \
+    case 4 * M + 2: return F<M, long long, false>(__VA_ARGS__);
+#else
+#define ROOT_P(M, F, ...)
+#endif
+#if !defined(SEED_ROOT) || SEED_ROOT == 1
+#define ROOT_K(M, F, ...)                                                   \
+    case 4 * M + 1: return F<M, int, true>(__VA_ARGS__);                    \
+    case 4 * M + 3: return F<M, long long, true>(__VA_ARGS__);
+#else
+#define ROOT_K(M, F, ...)
+#endif
+#define CASES(M, F, ...) ROOT_P(M, F, __VA_ARGS__) ROOT_K(M, F, __VA_ARGS__)
 #if !defined(SEED_MODE) || SEED_MODE == 1
 #define CASES_1(F, ...) CASES(1, F, __VA_ARGS__)
 #else
@@ -972,7 +1034,7 @@ static int query(const IndexArgs& ia, const void* qbuf, int W,
 #define CASES_4(F, ...)
 #endif
 #define VARIANT(F, ...)                                                     \
-    switch (mode * 2 + (wide != 0)) {                                       \
+    switch (mode * 4 + (wide != 0) * 2 + (kmer_bits > 0)) {                 \
         CASES_1(F, __VA_ARGS__)                                             \
         CASES_2(F, __VA_ARGS__)                                             \
         CASES_3(F, __VA_ARGS__)                                             \
@@ -983,10 +1045,11 @@ static int query(const IndexArgs& ia, const void* qbuf, int W,
 #define INDEX_PARAMS                                                        \
     int mode, int wide, const void *rk, const void *sa, const void *keys,  \
         const void *text32, long long n_text_words, const void *params,    \
-        const void *params64, int n_leaf, int bits, long long n_sa
+        const void *params64, int n_leaf, int bits, long long n_sa,        \
+        const void *kmer_table, int kmer_bits
 #define INDEX_ARGS                                                          \
     IndexArgs { rk, sa, keys, text32, n_text_words, params, params64,      \
-                n_leaf, bits, n_sa }
+                n_leaf, bits, n_sa, kmer_table, kmer_bits }
 
 extern "C" {
 
@@ -1025,12 +1088,27 @@ int seed_round3_launch(INDEX_PARAMS, const void* qbuf, int W, const void* nf,
             slots, nsm, dropped, counts, stream)
 }
 
-int prmi_window_launch(INDEX_PARAMS, const void* khi, const void* klo, int n,
-                       void* lo, void* hi, void* stream) {
+// the window of the index's root (prmi_window, or kmer_window with
+// kmer_bits > 0), the same code in every mode
+int window_launch(INDEX_PARAMS, const void* khi, const void* klo, int n,
+                  void* lo, void* hi, void* stream) {
     if (n == 0) return 0;
     if (mode < 1 || mode > 4) return (int)cudaErrorInvalidValue;
-    return wide ? window<long long>(INDEX_ARGS, khi, klo, n, lo, hi, stream)
-                : window<int>(INDEX_ARGS, khi, klo, n, lo, hi, stream);
+#if !defined(SEED_ROOT) || SEED_ROOT == 1
+    if (kmer_bits > 0)
+        return wide ? window<long long, true>(INDEX_ARGS, khi, klo, n, lo, hi,
+                                              stream)
+                    : window<int, true>(INDEX_ARGS, khi, klo, n, lo, hi,
+                                        stream);
+#endif
+#if !defined(SEED_ROOT) || SEED_ROOT == 0
+    if (kmer_bits == 0)
+        return wide ? window<long long, false>(INDEX_ARGS, khi, klo, n, lo,
+                                               hi, stream)
+                    : window<int, false>(INDEX_ARGS, khi, klo, n, lo, hi,
+                                         stream);
+#endif
+    return (int)cudaErrorInvalidValue;
 }
 
 int sa_query_launch(INDEX_PARAMS, const void* qbuf, int W, const void* row,

@@ -27,13 +27,17 @@ a compare reads the packed text. Every mode has
 * ``params`` (L, 6) fused P-RMI leaf records: (leaf_start, leaf_end,
   alpha bits, beta bits, err_lo, err_hi);
 * wide: ``params64`` int64[L + 1], the leaf starts, which pass 2^32 in a
-  wide index (the records keep the model's bits and the error widths).
+  wide index (the records keep the model's bits and the error widths);
+* the ERT (k-mer) root, where asked for (``from_host(ert_bits=)``):
+  ``kmer_table`` [4^kb + 1] of the rank type, table[m] the first rank whose
+  first kb bases are the k-mer m or above (index/ert.py), in every mode and
+  width. A search then starts from [table[m], table[m + 1]) instead of the
+  P-RMI's window (``root`` is "kmer").
 
 Packed words are uint32 held as ``torch.int32`` storage (torch has no uint32
 arithmetic): the CUDA kernels read them as ``uint32_t`` and the plain
 versions widen them to int64 (``words_u32``). ``sa`` is int32 narrow and
-int64 wide. The k-mer (ERT) root is not ported (ROADMAP Queue 1 item 6) and
-raises; so does a layout that does not fit the card, never moving to
+int64 wide. A layout that does not fit the card raises, never moving to
 another mode.
 """
 
@@ -120,6 +124,20 @@ def mode4_rows(idx, wide: bool = False) -> np.ndarray:
     return rows
 
 
+def kmer_root(key_hi, bits: int, wide: bool) -> np.ndarray:
+    """The k-mer root table in the rank type: index/ert.build_kmer_table,
+    whose int32 result wraps from 2^31 suffixes on, so that a wide index
+    takes the same prefix sums in int64."""
+    from bwameme_tpu_torch.index.ert import build_kmer_table
+
+    if not wide:
+        return build_kmer_table(key_hi, bits)
+    ids = (np.asarray(key_hi) >> np.uint32(32 - 2 * bits)).astype(np.int64)
+    table = np.zeros((1 << (2 * bits)) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(ids, minlength=1 << (2 * bits)), out=table[1:])
+    return table
+
+
 def device_bytes(device: torch.device) -> int:
     """The device memory the mode ladder budgets from: BWAMEME_HBM_BYTES
     where set, else the card's total, else DEFAULT_DEVICE_BYTES."""
@@ -167,6 +185,8 @@ class DeviceIndex:
     ktext: torch.Tensor | None = None     # mode 3: uint32[N, 2]
     key2: torch.Tensor | None = None      # mode 2: uint32[N, 2]
     params64: torch.Tensor | None = None  # wide: int64[L + 1]
+    kmer_table: torch.Tensor | None = None  # ERT root: [4^kb + 1] ranks
+    kmer_bits: int = 0
 
     def __post_init__(self) -> None:
         """The planes of exactly one layout, in the dtypes and shapes the
@@ -202,14 +222,28 @@ class DeviceIndex:
         if wide:
             _check(self.params64, "params64", torch.int64,
                    (self.params.shape[0] + 1,))
+        if (self.kmer_table is not None) != (self.kmer_bits > 0):
+            raise ValueError("kmer_table and kmer_bits come together")
+        if self.kmer_table is not None:
+            if not 1 <= self.kmer_bits <= 16:
+                raise ValueError(f"k-mer root of {self.kmer_bits} bases "
+                                 "outside 1..16")
+            _check(self.kmer_table, "kmer_table", self.rank_dtype,
+                   ((1 << (2 * self.kmer_bits)) + 1,))
 
     @property
     def planes(self) -> dict:
         """Every device plane by name, the absent ones left out."""
         out = {"text32": self.text32, "params": self.params}
-        out.update((k, getattr(self, k)) for k in PLANES
+        out.update((k, getattr(self, k)) for k in (*PLANES, "kmer_table")
                    if getattr(self, k) is not None)
         return out
+
+    @property
+    def root(self) -> str:
+        """Where a search's first window comes from: "prmi", the P-RMI
+        leaf model, or "kmer", the ERT root table."""
+        return "prmi" if self.kmer_table is None else "kmer"
 
     @property
     def nbytes(self) -> int:
@@ -218,9 +252,9 @@ class DeviceIndex:
     @classmethod
     def from_tensors(cls, device=None, **kw) -> "DeviceIndex":
         """From planes given as tensors (on any one device, ``device`` moves
-        them there): mode and width follow from the planes given. Before a
-        move to a card, checks that the planes and HEADROOM_BYTES fit its
-        free memory, and raises if not."""
+        them there): mode, width and root follow from the planes given.
+        Before a move to a card, checks that the planes and HEADROOM_BYTES
+        fit its free memory, and raises if not."""
         mode = (4 if kw.get("rk") is not None else
                 3 if kw.get("ktext") is not None else
                 2 if kw.get("key2") is not None else 1)
@@ -240,18 +274,19 @@ class DeviceIndex:
 
     @classmethod
     def from_numpy(cls, text32, params, bits: int, n_sa: int, device,
-                   **planes) -> "DeviceIndex":
+                   kmer_bits: int = 0, **planes) -> "DeviceIndex":
         """From the arrays of a bwameme_tpu ``DeviceIndex`` as numpy, any
         mode and width: the state that carries across from the JAX package.
         ``planes`` holds the layout's own (rk; sa and ktext or key2; and
-        params64 when wide). Packed words arrive as uint32, positions and
-        ranks as int32 narrow and int64 wide."""
+        params64 when wide; kmer_table with ``kmer_bits`` for the ERT
+        root). Packed words arrive as uint32, positions and ranks as int32
+        narrow and int64 wide."""
         kw = {}
         for name, a in planes.items():
             if a is None:
                 continue
             a = np.asarray(a)
-            if name in ("sa", "params64"):
+            if name in ("sa", "params64", "kmer_table"):
                 # torch.from_numpy shares memory on the CPU: the planes are
                 # only read
                 kw[name] = torch.from_numpy(_writable(a))
@@ -260,7 +295,7 @@ class DeviceIndex:
         return cls.from_tensors(
             device, text32=torch.from_numpy(_as_i32(text32)),
             params=torch.from_numpy(_as_i32(params)), bits=int(bits),
-            n_sa=int(n_sa), **kw)
+            n_sa=int(n_sa), kmer_bits=int(kmer_bits), **kw)
 
     @classmethod
     def from_host(cls, idx, device, mode: int | None = None,
@@ -268,11 +303,10 @@ class DeviceIndex:
                   ert_bits: int | None = None) -> "DeviceIndex":
         """Build the device planes from a ``MemeIndex``. ``wide``: int64
         coordinates, by default when n_sa >= 2^31. ``mode``: by default the
-        JAX package's ladder over the device's memory (``choose_mode``)."""
-        if ert_bits is not None:
-            raise NotImplementedError(
-                "the ERT (k-mer) root is not ported yet (ROADMAP Queue 1 "
-                "item 6)")
+        JAX package's ladder over the device's memory (``choose_mode``).
+        ``ert_bits``: with the ERT root of that many bases (0: the size
+        index/ert.pick_ert_bits gives), as bwameme_tpu/ops/sa_search.py
+        builds it."""
         device = torch.device(device)
         n = int(idx.n_sa)
         if wide is None:
@@ -297,8 +331,14 @@ class DeviceIndex:
                 planes["key2"] = np.stack([idx.key_hi, idx.key_lo], axis=1)
         if wide:
             planes["params64"] = wide_rmi_params(idx)
+        kmer_bits = 0
+        if ert_bits is not None:
+            from bwameme_tpu_torch.index.ert import pick_ert_bits
+
+            kmer_bits = ert_bits if ert_bits > 0 else pick_ert_bits(n)
+            planes["kmer_table"] = kmer_root(idx.key_hi, kmer_bits, wide)
         return cls.from_numpy(idx.text32, fuse_rmi_params(idx), idx.rmi_bits,
-                              n, device, **planes)
+                              n, device, kmer_bits=kmer_bits, **planes)
 
     @property
     def device(self) -> torch.device:

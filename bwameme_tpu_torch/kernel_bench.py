@@ -6,7 +6,9 @@ object a line.
     python3 bwameme_tpu_torch/kernel_bench.py launch
     python3 bwameme_tpu_torch/kernel_bench.py k1
     python3 bwameme_tpu_torch/kernel_bench.py seed [--mode M] [--wide]
+                                                   [--root kmer]
     python3 bwameme_tpu_torch/kernel_bench.py sw_full
+    python3 bwameme_tpu_torch/kernel_bench.py fmi
 
 ``launch``: what one call of the flat row gather costs at the seeding
 batch's shape (16-byte rows, 4096 lanes, 64 KB a call) beside
@@ -40,7 +42,8 @@ checkout, link its .bench_cache to this one's; on a tree whose plain
 versions do not count (``work=``) the rows of the batch sizes print and the
 rest fails. ``--mode`` (1-4) and ``--wide`` choose the index's layout (the
 variants of the kernels); by default the ladder's choice, mode 4 narrow on
-this index.
+this index. ``--root kmer`` seeds from the ERT k-mer root (its size as
+index/ert.pick_ert_bits gives it) instead of the P-RMI.
 
 ``sw_full``: the time of one step of the full SW's wavefront, a forward
 pass over random targets of SW_STEP_ROWS rows (no early stop), for query
@@ -48,6 +51,13 @@ lengths whose columns sit in registers (K = 1, 2, 5, 8 a lane) and past
 them (memory columns), each for one job alone and for SW_STEP_JOBS jobs (8
 warps an SM): the card's time a call with the host out of the way over the
 steps the kernel reports it ran.
+
+``fmi``: the FM-index kernels on the bench genome's FM-index (index -a
+mem2's files, built at first use under .bench_cache/): fmi_smem at 4096 and
+16384 reads of seed's kind, fmi_backward_ext on 128 units a read and
+fmi_sa_lookup on a rank a read at both sizes, each a call made alone and
+the card's time a call with the host out of the way; then fmi_smem's
+heaviest read alone (by the extensions its thread ran) against the batch.
 """
 
 from __future__ import annotations
@@ -161,9 +171,10 @@ SEED_MBP = 100
 SEED_BATCHES = (4096, 16384, 32768, 65536)
 
 
-def bench_seed(mode: int | None = None, wide: bool | None = None):
+def bench_seed(mode: int | None = None, wide: bool | None = None,
+               root: str = "prmi"):
     """Yields the rows as they are measured, in the index layout of mode and
-    wide (DeviceIndex.from_host's defaults where None)."""
+    wide (DeviceIndex.from_host's defaults where None), from ``root``."""
     import numpy as np
     import torch
 
@@ -176,9 +187,10 @@ def bench_seed(mode: int | None = None, wide: bool | None = None):
     dev = torch.device("cuda", 0)
     idx = load_index(bu.get_index(SEED_MBP))
     eng = DeviceSeedingEngine(idx, MemOptions(), lanes=BATCH, device=dev,
-                              mode=mode, wide=wide)
+                              mode=mode, wide=wide, root=root)
     yield dict(what="the index's layout", mode=eng.di.mode,
-               wide=eng.di.wide, gib=eng.di.nbytes / 2**30)
+               wide=eng.di.wide, root=eng.di.root, kmer_bits=eng.di.kmer_bits,
+               gib=eng.di.nbytes / 2**30)
     rng = np.random.default_rng(17)
     reads = bu.simulated_reads(idx.text, idx.l_pac, max(SEED_BATCHES), 151,
                                rng, bu.planted_repeats(SEED_MBP))
@@ -248,14 +260,81 @@ def bench_sw_full():
         yield row
 
 
+FMI_BATCHES = (4096, 16384)
+FMI_UNITS_A_READ = 128
+
+
+def bench_fmi():
+    """Yields the rows as they are measured."""
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch import bench_util as bu
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.index.fmindex import load_fm_index
+    from bwameme_tpu_torch.ops import fmi_search_cuda
+    from bwameme_tpu_torch.seeding.fmi_engine import FmiDeviceEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    dev = torch.device("cuda", 0)
+    idx = load_index(bu.get_index(SEED_MBP))
+    fm = load_fm_index(bu.get_fm_index(SEED_MBP))
+    eng = FmiDeviceEngine(idx, MemOptions(), fm=fm, device=dev)
+    dfm = eng.dfm
+    rng = np.random.default_rng(17)
+    reads = bu.simulated_reads(idx.text, idx.l_pac, max(FMI_BATCHES), 151,
+                               rng, bu.planted_repeats(SEED_MBP))
+
+    def times(fn, queued=50):
+        return dict(alone_ms=[bu.cuda_ms(fn, 10) for _ in range(2)],
+                    device_ms=[bu.queued_us(fn, queued) / 1e3
+                               for _ in range(2)])
+
+    def smem_times(batch):
+        """fmi_smem on the batch already on the card: the launch alone,
+        not the host's matrix and copies, which would sit between the
+        queued calls."""
+        up = eng._upload(batch)
+        return times(lambda: eng._smem(*up, eng.max_smems))
+
+    n1 = fm.n + 1
+    for n in FMI_BATCHES:
+        u = FMI_UNITS_A_READ * n
+        k = rng.integers(0, n1, u)
+        s = np.minimum(rng.integers(0, 64, u), n1 - k)
+        units = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in
+                 (k, rng.integers(0, n1, u), s, rng.integers(0, 4, u))]
+        ranks = torch.from_numpy(rng.integers(0, n1, n).astype(
+            np.int32)).to(dev)
+        batch = reads[:n]
+        yield dict(
+            what=f"the FM-index kernels at {n} reads",
+            fmi_smem=smem_times(batch),
+            fmi_backward_ext=dict(units=u, **times(
+                lambda: fmi_search_cuda.backward_ext(dfm, *units))),
+            fmi_sa_lookup=dict(ranks=n, **times(
+                lambda: fmi_search_cuda.sa_lookup(dfm, ranks))))
+    batch = reads[:BATCH]
+    steps = eng._launch(batch, eng.max_smems, steps=True)[2].cpu().numpy()
+    top = int(np.argmax(steps))
+    yield dict(what=f"fmi_smem at {BATCH} reads: the heaviest read alone "
+               "against the batch", steps_max=int(steps.max()),
+               steps_mean=float(steps.mean()),
+               heaviest_alone=smem_times([batch[top]]),
+               batch=smem_times(batch))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("what", choices=("launch", "k1", "seed", "sw_full"))
+    ap.add_argument("what", choices=("launch", "k1", "seed", "sw_full",
+                                     "fmi"))
     ap.add_argument("--mode", type=int, choices=(1, 2, 3, 4), default=None,
                     help="seed: the index's memory mode (default: the "
                     "ladder's)")
     ap.add_argument("--wide", action="store_true", default=None,
                     help="seed: int64 coordinates")
+    ap.add_argument("--root", choices=("prmi", "kmer"), default="prmi",
+                    help="seed: the P-RMI (default) or the ERT k-mer root")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -270,8 +349,8 @@ def main() -> int:
         print(json.dumps(bench_launch()))
     else:
         rows = {"k1": bench_k1,
-                "seed": lambda: bench_seed(args.mode, args.wide),
-                "sw_full": bench_sw_full}[args.what]()
+                "seed": lambda: bench_seed(args.mode, args.wide, args.root),
+                "sw_full": bench_sw_full, "fmi": bench_fmi}[args.what]()
         for row in rows:
             print(json.dumps(row), flush=True)
     return 0

@@ -6,7 +6,8 @@ module without nvcc. A failed build raises.
 * The CUDA kernels: nvcc builds each source under ``csrc/`` into a shared
   library with a plain C interface, bound with ctypes (no PyTorch headers: a
   build takes seconds, not minutes), all libraries at the same time; the
-  seeding kernels as one library a memory mode (``LIBRARIES``).
+  seeding kernels as one library a memory mode and a root
+  (``LIBRARIES``).
 * The host libraries: g++ builds ``native/*.cpp`` (sources shared with
   bwameme_tpu, which builds them into ``native/build/``, a directory the
   port never writes).
@@ -36,13 +37,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # library -> (its source under csrc/, extra nvcc flags). seed_smem: the P-RMI
 # prediction must round its multiply and its add separately (the source also
 # uses __fmul_rn/__fadd_rn); its variants build as a library a memory mode
-# (SEED_MODE), four nvcc side by side instead of one that takes four times
-# as long
+# (SEED_MODE) and a root (SEED_ROOT: the P-RMI, or the ERT k-mer table, the
+# library's name ending in _kmer), eight nvcc side by side instead of one
+# that takes eight times as long
 LIBRARIES = {
     "banded_sw": ("banded_sw", ()),
+    "fmi_search": ("fmi_search", ()),
     "gather_bench": ("gather_bench", ()),
-    **{f"seed_smem_m{m}": ("seed_smem", ("-fmad=false", f"-DSEED_MODE={m}"))
-       for m in (1, 2, 3, 4)},
+    **{f"seed_smem_m{m}{'_kmer' if k else ''}": (
+        "seed_smem", ("-fmad=false", f"-DSEED_MODE={m}", f"-DSEED_ROOT={k}"))
+       for k in (0, 1) for m in (1, 2, 3, 4)},
     "sw_full": ("sw_full", ()),
 }
 

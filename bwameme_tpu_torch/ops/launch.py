@@ -9,7 +9,8 @@ function is bound once (``entry``), the stream is read as a raw handle, and
 the device guard is entered only when another device is current.
 ``stats.launches`` counts launches per kernel, and only launches, so a run
 can show that its main path went through the kernels; a seeding kernel
-counts each variant (the index's layout) under its own name (``variant``).
+counts each variant (the index's layout and root) under its own name
+(``variant``).
 With ``stats.events`` set to a list, each launch also appends a (name,
 start, end) triple of CUDA events.
 """
@@ -25,30 +26,37 @@ from bwameme_tpu_torch.ops import build
 
 SEEDING = ("prmi_window", "sa_query", "seed_round1", "seed_round2",
            "seed_round3")
+FMI = ("fmi_backward_ext", "fmi_smem", "fmi_sa_lookup")
 
 
-def variant(name: str, mode: int, wide: bool) -> str:
+def variant(name: str, mode: int, wide: bool, root: str = "prmi") -> str:
     """The launch-count name of a seeding kernel's variant for an index of
-    ``mode`` (1-4) and width: the kernel's own name for mode 4 narrow,
-    ``name[m<mode>]`` or ``name[m<mode>,wide]`` for the others;
-    prmi_window, the same code in every mode, ``prmi_window[wide]``."""
+    ``mode`` (1-4), width and root: the kernel's own name for mode 4 narrow
+    with the P-RMI root, else ``name[...]`` with the mode where it is not 4
+    narrow, ``kmer`` for the ERT root and ``wide``: ``seed_round1[kmer]``,
+    ``seed_round2[m1,kmer,wide]``, ``sa_query[m4,wide]``. The window, the
+    same code in every mode, is ``prmi_window`` or ``kmer_window``, with
+    ``[wide]``."""
+    kmer = root == "kmer"
     if name == "prmi_window":
-        return name + ("[wide]" if wide else "")
-    if mode == 4 and not wide:
-        return name
-    return f"{name}[m{mode}{',wide' if wide else ''}]"
+        return ("kmer_window" if kmer else name) + ("[wide]" if wide else "")
+    tags = ([f"m{mode}"] if mode != 4 or wide else []) + (
+        ["kmer"] if kmer else []) + (["wide"] if wide else [])
+    return f"{name}[{','.join(tags)}]" if tags else name
 
 
-def variants(name: str) -> list[str]:
-    """Every variant's name of a seeding kernel, mode 4 narrow first."""
-    return list(dict.fromkeys(variant(name, m, w) for w in (False, True)
-                              for m in (4, 1, 2, 3)))
+def variants(name: str, root: str = "prmi") -> list[str]:
+    """Every variant's name of a seeding kernel with a root, mode 4 narrow
+    first."""
+    return list(dict.fromkeys(variant(name, m, w, root)
+                              for w in (False, True) for m in (4, 1, 2, 3)))
 
 
 KERNELS = ("banded_sw_pairs", "banded_sw_coord", "gather_flat",
-           "gather_window", "gather_chain", *(v for k in SEEDING
-                                              for v in variants(k)),
-           "sw_full")
+           "gather_window", "gather_chain",
+           *(v for r in ("prmi", "kmer") for k in SEEDING
+             for v in variants(k, r)),
+           "sw_full", *FMI)
 
 
 @dataclasses.dataclass

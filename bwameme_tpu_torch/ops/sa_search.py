@@ -1,7 +1,8 @@
 """Suffix-array search primitives of learned-index seeding: plain PyTorch.
 
-Port of bwameme_tpu/ops/sa_search.py (``make_search_fns``) for the P-RMI
-root in every memory mode and width, as functions batched over queries.
+Port of bwameme_tpu/ops/sa_search.py (``make_search_fns``) for both roots,
+the P-RMI and the ERT k-mer table, in every memory mode and width, as
+functions batched over queries.
 They are the plain versions of the ``__device__`` functions in
 csrc/seed_smem.cu: the CPU tests hold them against the JAX package, and on
 the card the kernels are held against them. The public functions at the end
@@ -16,7 +17,9 @@ take the same arguments, in the same order, as the functions
 * ``prmi_window`` predicts a [lo, hi) window that is guaranteed to hold the
   lower bound; its one f32 step multiplies and adds with separate roundings,
   as the error windows of models/prmi.py assume. A wide index reads its leaf
-  starts from ``params64``.
+  starts from ``params64``. An index with the ERT root (``di.root`` is
+  "kmer") starts from ``kmer_window`` instead, the ranks of the key's first
+  kb bases (``root_window`` picks, as :591 does).
 * A compare has a head that depends on the layout (index/device.py): mode 4
   reads one rank row (text position + first 48 bases), mode 3 the position
   and then 32 bases of ``ktext`` there, mode 2 the position and 32 bases of
@@ -36,8 +39,8 @@ take the same arguments, in the same order, as the functions
   reads (the rank row, or the position and, in modes 2 and 3, the key) and
   one a 64-base text segment of every step of its binary searches. And the
   sectors that the answers stand on, which no design can leave unread: the
-  leaf record (and in a wide index the leaf starts) that locates the
-  longest match, the rank-indexed entries at ip - 1 and ip and on both
+  root's record that locates the longest match (the leaf record, and in a
+  wide index the leaf starts; or the k-mer table's two entries), the rank-indexed entries at ip - 1 and ip and on both
   sides of both borders of every interval, and of these suffixes the bases
   past the head up to the one that decides the compare. These are kept by
   address, so a sector that two ranks, two queries or two reads share is
@@ -72,43 +75,72 @@ class Work:
     """What ``n`` lanes' searches need of the index (see the module's
     docstring): ``probes`` (n,) int64, and the addresses of the sectors the
     answers stand on. Lanes that touch nothing add the id -1, so that no
-    count waits for the device."""
+    count waits for the device. The root's sectors are kept as the keys
+    that were located, so that one search's count also gives what the same
+    answers stand on under the other root (``answer_ids(root=)``): both
+    roots give the same answers, and only the record that starts a search
+    differs."""
 
     def __init__(self, n: int, device) -> None:
         self.probes = torch.zeros(n, dtype=I64, device=device)
         self._ids = [torch.zeros(0, dtype=I64, device=device)]
+        self._keys = [torch.zeros(0, dtype=I64, device=device)]
+        self._held = {"_ids": 0, "_keys": 0}    # ids in each list
+        self._di = None
+
+    def _add(self, name: str, ids) -> None:
+        """Appends ids to one of the lists, which is made distinct once it
+        holds more than 2^24."""
+        parts = getattr(self, name)
+        parts.append(ids.reshape(-1))
+        self._held[name] += parts[-1].numel()
+        if self._held[name] > 1 << 24:
+            parts[:] = [_distinct(parts)]
+            self._held[name] = parts[0].numel()
 
     def touch(self, ids) -> None:
-        self._ids.append(ids.reshape(-1))
-        if sum(t.numel() for t in self._ids) > 1 << 24:
-            self._ids = [self.answer_ids()]
+        self._add("_ids", ids)
 
     def touch_span(self, space: int, at, size: int, live) -> None:
         """Every sector of ``size`` bytes at each byte offset ``at`` of the
         live lanes."""
-        first, last = at // SECTOR, (at + size - 1) // SECTOR
-        self.touch(torch.where(live, space + first, -1))
-        self.touch(torch.where(live & (last > first), space + last, -1))
+        for ids in _span(space, at, size, live):
+            self.touch(ids)
 
-    def answer_ids(self):
+    def answer_ids(self, root: DeviceIndex | None = None):
         """The distinct sectors touched, sorted: rank-indexed entries below
-        IN_KEY, keys from IN_KEY, text from IN_TEXT, leaf records from
-        IN_PARAMS."""
-        ids = torch.unique(torch.cat(self._ids))
-        return ids[ids >= 0]
+        IN_KEY, keys from IN_KEY, text from IN_TEXT, the root's records from
+        IN_PARAMS; those of ``root``'s root (an index of the same planes),
+        by default of the index searched."""
+        return _distinct(self._ids + self._root_ids(root or self._di))
 
-    def answer_sectors(self, leaves: bool = True) -> int:
-        ids = self.answer_ids()
+    def answer_sectors(self, leaves: bool = True,
+                       root: DeviceIndex | None = None) -> int:
+        ids = self.answer_ids(root)
         return int(ids.numel() if leaves else (ids < IN_PARAMS).sum())
 
     def touch_leaf(self, di: DeviceIndex, khi, live) -> None:
-        """The leaf record of a key, where it straddles two sectors both;
-        in a wide index also its two leaf starts."""
+        """Notes the key whose root record locates a longest match: the
+        P-RMI leaf record (and, in a wide index, its two leaf starts) or the
+        k-mer table's entries m and m + 1, where they straddle two sectors
+        both."""
+        self._di = di
+        live = torch.ones_like(khi, dtype=torch.bool) & live
+        self._add("_keys", torch.where(live, khi, -1))
+
+    def _root_ids(self, di: DeviceIndex | None) -> list:
+        if di is None:
+            return []
+        khi = _distinct(self._keys)
+        live = torch.ones_like(khi, dtype=torch.bool)
+        if di.root == "kmer":
+            es = di.kmer_table.element_size()
+            return _span(IN_PARAMS, kmer_id(di, khi) * es, 2 * es, live)
         leaf = (khi >> (32 - di.bits)).clamp(max=di.params.shape[0] - 1)
-        live = torch.ones_like(leaf, dtype=torch.bool) & live
-        self.touch_span(IN_PARAMS, leaf * LEAF_RECORD, LEAF_RECORD, live)
+        ids = _span(IN_PARAMS, leaf * LEAF_RECORD, LEAF_RECORD, live)
         if di.wide:
-            self.touch_span(IN_PARAMS64, leaf * 8, 16, live)
+            ids += _span(IN_PARAMS64, leaf * 8, 16, live)
+        return ids
 
     def touch_compare(self, di: DeviceIndex, rank, sa_pos, v, lcp,
                       head_only, live, max_bases: int):
@@ -130,6 +162,21 @@ class Work:
                                             device=first.device)
         self.touch(torch.where(deep[:, None] & (ids <= last[:, None]),
                                IN_TEXT + ids, -1))
+
+
+def _distinct(parts):
+    """The distinct ids >= 0 of a list of id tensors, sorted."""
+    ids = torch.unique(torch.cat(parts))
+    return ids[ids >= 0]
+
+
+def _span(space: int, at, size: int, live) -> list:
+    """The sector ids of ``size`` bytes at each byte offset ``at`` of the
+    live lanes (-1 for the others): the first sector and, where the bytes
+    straddle two, the last."""
+    first, last = at // SECTOR, (at + size - 1) // SECTOR
+    return [torch.where(live, space + first, -1),
+            torch.where(live & (last > first), space + last, -1)]
 
 
 def _combine(w0, w1, sh):
@@ -184,6 +231,27 @@ def prmi_window(di: DeviceIndex, khi, klo):
     return (pred - elo).clamp_min(0), (pred + ehi).clamp_max(di.n_sa)
 
 
+def kmer_id(di: DeviceIndex, khi):
+    """The k-mer of a key's first kmer_bits bases, clipped to the table."""
+    m = khi >> (32 - 2 * di.kmer_bits)
+    return m.clamp(max=di.kmer_table.shape[0] - 2)
+
+
+def kmer_window(di: DeviceIndex, khi, klo):
+    """[lo, hi) rank window of a key from the ERT root: the ranks whose
+    first kmer_bits bases are the key's (bwameme_tpu/ops/sa_search.py:556).
+    ``klo`` is not read: the table's k-mers are at most 16 bases."""
+    m = kmer_id(di, khi)
+    return di.kmer_table[m].to(I64), di.kmer_table[m + 1].to(I64)
+
+
+def root_window(di: DeviceIndex, khi, klo):
+    """The window a search starts from, by the index's root (:591)."""
+    if di.root == "kmer":
+        return kmer_window(di, khi, klo)
+    return prmi_window(di, khi, klo)
+
+
 def text64_at(di: DeviceIndex, pos):
     """64 text bases at position pos as 4 packed words; all ones past the
     end of the text (the guard words are all T as well)."""
@@ -220,16 +288,16 @@ def make_ctx(qbuf32, row, pivot):
 
 def _multiword_cmp(swords, kwords, total: int):
     """(less, lcp_bases) of suffix words against pattern words; lcp == total
-    when all are equal."""
-    lcp = torch.full_like(swords[0], total)
-    less = torch.zeros_like(swords[0], dtype=torch.bool)
-    found = torch.zeros_like(less)
-    for i, (sw, kw) in enumerate(zip(swords, kwords)):
-        x = sw ^ kw
-        new = (x != 0) & ~found
-        lcp = torch.where(new, 16 * i + _lcp_bases32(x), lcp)
-        less = torch.where(new, sw < kw, less)
-        found = found | (x != 0)
+    when all are equal. The words are compared side by side: the first
+    that differs decides."""
+    S, K = torch.stack(list(swords)), torch.stack(list(kwords))
+    x = S ^ K
+    diff = x != 0
+    first = diff.to(torch.int32).argmax(0, keepdim=True)   # the first max
+    hit = diff.any(0)
+    lcp = torch.where(hit, 16 * first[0] + _lcp_bases32(x.gather(0, first)[0]),
+                      total)
+    less = (S < K).gather(0, first)[0] & hit
     return less, lcp
 
 
@@ -298,6 +366,29 @@ def cmp_ctx(di: DeviceIndex, aw, v, sa_idx, work=None, live=True,
     return less, lcp
 
 
+class _Tiled:
+    """A ctx's words repeated ``k`` times along the lanes, each made when a
+    compare reads it."""
+
+    def __init__(self, aw, k: int) -> None:
+        self.aw, self.k = aw, k
+
+    def __len__(self) -> int:
+        return len(self.aw)
+
+    def __getitem__(self, words):
+        return [w.repeat(self.k) for w in self.aw[words]]
+
+
+def _answers(di: DeviceIndex, ctx, v, ranks, work: Work, live) -> None:
+    """Counts what the answers stand on at each of ``ranks`` (rank tensors
+    of the ctx's lanes) for the live lanes: one compare of them all."""
+    k = len(ranks)
+    live = torch.ones_like(ranks[0], dtype=torch.bool) & live
+    cmp_ctx(di, _Tiled(ctx, k), v.repeat(k), torch.cat(ranks), work,
+            live.repeat(k), probe=False, answer=True)
+
+
 def lower_bound_ctx(di: DeviceIndex, ctx, v, wlo, whi, strict_greater=False,
                     work=None, live=True):
     """First rank in [wlo, whi] whose suffix is >= pattern[:v] (> where
@@ -322,7 +413,7 @@ def find_longest_ctx(di: DeviceIndex, ctx, v, work=None, live=True):
     keep_hi, keep_lo = keep_masks(v)
     khi_p = (ctx[0] & keep_hi) | (FULL ^ keep_hi)
     klo_p = (ctx[1] & keep_lo) | (FULL ^ keep_lo)
-    wlo, whi = prmi_window(di, khi_p, klo_p)
+    wlo, whi = root_window(di, khi_p, klo_p)
     if work is not None:
         work.touch_leaf(di, khi_p, live)
     ip = lower_bound_ctx(di, ctx, v, wlo, whi, work=work, live=live)
@@ -330,9 +421,7 @@ def find_longest_ctx(di: DeviceIndex, ctx, v, work=None, live=True):
     _, l1 = cmp_ctx(di, ctx, v, ip, work, live)
     mlen = torch.maximum(l0, l1)
     if work is not None:
-        for rank in (ip - 1, ip):
-            cmp_ctx(di, ctx, v, rank, work, live & (mlen < v), probe=False,
-                       answer=True)
+        _answers(di, ctx, v, (ip - 1, ip), work, live & (mlen < v))
     return mlen, ip
 
 
@@ -352,14 +441,12 @@ def interval_at_ctx(di: DeviceIndex, ctx, l, work=None, live=True, used=True):
     keep_hi, keep_lo = keep_masks(l)
     khi_a, klo_a = ctx[0] & keep_hi, ctx[1] & keep_lo
     khi_t, klo_t = khi_a | (FULL ^ keep_hi), klo_a | (FULL ^ keep_lo)
-    lb = lower_bound_ctx(di, ctx, l, *prmi_window(di, khi_a, klo_a),
+    lb = lower_bound_ctx(di, ctx, l, *root_window(di, khi_a, klo_a),
                          work=work, live=live)
-    ub = lower_bound_ctx(di, ctx, l, *prmi_window(di, khi_t, klo_t),
+    ub = lower_bound_ctx(di, ctx, l, *root_window(di, khi_t, klo_t),
                          strict_greater=True, work=work, live=live)
     if work is not None:        # both sides of both borders
-        for rank in (lb - 1, lb, ub - 1, ub):
-            cmp_ctx(di, ctx, l, rank, work, live & used, probe=False,
-                       answer=True)
+        _answers(di, ctx, l, (lb - 1, lb, ub - 1, ub), work, live & used)
     return lb, ub - lb
 
 
@@ -404,7 +491,7 @@ def sa_query_ctx(di: DeviceIndex, ctx, v, min_intv, work=None):
 
 
 def rmi_window(di: DeviceIndex, khi, klo):
-    return prmi_window(di, khi, klo)
+    return root_window(di, khi, klo)
 
 
 def suffix_cmp(di: DeviceIndex, qbuf32, row, pivot, v, sa_idx):

@@ -367,6 +367,12 @@ def prmi_window_torch(di: DeviceIndex, khi, klo):
     return lo.to(di.rank_dtype), hi.to(di.rank_dtype)
 
 
+def kmer_window_torch(di: DeviceIndex, khi, klo):
+    """Plain version of seed_smem_cuda.kmer_window, as prmi_window_torch."""
+    lo, hi = ss.kmer_window(di, ss.words_u32(khi), ss.words_u32(klo))
+    return lo.to(di.rank_dtype), hi.to(di.rank_dtype)
+
+
 def sa_query_torch(di: DeviceIndex, qbuf, row, pivot, v, min_intv,
                    work=None):
     """Plain version of seed_smem_cuda.sa_query: (3, n) mlen, lb, cnt of n

@@ -1,7 +1,8 @@
 """ctypes wrappers of the Hopper seeding kernels (csrc/seed_smem.cu): the
-three rounds and sa_query, a warp a read or job, and prmi_window, a thread a
-key, each in the variant of the index's layout (its mode, 1-4, and its
-width), whose launches are counted under the variant's own name
+three rounds and sa_query, a warp a read or job, and the window of the
+index's root (prmi_window, or kmer_window for the ERT root), a thread a key,
+each in the variant of the index's layout (its mode, 1-4, and its width) and
+root, whose launches are counted under the variant's own name
 (``ops.launch.variant``).
 
 Checks, launch and launch counts are those of ops/launch.py. The plain
@@ -28,25 +29,31 @@ _WHAT = "the CUDA seeding kernels"
 def _declare(lib) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # mode, wide, rk, sa, keys, text32, n_text_words, params, params64,
-    # n_leaf, bits, n_sa
-    index = [I, I, P, P, P, P, LL, P, P, I, I, LL]
+    # n_leaf, bits, n_sa, kmer_table, kmer_bits
+    index = [I, I, P, P, P, P, LL, P, P, I, I, LL, P, I]
     lib.seed_round1_launch.argtypes = index + [
         P, I, P, P, P, I, P, I, I, I, P, P, P, P, P]
     lib.seed_round2_launch.argtypes = index + [
         P, I, P, P, I, P, I, P, P, I, I, I, I, I, P, P, P, P, P]
     lib.seed_round3_launch.argtypes = index + [
         P, I, P, I, P, I, I, I, I, P, P, P, P, P]
-    lib.prmi_window_launch.argtypes = index + [P, P, I, P, P, P]
+    lib.window_launch.argtypes = index + [P, P, I, P, P, P]
     lib.sa_query_launch.argtypes = index + [P, I, P, P, P, P, I, P, P, P]
     for fn in (lib.seed_round1_launch, lib.seed_round2_launch,
-               lib.seed_round3_launch, lib.prmi_window_launch,
+               lib.seed_round3_launch, lib.window_launch,
                lib.sa_query_launch):
         fn.restype = I
 
 
-def _entry(mode: int, fn_name: str):
-    """A launcher of the library of a mode's variants (ops/build.py)."""
-    return entry(f"seed_smem_m{mode}", fn_name, _declare)
+def _entry(di: DeviceIndex, fn_name: str):
+    """A launcher of the library of the variants of the index's mode and
+    root (ops/build.py)."""
+    lib = f"seed_smem_m{di.mode}{'_kmer' if di.root == 'kmer' else ''}"
+    return entry(lib, fn_name, _declare)
+
+
+def _variant(di: DeviceIndex, name: str) -> str:
+    return variant(name, di.mode, di.wide, di.root)
 
 
 def _ptr(x) -> int | None:
@@ -57,11 +64,12 @@ def _index_args(di: DeviceIndex, dev: torch.device,
                 leaves_only: bool = False) -> tuple:
     """The launchers' index arguments, every plane they read checked
     (DeviceIndex checked the planes' dtypes and shapes when it was made).
-    ``leaves_only``: the kernel reads the leaf records alone (prmi_window),
-    and the rank-indexed planes go as null."""
+    ``leaves_only``: the kernel reads the root alone (the window), and the
+    rank-indexed planes go as null."""
     planes = di.planes
     if leaves_only:
-        planes = {k: planes[k] for k in ("params", "params64") if k in planes}
+        planes = {k: planes[k] for k in ("params", "params64", "kmer_table")
+                  if k in planes}
     for name, x in planes.items():
         check(x, name, x.dtype, tuple(x.shape), dev)
     if "rk" in planes and not di.wide and di.rk.data_ptr() % 16:
@@ -76,7 +84,7 @@ def _index_args(di: DeviceIndex, dev: torch.device,
             _ptr(planes.get("sa")), _ptr(keys), di.text32.data_ptr(),
             di.text32.numel(), di.params.data_ptr(),
             _ptr(planes.get("params64")), di.params.shape[0], di.bits,
-            di.n_sa)
+            di.n_sa, _ptr(planes.get("kmer_table")), di.kmer_bits)
 
 
 def _query_args(qbuf, tables, lens, dev) -> tuple:
@@ -117,8 +125,8 @@ def seed_round1(di: DeviceIndex, qbuf, nf, nr, nvf, lens, minseed: int,
     slots, nsm, dropped = _outputs(di, R, M, dev)
     cnt = _counts_ptr(counts, R, dev)
     if R:
-        launch(variant("seed_round1", di.mode, di.wide),
-               _entry(di.mode, "seed_round1_launch"), dev,
+        launch(_variant(di, "seed_round1"),
+               _entry(di, "seed_round1_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
                nr.data_ptr(), nvf.data_ptr(), Lp, lens.data_ptr(), R,
                minseed, M, slots.data_ptr(), nsm.data_ptr(),
@@ -137,8 +145,8 @@ def seed_round2(di: DeviceIndex, qbuf, nf, nr, lens, slots1, nsm1,
     slots, nsm, dropped = _outputs(di, R, M, dev)
     cnt = _counts_ptr(counts, R, dev)
     if R:
-        launch(variant("seed_round2", di.mode, di.wide),
-               _entry(di.mode, "seed_round2_launch"), dev,
+        launch(_variant(di, "seed_round2"),
+               _entry(di, "seed_round2_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
                nr.data_ptr(), Lp, lens.data_ptr(), R, slots1.data_ptr(),
                nsm1.data_ptr(), slots1.shape[2], split_len, split_width,
@@ -155,8 +163,8 @@ def seed_round3(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
     slots, nsm, dropped = _outputs(di, R, M, dev)
     cnt = _counts_ptr(counts, R, dev)
     if R:
-        launch(variant("seed_round3", di.mode, di.wide),
-               _entry(di.mode, "seed_round3_launch"), dev,
+        launch(_variant(di, "seed_round3"),
+               _entry(di, "seed_round3_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), W, nf.data_ptr(),
                Lp, lens.data_ptr(), R, min_intv, min_seed, M,
                slots.data_ptr(), nsm.data_ptr(), dropped.data_ptr(),
@@ -167,6 +175,20 @@ def seed_round3(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
 def prmi_window(di: DeviceIndex, khi, klo):
     """The P-RMI window alone: khi, klo (n,) int32 storage of uint32 key
     words; returns (lo, hi), (n,) int32 (int64 over a wide index)."""
+    if di.root != "prmi":
+        raise ValueError("prmi_window: the index has the k-mer root")
+    return _window(di, khi, klo)
+
+
+def kmer_window(di: DeviceIndex, khi, klo):
+    """The k-mer root's window alone, as prmi_window takes and returns it,
+    for an index with the ERT root."""
+    if di.root != "kmer":
+        raise ValueError("kmer_window: the index has no k-mer root")
+    return _window(di, khi, klo)
+
+
+def _window(di: DeviceIndex, khi, klo):
     dev = cuda_device(khi, _WHAT)
     check(khi, "khi", torch.int32, (None,), dev)
     n = khi.shape[0]
@@ -174,8 +196,7 @@ def prmi_window(di: DeviceIndex, khi, klo):
     lo = torch.empty((n,), dtype=di.rank_dtype, device=dev)
     hi = torch.empty_like(lo)
     if n:
-        launch(variant("prmi_window", di.mode, di.wide),
-               _entry(di.mode, "prmi_window_launch"), dev,
+        launch(_variant(di, "prmi_window"), _entry(di, "window_launch"), dev,
                *_index_args(di, dev, leaves_only=True), khi.data_ptr(),
                klo.data_ptr(), n,
                lo.data_ptr(), hi.data_ptr())
@@ -195,8 +216,7 @@ def sa_query(di: DeviceIndex, qbuf, row, pivot, v, min_intv, counts=None):
     out = torch.empty((3, n), dtype=di.rank_dtype, device=dev)
     cnt = _counts_ptr(counts, n, dev)
     if n:
-        launch(variant("sa_query", di.mode, di.wide),
-               _entry(di.mode, "sa_query_launch"), dev,
+        launch(_variant(di, "sa_query"), _entry(di, "sa_query_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), qbuf.shape[1],
                row.data_ptr(), pivot.data_ptr(), v.data_ptr(),
                min_intv.data_ptr(), n, out.data_ptr(), cnt)

@@ -1,9 +1,12 @@
 """Batched device seeding engine on PyTorch.
 
 Port of ``DeviceSeedingEngine`` (bwameme_tpu/seeding/engine.py) for the
-learned index (the P-RMI root) on one device, in every memory mode (1-4) and
-in narrow (int32) or wide (int64) coordinates (index/device.py); wide slot
-planes carry sa_lo and the hitcount as int64, read coordinates stay small.
+learned index (the P-RMI root) and the ERT backend (the k-mer root,
+``root="kmer"``) on one device, in every memory mode (1-4) and in narrow
+(int32) or wide (int64) coordinates (index/device.py); wide slot planes
+carry sa_lo and the hitcount as int64, read coordinates stay small. The root
+changes only the window a search starts from: the rounds, their kernels (a
+variant a root) and the SMEM sets are the same.
 A batch is prepared on the device
 (ops/seed_smem.prepare_reads), seeded by the three rounds - on a CUDA device
 the hand-written kernels, one launch a round, a warp running one read's
@@ -55,14 +58,20 @@ MAX_READ_LEN = 512
 
 class DeviceSeedingEngine:
     def __init__(self, idx, opt, lanes: int = 1024, device="cuda",
-                 mode: int | None = None, wide: bool | None = None):
+                 mode: int | None = None, wide: bool | None = None,
+                 root: str = "prmi", ert_bits: int = 0):
         """``lanes`` is the batch size the caller intends (the reference's
         fixed lane count; any batch size runs, see the module's docstring
         for the sizes the kernels are designed for). ``device`` is explicit:
         the card by default, the CPU for the tests. ``mode`` and ``wide``
         choose the index's layout as the JAX engine's do: by default the
         fastest mode that fits the device's memory, and wide coordinates
-        from 2^31 suffixes on (``DeviceIndex.from_host``)."""
+        from 2^31 suffixes on (``DeviceIndex.from_host``). ``root``: "prmi"
+        (the learned index, the -7 path) or "kmer" (the ERT backend, -Z),
+        whose k-mer table has ``ert_bits`` bases, 0 for the size
+        index/ert.pick_ert_bits gives."""
+        if root not in ("prmi", "kmer"):
+            raise ValueError(f"root must be 'prmi' or 'kmer', not {root!r}")
         self.idx = idx
         self.opt = opt
         self.lanes = lanes
@@ -70,8 +79,9 @@ class DeviceSeedingEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not "
                                "available")
-        self.di = DeviceIndex.from_host(idx, self.device, mode=mode,
-                                        wide=wide)
+        self.di = DeviceIndex.from_host(
+            idx, self.device, mode=mode, wide=wide,
+            ert_bits=ert_bits if root == "kmer" else None)
         self.max_smems = 96       # emission slots a read, rounds 1 and 3
         self.max_reseeds = 16     # emission slots a read, round 2
         self.pack_cap_per_read = 24

@@ -8,8 +8,9 @@ of which ends the run with a non-zero exit and no result line when it fails:
 
 1. card: the card's name and power limit (nvidia-smi); the kernels built
    from csrc/ with nvcc (one nvcc a source, all at once), and the build's
-   time. From here to the end of phase 2b the bench genome's index is built
-   by a process of its own (phase 4's and 5's); it is waited for before
+   time. From here to the end of phase 2b the bench genome's index and
+   FM-index are built by processes of their own (phase 4's, 5's and 7's),
+   and FmiHostEngine runs on phase 7's reads; they are waited for before
    anything is timed, phases 2 and 2b's kernels included.
 2. banded SW, kernel vs plain: each extension kernel against its plain
    PyTorch version on the card, on random jobs at the main path's shapes,
@@ -66,12 +67,21 @@ of which ends the run with a non-zero exit and no result line when it fails:
    counted by the plain version over the whole launch (answer_sectors).
    Beside it stand the sectors the scalar contract's binary searches read
    (work_sectors) and the sectors and dependent steps the kernel counted
-   of itself (kernel_sectors, latency_steps). A variant's plain ms is the
-   plain version's run that also counts this work.
+   of itself (kernel_sectors, latency_steps). A P-RMI variant's plain ms
+   is the plain version's run that also counts this work. The k-mer root
+   (phase 6's backend) on the same planes, keys, jobs and reads in modes 4
+   and 1: each engine's path over the 4096 reads, then kmer_window (every
+   stored key's rank inside its window), sa_query and the three rounds
+   against their plain versions, timed, and mode 4's SMEMs against the
+   HostSeedingEngine's. Both roots give the same answers, so the work is
+   counted once a layout: a k-mer variant's plain version counts nothing,
+   and its bound is the P-RMI count's rank rows and text with the k-mer
+   table's entries of the same keys in place of the leaf records.
 4b. layouts: on the bench genome cut to SIDE_MBP, modes 2 and 3 and modes
-   1-4 in wide (int64) coordinates: each one's path (the engine over 1024
-   reads, counted from 0), then prmi_window, sa_query and the three rounds
-   against their plain versions, timed, with their bounds.
+   1-4 in wide (int64) coordinates, each with both roots: each one's path
+   (the engine over 512 reads, counted from 0), then the root's window,
+   sa_query and the three rounds against their plain versions, timed, with
+   their bounds (counted once a layout, as in phase 4).
 4c. jumbo: more than 2^31 suffixes (2^31 + 2^27) on one card in mode 1
    wide, the analytic periodic index (bench_util.periodic_index) built on
    the card; sa_query == its closed form on 96 rotations (some lb past
@@ -110,8 +120,26 @@ of which ends the run with a non-zero exit and no result line when it fails:
    in modes 4 and 1), from a CPU run of the plain versions and from
    --engine host (the serial host rescue, which launches no sw_full).
 
+6. ERT (-Z): beyond phases 4 and 4b, the stress reads on the coarse
+   genome under its k-mer root; mem -Z on the main run's 8192 reads, whose
+   SAM must be the default mem's.
+7. FM-index (--backend fmi), on index -a mem2's files of the bench genome
+   (built by a process of their own from phase 1 on, as the learned index
+   is): fmi_backward_ext on 2^20 units and fmi_sa_lookup on 2^16 ranks
+   against their plain versions (and FmiHostEngine, the index's sa);
+   fmi_smem on one batch of 4096 main reads, as mem --backend fmi
+   launches it, against the plain wave engine (whose work gives its bound;
+   timed there), its first 128 against FmiHostEngine in emission order;
+   against FmiHostEngine on 1024 reads of the side genome and on the
+   stress reads (the scalar engine's SMEMs of these computed by a process
+   of its own while the card works), the stress reads also against the
+   waves; an overflow of its slots seeded again on the card. Its
+   max_abs_err: the SMEMs that differ, over every comparison. Then mem
+   --backend fmi on the main run's reads and on the paired-end head's 64
+   pairs under -I, whose SAM must be the default mem's.
+
 Prints a JSON line of per-kernel numbers (a seeding kernel's every
-variant, with ptxas's registers), then, last, {"ok": true, ...}.
+variant and root, with ptxas's registers), then, last, {"ok": true, ...}.
 Exits 2 with no result when no CUDA device is visible or the port is not
 beside this file.
 """
@@ -134,11 +162,16 @@ KERNELS = {
     "gather_window": ("gather_bench.cu", "tools/microbench_pallas_gather.py:144"),
     "gather_chain": ("gather_bench.cu", "tools/microbench_pallas_gather.py:203"),
     "prmi_window": ("seed_smem.cu", "bwameme_tpu/ops/sa_search.py:563"),
+    "kmer_window": ("seed_smem.cu", "bwameme_tpu/ops/sa_search.py:556"),
     "sa_query": ("seed_smem.cu", "bwameme_tpu/ops/sa_search.py:1083"),
     "seed_round1": ("seed_smem.cu", "bwameme_tpu/seeding/engine.py:1081"),
     "seed_round2": ("seed_smem.cu", "bwameme_tpu/seeding/engine.py:823"),
     "seed_round3": ("seed_smem.cu", "bwameme_tpu/seeding/engine.py:1281"),
     "sw_full": ("sw_full.cu", "bwameme_tpu/ops/sw_full.py:25"),
+    "fmi_backward_ext": ("fmi_search.cu",
+                         "bwameme_tpu/ops/fmi_search.py:133"),
+    "fmi_smem": ("fmi_search.cu", "bwameme_tpu/seeding/fmi_engine.py:265"),
+    "fmi_sa_lookup": ("fmi_search.cu", "bwameme_tpu/ops/fmi_search.py:167"),
 }
 # the one run whose launches a kernel's "launches" counts, from 0
 MEM_PATH = "mem, default engine, 151 bp reads"
@@ -152,15 +185,34 @@ LAUNCH_PATH = {
     "prmi_window": "the search entry points, one call each",
     "sa_query": "the search entry points, one call each",
     "sw_full": "mem, default engine, 2 x 151 bp pairs",
+    "fmi_smem": "mem --backend fmi, 151 bp reads",
+    "fmi_backward_ext": "one call, 2^20 units",
+    "fmi_sa_lookup": "one call, 2^16 ranks",
 }
+ERT_PATH = "mem -Z, 151 bp reads"
 
 
 def launch_path(name: str) -> str:
     """The path a kernel's variant is counted on: the seeding rounds of mode
     1 on mem --mode 1, those of the other layouts on the engine over the
-    side genome's reads (phase 4b), the primitives on one call each."""
+    side genome's reads (phase 4b), the primitives on one call each; with
+    the k-mer root, mode 4's rounds on mem -Z, mode 1's on the engine over
+    the bench genome's reads (phase 4) and the other layouts' on the side
+    genome's (phase 4b)."""
     base, _, tag = name.partition("[")
-    if not tag or base in ("prmi_window", "sa_query"):
+    tags = tag.rstrip("]").split(",") if tag else []
+    if base in ("prmi_window", "kmer_window", "sa_query"):
+        return LAUNCH_PATH["sa_query"]
+    if "kmer" in tags:
+        mode = next((int(t[1:]) for t in tags if t.startswith("m")), 4)
+        if "wide" not in tags and mode == 4:
+            return ERT_PATH
+        if "wide" not in tags and mode == 1:
+            return (f"{layout_path(1, False, 'kmer')}, {BATCH} reads of the "
+                    f"{GENOME_MBP:g} Mbp genome")
+        return (f"{layout_path(mode, 'wide' in tags, 'kmer')}, "
+                f"{LAYOUT_READS} reads of the {SIDE_MBP:g} Mbp genome")
+    if not tag:
         return LAUNCH_PATH[base]
     if tag == "m1]":
         return "mem --mode 1, 151 bp reads"
@@ -219,7 +271,7 @@ COARSE_RMI_BITS = 2
 # keys and JUMBO_READS reads
 LAYOUTS = ((2, False), (3, False), (1, True), (2, True), (3, True),
            (4, True))
-LAYOUT_READS = 1024
+LAYOUT_READS = 512
 LAYOUT_KEYS = 1 << 16
 JUMBO_P, JUMBO_M = 4096, 16
 JUMBO_N = (2**31 + 2**27) // JUMBO_P * JUMBO_P
@@ -232,6 +284,12 @@ N_PAIRS = 4096
 N_CMP_PAIRS = 64
 INSERT = (400, 40)
 RESCUED = 8
+# phase 7 (FM-index): units of backward_ext, ranks of sa_lookup, reads of
+# the side genome held against the scalar FmiHostEngine (computed by a
+# process of its own while the card works)
+FMI_UNITS = 1 << 20
+FMI_RANKS = 1 << 16
+FMI_SIDE_READS = 1024
 
 
 class SmokeFailure(RuntimeError):
@@ -1010,7 +1068,7 @@ def compare_rounds(batch, dev, count_work: bool):
 
 
 def seeding_row(err, kern, plain_ms, work, counts, chain_us: float,
-                fixed_bytes: int) -> dict:
+                fixed_bytes: int, di=None) -> dict:
     """A seeding kernel's numbers: ms, the median time of a call made alone
     (the wrapper and the launch included), and device_ms, the card's time a
     call with the host out of the way. The byte bound is a floor under every
@@ -1026,8 +1084,13 @@ def seeding_row(err, kern, plain_ms, work, counts, chain_us: float,
     latency figure is the slowest warp's dependent steps, as it counted
     them, times the least a dependent 16-byte random read takes (the chain
     microbenchmark of this run at a batch's lanes): the chain no batch can
-    be faster than."""
-    n_answer, n_work = work.answer_sectors(), int(work.probes.sum())
+    be faster than. ``di``: an index of the same planes under the other root
+    than the one ``work`` was counted under (the same answers, counted once
+    a layout): the bound takes its root's records, and the scalar searches'
+    sectors, which were those of the other root, are not given."""
+    own = di is None
+    n_answer = work.answer_sectors(root=di)
+    n_work = int(work.probes.sum()) if own else None
     n_rows_text = work.answer_sectors(leaves=False)
     n_kernel, steps = int(counts[0].sum()), int(counts[1].max())
     check(n_kernel >= n_rows_text, "the kernel read fewer sectors than its "
@@ -1041,7 +1104,7 @@ def seeding_row(err, kern, plain_ms, work, counts, chain_us: float,
         bound_ms=(n_answer * SECTOR + fixed_bytes) / HBM_BPS * 1e3,
         bound_by="bytes", answer_sectors=n_answer, work_sectors=n_work,
         kernel_sectors=n_kernel,
-        kernel_sectors_ratio=n_kernel / max(n_work, 1),
+        kernel_sectors_ratio=n_kernel / max(n_work, 1) if own else None,
         kernel_to_answer_ratio=n_kernel / max(n_rows_text, 1),
         latency_steps=steps, latency_bound_ms=steps * chain_us / 1e3)
 
@@ -1049,7 +1112,16 @@ def seeding_row(err, kern, plain_ms, work, counts, chain_us: float,
 def variant_of(di, name: str) -> str:
     from bwameme_tpu_torch.ops.launch import variant
 
-    return variant(name, di.mode, di.wide)
+    return variant(name, di.mode, di.wide, di.root)
+
+
+def window_fns(di):
+    """The window kernel of the index's root and its plain version."""
+    from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
+
+    if di.root == "kmer":
+        return seed_smem_cuda.kmer_window, seed_smem.kmer_window_torch
+    return seed_smem_cuda.prmi_window, seed_smem.prmi_window_torch
 
 
 def window_keys(idx, rng, n_keys: int):
@@ -1095,13 +1167,18 @@ def query_jobs(batch, rng, per_read: int, dev):
             for a in (rd + rev * R, piv, v, mi)]
 
 
-def check_layout(eng, reads, kh, kl, dev, chain_us: float, rng):
-    """Every seeding kernel of the engine's layout against its plain
-    version on the card: prmi_window on the keys kh, kl (host int32
-    storage), sa_query on JOBS_PER_READ jobs a read, the three rounds on the
+def check_layout(eng, reads, kh, kl, dev, chain_us: float, rng,
+                 counted=None):
+    """Every seeding kernel of the engine's layout and root against its
+    plain version on the card: the root's window on the keys kh, kl (host
+    int32 storage), sa_query on JOBS_PER_READ jobs a read, the three rounds on the
     reads; each one's report row (times, bound, the plain version's
-    counts), keyed by the variant's name. Returns (report, the batch, the
-    jobs, the sa_query result)."""
+    counts), keyed by the variant's name. ``counted``: what this check
+    returned for the same planes, reads and keys under the other root (the
+    jobs, and the work its plain versions counted): its jobs are taken, and
+    the plain versions run without counting, the bounds taken from that
+    work (the answers are the same). Returns (report, the batch, the jobs,
+    the sa_query result, (the jobs, the work counted))."""
     import torch
 
     from bwameme_tpu_torch.bench_util import Rounds, cuda_ms
@@ -1111,31 +1188,36 @@ def check_layout(eng, reads, kh, kl, dev, chain_us: float, rng):
     di, report = eng.di, {}
     rb = 8 if di.wide else 4
     khd, kld = (torch.from_numpy(k).to(dev) for k in (kh, kl))
-    got = seed_smem_cuda.prmi_window(di, khd, kld)
-    want = seed_smem.prmi_window_torch(di, khd, kld)
+    win, win_plain = window_fns(di)
+    got = win(di, khd, kld)
+    want = win_plain(di, khd, kld)
     torch.cuda.synchronize()
     err = max(abs_err(got[0], want[0]), abs_err(got[1], want[1]))
     name = variant_of(di, "prmi_window")
     check(err == 0, f"{name} differs from its plain version: {err}")
     n = len(kh)
-    # a key's leaf record (and wide leaf starts) in one sector each, the
-    # key read and the window written once
+    # a key's root in one sector (the leaf record, and a wide index's leaf
+    # starts in another; or the k-mer table's two entries), the key read
+    # and the window written once
+    wide_leaf = di.wide and di.root == "prmi"
     report[name] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: seed_smem_cuda.prmi_window(
-            di, khd, kld), 20),
-        plain_ms=cuda_ms(lambda: seed_smem.prmi_window_torch(
-            di, khd, kld), 5),
+        max_abs_err=err, ms=cuda_ms(lambda: win(di, khd, kld), 20),
+        plain_ms=cuda_ms(lambda: win_plain(di, khd, kld), 5),
         library_ms=None, bound_by="bytes",
-        bound_ms=n * (SECTOR * (2 if di.wide else 1) + 8 + 2 * rb)
+        bound_ms=n * (SECTOR * (2 if wide_leaf else 1) + 8 + 2 * rb)
         / HBM_BPS * 1e3)
 
     batch = Rounds(eng, reads, dev)
     qbuf, nf, _, _ = batch.prep
     R = batch.R
-    jobs = query_jobs(batch, rng, JOBS_PER_READ, dev)
+    if counted is None:
+        jobs = query_jobs(batch, rng, JOBS_PER_READ, dev)
+        works, other = {}, None
+    else:
+        (jobs, works), other = counted, di
     n = jobs[0].shape[0]
     counts = torch.zeros((2, n), dtype=torch.int32, device=dev)
-    work = Work(n, dev)
+    work = Work(n, dev) if other is None else None
     got = seed_smem_cuda.sa_query(di, qbuf, *jobs, counts=counts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1145,18 +1227,21 @@ def check_layout(eng, reads, kh, kl, dev, chain_us: float, rng):
     err = abs_err(got, want)
     name = variant_of(di, "sa_query")
     check(err == 0, f"{name} differs from its plain version: {err}")
+    works.setdefault("sa_query", work)
     report[name] = seeding_row(
         err, lambda: seed_smem_cuda.sa_query(di, qbuf, *jobs), plain_ms,
-        work, counts, chain_us, n * (16 + 3 * rb))
+        works["sa_query"], counts, chain_us, n * (16 + 3 * rb), other)
     table_bytes = 4 * (qbuf.numel() + 3 * nf.numel() + R)
-    for k, res, err, plain_ms, work, counts in compare_rounds(batch, dev,
-                                                             True):
+    for k, res, err, plain_ms, work, counts in compare_rounds(
+            batch, dev, other is None):
         name = variant_of(di, f"seed_round{k + 1}")
         check(int(res[2].sum()) == 0, f"{name} ran out of emission slots")
+        works.setdefault(k, work)
         report[name] = seeding_row(
-            err, lambda: batch.run(k, batch.kernels[k]), plain_ms, work,
-            counts, chain_us, table_bytes + int(res[1].sum()) * 4 * rb)
-    return report, batch, jobs, got
+            err, lambda: batch.run(k, batch.kernels[k]), plain_ms, works[k],
+            counts, chain_us, table_bytes + int(res[1].sum()) * 4 * rb,
+            other)
+    return report, batch, jobs, got, (jobs, works)
 
 
 def log_rounds(report, di, R: int) -> None:
@@ -1166,13 +1251,17 @@ def log_rounds(report, di, R: int) -> None:
         log(f"{name} == plain on {R} reads (max abs err "
             f"{row['max_abs_err']}): the answers stand on "
             f"{row['answer_sectors']} distinct index sectors, "
-            f"{row['answer_sectors'] / R:.0f} a read; the scalar searches "
-            f"read {row['work_sectors'] / R:.0f} a read; the kernel "
+            f"{row['answer_sectors'] / R:.0f} a read; "
+            + (f"the scalar searches read {row['work_sectors'] / R:.0f} a "
+               "read; " if row["work_sectors"] is not None else "")
+            + f"the kernel "
             f"{row['kernel_sectors'] / R:.0f} sectors a read, the slowest "
             f"read {row['latency_steps']} dependent steps "
             f"({row['latency_bound_ms']:.3f} ms); kernel {row['ms']:.4f} ms "
             f"a call alone, {row['device_ms']:.4f} ms on the card, plain "
-            f"{row['plain_ms']:.0f} ms (one run, counting its work)")
+            f"{row['plain_ms']:.0f} ms (one run"
+            + (", counting its work)" if row["work_sectors"] is not None
+               else ")"))
 
 
 def fastq_codes(path: str):
@@ -1230,8 +1319,8 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
     ranks, kh, kl = window_keys(idx, rng, n_keys)
     reads = simulated_reads(idx.text, idx.l_pac, n_reads, 151, rng,
                             planted_repeats(mbp))
-    report, batch, jobs, got = check_layout(eng, reads, kh, kl, dev,
-                                            chain_us, rng)
+    report, batch, jobs, got, counted = check_layout(eng, reads, kh, kl,
+                                                     dev, chain_us, rng)
     lo, hi = (w.cpu().numpy()[2 * (n_keys // 3):]
               for w in seed_smem_cuda.prmi_window(
                   di, *(torch.from_numpy(k).to(dev) for k in (kh, kl))))
@@ -1294,6 +1383,10 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
     log(f"device SMEMs == HostSeedingEngine on {n_cmp} reads "
         f"({sum(map(len, want))} SMEMs; the oracle took {host_s:.1f} s); "
         f"{sum(map(len, flat))} SMEMs in the batch of {n_reads}")
+    # the k-mer root (the ERT backend) on the same planes, keys and reads
+    kmer, paths = ert_full_size(eng, reads, kh, kl, ranks, dev, chain_us,
+                                want, counted)
+    report.update(kmer)
 
     # the primitives have no caller on the mem path (the rounds inline
     # them): their path is this run of the two entry points, counted from 0
@@ -1312,8 +1405,8 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
     eng1 = DeviceSeedingEngine(idx, opt, lanes=n_reads, device=dev, mode=1)
     torch.cuda.synchronize()
     up1 = time.perf_counter() - t0
-    r1, b1, jobs1, _ = check_layout(eng1, reads, kh, kl, dev, chain_us,
-                                    np.random.default_rng(17 + 1))
+    r1, b1, jobs1, _, counted1 = check_layout(
+        eng1, reads, kh, kl, dev, chain_us, np.random.default_rng(17 + 1))
     # prmi_window is one kernel in every mode: its row stays mode 4's
     r1.pop("prmi_window")
     report.update(r1)
@@ -1326,6 +1419,10 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
     seed_smem_cuda.sa_query(eng1.di, b1.prep[0], *jobs1)
     torch.cuda.synchronize()
     report["sa_query[m1]"]["launches"] = stats.launches["sa_query[m1]"]
+    kmer, paths1 = ert_full_size(eng1, reads, kh, kl, None, dev, chain_us,
+                                 None, counted1)
+    report.update(kmer)
+    paths.update(paths1)
     del eng1, b1
 
     # the wide mode-1 engine over the main run's reads: its SMEMs == the
@@ -1347,14 +1444,21 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
         f"uploaded in {up1w:.1f} s): FlatSmems == the narrow mode-4 "
         f"engine's on the main run's {len(main_reads)} reads "
         f"({sum(map(len, wide))} SMEMs); launches {launches}")
-    return report, {"engine, mode 1 wide": launches}
+    return report, {"engine, mode 1 wide": launches, **paths}
+
+
+def layout_path(mode: int, wide: bool, root: str = "prmi") -> str:
+    return (f"engine, mode {mode}{' kmer' if root == 'kmer' else ''}"
+            f"{' wide' if wide else ''}")
 
 
 def phase_layouts(dev, chain_us: float):
-    """The layouts the main paths do not take (modes 2 and 3, and 2-4
-    wide), on the bench genome cut to SIDE_MBP: each one's path, the engine
-    over LAYOUT_READS reads with every count at 0, then every kernel of the
-    layout against its plain version, timed, with its bound."""
+    """The layouts the main paths do not take (modes 2 and 3, and 1-4
+    wide), each with both roots, on the bench genome cut to SIDE_MBP: each
+    engine's path, over LAYOUT_READS reads with every count at 0, then every
+    kernel of the layout against its plain version, timed, with its bound;
+    the plain versions count the work under the P-RMI only, the k-mer
+    root's bounds come from that count (check_layout's ``counted``)."""
     import numpy as np
     import torch
 
@@ -1374,40 +1478,45 @@ def phase_layouts(dev, chain_us: float):
                             planted_repeats(SIDE_MBP))
     report, by_path = {}, {}
     for mode, wide in LAYOUTS:
-        t0 = time.perf_counter()
-        eng = DeviceSeedingEngine(idx, opt, lanes=LAYOUT_READS, device=dev,
-                                  mode=mode, wide=wide)
-        di = eng.di
-        path = f"engine, mode {mode}{' wide' if wide else ''}"
-        stats.reset()
-        flat = flat_smems(eng, reads, LAYOUT_READS)
-        by_path[path] = {k: v for k, v in stats.launches.items() if v}
-        rows, batch, jobs, _ = check_layout(eng, reads, kh, kl, dev,
-                                            chain_us, rng)
-        # prmi_window is one kernel in every mode: its narrow row is the
-        # search phase's, its wide row the first wide layout's
-        rows = {k: v for k, v in rows.items()
-                if k != "prmi_window" and k not in report}
-        stats.reset()
-        if "prmi_window[wide]" in rows:
-            seed_smem_cuda.prmi_window(di, *(torch.from_numpy(k).to(dev)
-                                             for k in (kh, kl)))
-        seed_smem_cuda.sa_query(di, batch.prep[0], *jobs)
-        torch.cuda.synchronize()
-        for name in rows:
-            rows[name]["launches"] = (
-                by_path[path].get(name, 0) if name.startswith("seed_round")
-                else stats.launches[name])
-        report.update(rows)
-        log(f"{path} at {SIDE_MBP:g} Mbp ({di.nbytes / 2**20:.1f} MiB of "
-            f"planes): {sum(map(len, flat))} SMEMs of {LAYOUT_READS} reads; "
-            "prmi_window, sa_query and the rounds == plain; ms alone / on "
-            "the card: " + ", ".join(
-                f"{n} {r['ms']:.4f}" + (f" / {r['device_ms']:.4f}"
-                                        if "device_ms" in r else "")
-                for n, r in rows.items())
-            + f"; {time.perf_counter() - t0:.1f} s")
-        del eng, batch
+        counted = None
+        for root in ("prmi", "kmer"):
+            t0 = time.perf_counter()
+            eng = DeviceSeedingEngine(idx, opt, lanes=LAYOUT_READS,
+                                      device=dev, mode=mode, wide=wide,
+                                      root=root)
+            di = eng.di
+            path = layout_path(mode, wide, root)
+            stats.reset()
+            flat = flat_smems(eng, reads, LAYOUT_READS)
+            by_path[path] = {k: v for k, v in stats.launches.items() if v}
+            rows, batch, jobs, _, counted = check_layout(
+                eng, reads, kh, kl, dev, chain_us, rng, counted)
+            # the window is one kernel in every mode: its narrow row is the
+            # search phase's, its wide row the first wide layout's
+            narrow_window = "kmer_window" if root == "kmer" else "prmi_window"
+            rows = {k: v for k, v in rows.items()
+                    if k != narrow_window and k not in report}
+            stats.reset()
+            if f"{narrow_window}[wide]" in rows:
+                window_fns(di)[0](di, *(torch.from_numpy(k).to(dev)
+                                        for k in (kh, kl)))
+            seed_smem_cuda.sa_query(di, batch.prep[0], *jobs)
+            torch.cuda.synchronize()
+            for name in rows:
+                rows[name]["launches"] = (
+                    by_path[path].get(name, 0)
+                    if name.startswith("seed_round") else stats.launches[name])
+            report.update(rows)
+            log(f"{path} at {SIDE_MBP:g} Mbp ({di.nbytes / 2**20:.1f} MiB of "
+                f"planes): {sum(map(len, flat))} SMEMs of {LAYOUT_READS} "
+                "reads; the window, sa_query and the rounds == plain"
+                + (" (the work counted under the P-RMI)" if root == "kmer"
+                   else "") + "; ms alone / on the card: " + ", ".join(
+                    f"{n} {r['ms']:.4f}" + (f" / {r['device_ms']:.4f}"
+                                            if "device_ms" in r else "")
+                    for n, r in rows.items())
+                + f"; {time.perf_counter() - t0:.1f} s")
+            del eng, batch
     return report, by_path
 
 
@@ -1610,6 +1719,31 @@ def run_mem(cli, prefix: str, reads: str, out: str, device: str,
     check(device != "cpu" or not any(launches.values()),
           f"a CPU run launched kernels: {launches}")
     return wall, launches
+
+
+def run_mem_timed(cli, prefix: str, reads: str, out: str, flags=()):
+    """run_mem on the card with the pipeline's sub-stages counted from 0 and
+    each launch's device time recorded: (wall, launches, the sub-stages'
+    seconds, the kernels' device ms)."""
+    from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.utils.timer import TPROF
+
+    TPROF.totals.clear()
+    TPROF.counts.clear()
+    stats.events = []
+    try:
+        wall, launches = run_mem(cli, prefix, reads, out, "cuda", flags)
+        gpu_ms = stats.device_ms()
+    finally:
+        stats.events = None
+    return wall, launches, dict(TPROF.totals), gpu_ms
+
+
+def log_stages(what: str, stages: dict, gpu_ms: dict) -> None:
+    log(f"{what}: kernel device ms " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(gpu_ms.items())) + "; stages (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+            stages.items(), key=lambda kv: -kv[1])))
 
 
 def write_main_reads(mbp: float, n_reads: int) -> str:
@@ -2023,35 +2157,514 @@ def phase_pairs(mbp: float, n_pairs: int, batch: int, n_cmp: int):
     return by_path
 
 
-def start_index_build(mbp: float) -> subprocess.Popen:
-    """The bench genome's index (bench_util.get_index), built in a process
-    of its own while the kernel phases run on the card: its build is a
-    minute or more of host work that nothing before the search phase
-    needs. A cached index returns at once."""
-    code = ("import sys; sys.path.insert(0, %r); from bwameme_tpu_torch."
-            "bench_util import get_index; get_index(%r)" % (ROOT, mbp))
+# ------------------------------------------------------------ phase 6: ERT
+
+
+def with_kmer_root(eng):
+    """The learned engine's planes with the ERT root added, at the size
+    index/ert.pick_ert_bits gives: what DeviceSeedingEngine(root="kmer")
+    builds, without assembling the rank rows again. Returns the engine and
+    the seconds the table took to build and upload."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from bwameme_tpu_torch.index.device import kmer_root
+    from bwameme_tpu_torch.index.ert import pick_ert_bits
+
+    t0 = time.perf_counter()
+    bits = pick_ert_bits(eng.di.n_sa)
+    table = torch.from_numpy(kmer_root(eng.idx.key_hi, bits, eng.di.wide))
+    di = dataclasses.replace(eng.di, kmer_table=table.to(eng.di.device),
+                             kmer_bits=bits)
+    torch.cuda.synchronize()
+    kmer = copy.copy(eng)
+    kmer.di = di
+    return kmer, time.perf_counter() - t0
+
+
+def ert_full_size(eng, reads, kh, kl, ranks, dev, chain_us: float, want,
+                  counted):
+    """The k-mer root's variants at the bench genome's size, on the learned
+    engine's planes (phase 4's keys, reads, sa_query jobs and the work its
+    plain versions counted, ``counted``, and for mode 4 the host oracle's
+    SMEMs ``want`` of the first N_CMP reads and the keys' ``ranks``): the
+    engine's path over the reads (counted from 0), then kmer_window (every
+    stored key's rank inside its window: the table is exact), sa_query and
+    the three rounds against their plain versions, timed, with their
+    bounds. Returns the rows and the path's launches."""
+    import torch
+
+    from bwameme_tpu_torch.ops import seed_smem_cuda
+    from bwameme_tpu_torch.ops.launch import stats
+
+    eng, up = with_kmer_root(eng)
+    di = eng.di
+    widths = (di.kmer_table[1:] - di.kmer_table[:-1]).float()
+    path = layout_path(di.mode, False, "kmer")
+    stats.reset()
+    flat = flat_smems(eng, reads, len(reads))
+    launches = {k: v for k, v in stats.launches.items() if v}
+    rows, batch, jobs, _, _ = check_layout(eng, reads, kh, kl, dev, chain_us,
+                                           None, counted)
+    stats.reset()
+    if want is not None:
+        lo, hi = (w.cpu().numpy() for w in seed_smem_cuda.kmer_window(
+            di, *(torch.from_numpy(k).to(dev) for k in (kh, kl))))
+        check(bool(((lo <= ranks) & (ranks < hi)).all()),
+              "a stored key's rank lies outside its k-mer window")
+        check(flat[:N_CMP] == want, "the k-mer root's SMEMs differ from the "
+              "HostSeedingEngine's")
+    else:       # the window is one kernel in every mode: mode 4's row
+        rows.pop("kmer_window")
+    seed_smem_cuda.sa_query(di, batch.prep[0], *jobs)
+    torch.cuda.synchronize()
+    for name in rows:
+        rows[name]["launches"] = (launches.get(name, 0)
+                                  if name.startswith("seed_round")
+                                  else stats.launches[name])
+    log(f"{path} at {GENOME_MBP:g} Mbp: a {di.kmer_bits}-base root, "
+        f"{di.kmer_table.numel()} entries ("
+        f"{di.kmer_table.numel() * di.kmer_table.element_size() / 2**20:.1f}"
+        f" MiB; windows of {float(widths.mean()):.2f} ranks on average, "
+        f"{int(widths.max())} at most), built and uploaded beside the "
+        f"learned planes in {up:.2f} s; {sum(map(len, flat))} SMEMs of "
+        f"{len(reads)} reads; the window, sa_query and the three rounds == "
+        "plain" + (f", SMEMs == HostSeedingEngine on {N_CMP} reads"
+                   if want is not None else ""))
+    log_rounds(rows, di, len(reads))
+    return rows, {f"{path}, {len(reads)} reads": launches}
+
+
+def phase_ert(dev, main_fq: str):
+    """The ERT backend (-Z) beyond phase 4's bench-genome checks
+    (ert_full_size) and phase 4b's layouts (phase_layouts): the stress reads
+    on the coarse genome under its k-mer root; then mem -Z on the main run's
+    reads, whose SAM must be the default mem's. Returns the paths'
+    launches."""
+    import numpy as np
+
+    from bwameme_tpu_torch import cli
+    from bwameme_tpu_torch.bench_util import CACHE, Rounds, get_index
+    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    prefix = get_index(GENOME_MBP)
+    opt = MemOptions()
+    by_path = {}
+    t0 = time.perf_counter()
+    coarse, regions = coarse_index(COARSE_MBP, COARSE_RMI_BITS)
+    coarse_eng = DeviceSeedingEngine(coarse, opt, lanes=N_STRESS, device=dev,
+                                     root="kmer")
+    cw = coarse_eng.di.kmer_table
+    sreads = stress_reads(coarse.text, coarse.l_pac, N_STRESS,
+                          np.random.default_rng(43), regions)
+    stress = Rounds(coarse_eng, sreads, dev)
+    found = [(int(res[1].sum()), int(res[1].max()), int(res[2].sum()),
+              int(counts[1].max()))
+             for _, res, _, _, _, counts in compare_rounds(stress, dev, False)]
+    log(f"stress reads on the coarse genome with a "
+        f"{coarse_eng.di.kmer_bits}-base root (widest window "
+        f"{int((cw[1:] - cw[:-1]).max())}): the three rounds == plain on "
+        f"{N_STRESS} reads; a round's SMEMs, the most a read emits, "
+        f"emissions past the slots, most steps of a read: {found}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del coarse_eng, stress, cw
+
+    work = os.path.join(CACHE, "chip_smoke")
+    sam = lambda name: os.path.join(work, name)
+    wall, by_path["ert"], stages, gpu_ms = run_mem_timed(
+        cli, prefix, main_fq, sam("short.ert.gpu.sam"),
+        ("--batch", str(BATCH), "-Z"))
+    run = dict(LAST_RUN)
+    log_stages("mem -Z", stages, gpu_ms)
+    n_batches = -(-N_READS // BATCH)
+    for k in (1, 2, 3):
+        name = f"seed_round{k}[kmer]"
+        check(by_path["ert"][name] == n_batches, f"{name}: "
+              f"{by_path['ert'][name]} launches for {n_batches} batches of "
+              "mem -Z")
+    same_sam("mem -Z", sam("short.ert.gpu.sam"), sam("short.gpu.sam"))
+    log(f"mem -Z == default mem, SAM for SAM, on {N_READS} reads at "
+        f"{GENOME_MBP:g} Mbp: index_upload {run['index_upload']:.2f} s (rank "
+        f"rows and the k-mer root), align {run['align']:.2f} s, wall "
+        f"{wall:.2f} s, peak device memory {run['peak_mib']:.1f} MiB")
+    log(f"kernel launches, mem -Z: "
+        f"{ {k: v for k, v in by_path['ert'].items() if v} }")
+    return by_path
+
+
+def same_sam(what: str, got: str, want: str) -> None:
+    """The records of two SAM files equal, or the run fails naming the reads
+    that differ and showing the first records on either side."""
+    a, b = sam_records(got), sam_records(want)
+    if a == b:
+        return
+    only_a, only_b = sorted(set(a) - set(b)), sorted(set(b) - set(a))
+    names = sorted({x.split("\t")[0] for x in only_a + only_b})
+    raise SmokeFailure(
+        f"{what}: the SAM differs from the default mem's on {len(names)} "
+        f"reads, e.g. {names[:5]}; its records " + " | ".join(only_a[:3])
+        + "; the default's " + " | ".join(only_b[:3]))
+
+
+# ---------------------------------------------------- phase 7: FM-index
+
+
+def fmi_side_reads(idx):
+    """The side genome's reads that fmi_smem is held against the scalar
+    FmiHostEngine on (the same in the oracle's process and the smoke's)."""
+    import numpy as np
+
+    from bwameme_tpu_torch.bench_util import planted_repeats, simulated_reads
+
+    return simulated_reads(idx.text, idx.l_pac, FMI_SIDE_READS, 151,
+                           np.random.default_rng(41),
+                           planted_repeats(SIDE_MBP))
+
+
+def fmi_stress():
+    """The coarse genome's index, its FM-index and its stress reads."""
+    import numpy as np
+
+    from bwameme_tpu_torch.index.fmindex import build_fm_index
+
+    coarse, regions = coarse_index(COARSE_MBP, COARSE_RMI_BITS)
+    reads = stress_reads(coarse.text, coarse.l_pac, N_STRESS,
+                         np.random.default_rng(47), regions)
+    return coarse, build_fm_index(coarse.bns.code), reads
+
+
+def fmi_oracle() -> None:
+    """FmiHostEngine's SMEMs, in emission order, of the side genome's reads
+    and of the stress reads, into .bench_cache/chip_smoke/fmi_oracle.npz
+    (run by a process of its own while the card works: the scalar engine
+    takes some 15 ms a read). Also builds the side genome's index and its
+    FM-index files."""
+    import numpy as np
+
+    from bwameme_tpu_torch.bench_util import CACHE, get_fm_index, get_index
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.index.fmindex import load_fm_index
+    from bwameme_tpu_torch.seeding.fmi_engine import FmiHostEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    t0 = time.perf_counter()
+    side = get_fm_index(SIDE_MBP)
+    get_index(SIDE_MBP)
+    idx = load_index(side)
+    opt = MemOptions()
+    out = {}
+    sets = [("side", FmiHostEngine(idx, opt, fm=load_fm_index(side)),
+             fmi_side_reads(idx))]
+    coarse, cfm, sreads = fmi_stress()
+    sets.append(("stress", FmiHostEngine(coarse, opt, fm=cfm), sreads))
+    for name, host, reads in sets:
+        lists = [host.collect_smems(np.asarray(c)) for c in reads]
+        out[f"{name}_off"] = np.cumsum([0] + [len(x) for x in lists])
+        out[f"{name}_smems"] = np.array(
+            [(s.start, s.end, s.sa_lo, s.hitcount) for x in lists
+             for s in x], np.int64).reshape(-1, 4)
+    work = os.path.join(CACHE, "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    np.savez(os.path.join(work, "fmi_oracle.npz"), **out)
+    print(f"FmiHostEngine on {FMI_SIDE_READS} side and {N_STRESS} stress "
+          f"reads: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def oracle_lists(z, name: str):
+    off, sm = z[f"{name}_off"], z[f"{name}_smems"]
+    return [[tuple(int(v) for v in row) for row in sm[off[i]: off[i + 1]]]
+            for i in range(len(off) - 1)]
+
+
+def smem_tuples(lists):
+    return [[(s.start, s.end, s.sa_lo, s.hitcount) for s in x] for x in lists]
+
+
+def sorted_tuples(lists):
+    return [sorted(x, key=lambda t: (t[0], t[1])) for x in lists]
+
+
+def list_err(got, want) -> int:
+    """The (read, slot) places where two reads' SMEM lists differ, a read's
+    missing or extra SMEMs included."""
+    check(len(got) == len(want), f"{len(got)} reads against {len(want)}")
+    return sum(sum(a != b for a, b in zip(g, w)) + abs(len(g) - len(w))
+               for g, w in zip(got, want))
+
+
+def phase_fmi(dev, chain_us: float, main_fq: str):
+    """The FM-index backend (--backend fmi) on the bench genome, whose
+    FM-index files (index -a mem2's) were built by a process of their own:
+    its kernels (fmi_kernels), then mem --backend fmi on the main run's
+    reads and on the paired-end head's pairs under -I, whose SAM must be
+    the default mem's."""
+    from bwameme_tpu_torch import cli
+    from bwameme_tpu_torch.bench_util import CACHE, get_index
+
+    prefix, side = get_index(GENOME_MBP), get_index(SIDE_MBP)
+    report = fmi_kernels(dev, chain_us, main_fq)
+    work_dir = os.path.join(CACHE, "chip_smoke")
+    sam = lambda name: os.path.join(work_dir, name)
+    by_path = {}
+    wall, by_path["fmi"], stages, gpu_ms = run_mem_timed(
+        cli, prefix, main_fq, sam("short.fmi.gpu.sam"),
+        ("--batch", str(BATCH), "--backend", "fmi"))
+    run = dict(LAST_RUN)
+    log_stages("mem --backend fmi", stages, gpu_ms)
+    n_batches = -(-N_READS // BATCH)
+    check(by_path["fmi"]["fmi_smem"] == n_batches, "fmi_smem: "
+          f"{by_path['fmi']['fmi_smem']} launches for {n_batches} batches")
+    report["fmi_smem"]["launches"] = by_path["fmi"]["fmi_smem"]
+    same_sam("mem --backend fmi", sam("short.fmi.gpu.sam"),
+             sam("short.gpu.sam"))
+    fixed = ("-I", ",".join(map(str, INSERT)))
+    _, by_path["fmi_pe_head"] = run_mem(
+        cli, side, sam("pairs_head_p.fq"), sam("head.fmi.gpu.sam"), "cuda",
+        ("-p", *fixed, "--backend", "fmi"))
+    check(by_path["fmi_pe_head"]["fmi_smem"] > 0
+          and by_path["fmi_pe_head"]["sw_full"] > 0,
+          f"mem -p --backend fmi launched {by_path['fmi_pe_head']}")
+    same_sam("mem -p --backend fmi", sam("head.fmi.gpu.sam"),
+             sam("head.gpu.sam"))
+    log(f"mem --backend fmi == default mem, SAM for SAM, on {N_READS} reads "
+        f"at {GENOME_MBP:g} Mbp (fmi_load {run['fmi_load']:.2f} s, "
+        f"index_upload {run['index_upload']:.2f} s, align "
+        f"{run['align']:.2f} s, wall {wall:.2f} s, peak device memory "
+        f"{run['peak_mib']:.1f} MiB) and on {N_CMP_PAIRS} pairs of the "
+        f"{SIDE_MBP:g} Mbp genome under -p {' '.join(fixed)}")
+    for path, counts in by_path.items():
+        log(f"kernel launches, {path}: "
+            f"{ {k: v for k, v in counts.items() if v} }")
+    return report, by_path
+
+
+def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
+    """The FM-index kernels on the bench genome: fmi_backward_ext on
+    FMI_UNITS units and fmi_sa_lookup on FMI_RANKS ranks against their
+    plain versions (and the ranks' positions against the index's sa);
+    fmi_smem on one batch of the main reads, as mem --backend fmi
+    launches it: against the plain wave engine, and on N_CMP of them
+    against FmiHostEngine in emission order, timed there with its bound
+    from the waves' work; and against FmiHostEngine on the side genome's
+    FMI_SIDE_READS reads and on the stress reads (the oracle's process
+    computed the scalar engine's). Returns the kernels' rows."""
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch.bench_util import (CACHE, cuda_ms, get_index,
+                                              queued_us)
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.index.fmindex import load_fm_index
+    from bwameme_tpu_torch.ops import fmi_search, fmi_search_cuda
+    from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.seeding.fmi_engine import (FmiDeviceEngine,
+                                                      FmiHostEngine, FmiWork)
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    prefix, side = get_index(GENOME_MBP), get_index(SIDE_MBP)
+    opt = MemOptions()
+    t0 = time.perf_counter()
+    fm = load_fm_index(prefix)
+    t_load = time.perf_counter() - t0
+    idx = load_index(prefix)
+    t0 = time.perf_counter()
+    eng = FmiDeviceEngine(idx, opt, fm=fm, device=dev)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    dfm = eng.dfm
+    log(f"FM-index at {GENOME_MBP:g} Mbp: loaded in {t_load:.1f} s (its host "
+        f"sa {fm.sa.nbytes / 2**20:.0f} MiB), {dfm.nbytes / 2**20:.1f} MiB "
+        f"uploaded in {t_up:.2f} s")
+    report = {}
+    rng = np.random.default_rng(37)
+
+    # backward_ext: random bi-intervals, any base
+    n1 = fm.n + 1
+    k = rng.integers(0, n1, FMI_UNITS)
+    s = np.minimum(rng.integers(0, 64, FMI_UNITS), n1 - k)
+    l = rng.integers(0, n1, FMI_UNITS)
+    a = rng.integers(0, 4, FMI_UNITS)
+    units = [torch.from_numpy(x.astype(np.int32)).to(dev)
+             for x in (k, l, s, a)]
+    stats.reset()
+    got = fmi_search_cuda.backward_ext(dfm, *units)
+    launches = stats.launches["fmi_backward_ext"]
+    want = fmi_search.backward_ext_torch(dfm, *units)
+    err = abs_err(got, want)
+    check(err == 0, f"fmi_backward_ext differs from its plain version: {err}")
+    host = FmiHostEngine(idx, opt, fm=fm)
+    g = got[:, :256].cpu().numpy()
+    check(all(tuple(int(v) for v in g[:, t]) == host.backward_ext(
+        int(k[t]), int(l[t]), int(s[t]), int(a[t])) for t in range(256)),
+        "fmi_backward_ext differs from FmiHostEngine.backward_ext")
+    sectors = fmi_search.ext_sectors(dfm, units[0], units[2])
+    kern = lambda: fmi_search_cuda.backward_ext(dfm, *units)
+    report["fmi_backward_ext"] = dict(
+        launches=launches, max_abs_err=err, ms=cuda_ms(kern, 10),
+        device_ms=queued_us(kern, 100) / 1e3,
+        plain_ms=cuda_ms(lambda: fmi_search.backward_ext_torch(dfm, *units),
+                         3),
+        library_ms=None, bound_by="bytes",
+        bound_ms=(sectors * SECTOR + FMI_UNITS * (16 + 12)) / HBM_BPS * 1e3,
+        answer_sectors=sectors, latency_steps=1,
+        latency_bound_ms=chain_us / 1e3)
+
+    # sa_lookup: random ranks, their positions == the index's sa
+    ranks = rng.integers(0, n1, FMI_RANKS)
+    rk = torch.from_numpy(ranks.astype(np.int32)).to(dev)
+    stats.reset()
+    got = fmi_search_cuda.sa_lookup(dfm, rk)
+    launches = stats.launches["fmi_sa_lookup"]
+    steps = torch.zeros(FMI_RANKS, dtype=torch.int64, device=dev)
+    want = fmi_search.sa_lookup_torch(dfm, rk, steps)
+    err = abs_err(got, want)
+    check(err == 0, f"fmi_sa_lookup differs from its plain version: {err}")
+    check(np.array_equal(got.cpu().numpy(), fm.sa[ranks]),
+          "fmi_sa_lookup differs from the FM-index's sa")
+    n_steps, most = int(steps.sum()), int(steps.max())
+    kern = lambda: fmi_search_cuda.sa_lookup(dfm, rk)
+    # an LF step reads one block (16 bytes of counts, 32 of bitmaps), the
+    # end a stored entry; each rank read and each position written once
+    report["fmi_sa_lookup"] = dict(
+        launches=launches, max_abs_err=err, ms=cuda_ms(kern, 10),
+        device_ms=queued_us(kern, 100) / 1e3,
+        plain_ms=cuda_ms(lambda: fmi_search.sa_lookup_torch(dfm, rk), 3),
+        library_ms=None, bound_by="bytes",
+        bound_ms=(n_steps * 48 + FMI_RANKS * (4 + 4 + 4)) / HBM_BPS * 1e3,
+        lf_steps=n_steps, latency_steps=most + 1,
+        latency_bound_ms=(most + 1) * chain_us / 1e3)
+    log(f"fmi_backward_ext == plain == FmiHostEngine on {FMI_UNITS} units "
+        f"({sectors} distinct sectors of occ blocks); fmi_sa_lookup == plain "
+        f"== sa on {FMI_RANKS} ranks ({n_steps} LF steps, {most} at most); "
+        "ms alone / on the card: " + ", ".join(
+            f"{n} {report[n]['ms']:.4f} / {report[n]['device_ms']:.4f}"
+            for n in ("fmi_backward_ext", "fmi_sa_lookup")))
+
+    # fmi_smem: one batch of the main reads, as mem --backend fmi launches
+    # it, against the plain wave engine (SMEM sets; its work gives the
+    # bound) and, on its first N_CMP reads, against FmiHostEngine in
+    # emission order; the side genome's and the stress reads against the
+    # oracle's FmiHostEngine lists (and the stress reads against the waves)
+    def held(what, got, want, order=True):
+        if not order:
+            got, want = sorted_tuples(got), sorted_tuples(want)
+        err = list_err(got, want)
+        check(err == 0, f"fmi_smem differs from {what}: {err} SMEMs")
+        return err
+
+    batch = fastq_codes(main_fq)[:BATCH]
+    got = smem_tuples(eng.collect_smems_batch(batch))
+    want = [smem_tuples([host.collect_smems(np.asarray(c))])[0]
+            for c in batch[:N_CMP]]
+    err = held(f"FmiHostEngine on {N_CMP} main reads", got[:N_CMP], want)
+    work = FmiWork(len(batch))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    waves = smem_tuples(eng.collect_smems_waves(batch, work))
+    plain_s = time.perf_counter() - t0
+    err += held(f"the plain wave engine on {BATCH} main reads", got, waves,
+                order=False)
+    with np.load(os.path.join(CACHE, "chip_smoke", "fmi_oracle.npz")) as z:
+        oracle = {n: oracle_lists(z, n) for n in ("side", "stress")}
+    sidx = load_index(side)
+    seng = FmiDeviceEngine(sidx, opt, fm=load_fm_index(side), device=dev)
+    err += held(f"FmiHostEngine on {FMI_SIDE_READS} side reads", smem_tuples(
+        seng.collect_smems_batch(fmi_side_reads(sidx))), oracle["side"])
+    coarse, cfm, stress = fmi_stress()
+    ceng = FmiDeviceEngine(coarse, opt, fm=cfm, device=dev)
+    sgot = smem_tuples(ceng.collect_smems_batch(stress))
+    err += held(f"FmiHostEngine on {N_STRESS} stress reads", sgot,
+                oracle["stress"])
+    err += held(f"the plain wave engine on {N_STRESS} stress reads", sgot,
+                smem_tuples(ceng.collect_smems_waves(stress)), order=False)
+    reruns = seng.reruns + ceng.reruns + eng.reruns
+    # timed on the batch already on the card, as the other kernels are
+    codes, lens = eng._upload(batch)
+    kern = lambda: eng._smem(codes, lens, eng.max_smems)
+    k_steps = eng._smem(codes, lens, eng.max_smems, steps=True)[2]
+    n_sm = sum(map(len, got))
+    # the occ blocks every extension stands on, the reads read and the
+    # lengths, each SMEM (start, end, k, s) written once
+    report["fmi_smem"] = dict(
+        max_abs_err=err, ms=cuda_ms(kern, 10),
+        device_ms=queued_us(kern, 50) / 1e3, plain_ms=plain_s * 1e3,
+        library_ms=None, bound_by="bytes",
+        bound_ms=(work.sectors() * SECTOR + codes.numel() + 4 * len(batch)
+                  + 16 * n_sm) / HBM_BPS * 1e3,
+        answer_sectors=work.sectors(), extensions=work.extensions,
+        kernel_extensions=int(k_steps.sum()),
+        latency_steps=int(work.waves.max()),
+        latency_bound_ms=int(work.waves.max()) * chain_us / 1e3,
+        kernel_steps_max=int(k_steps.max()), reruns=reruns)
+    log(f"fmi_smem on {BATCH} main reads at {GENOME_MBP:g} Mbp ({n_sm} "
+        f"SMEMs) == the plain wave engine, its first {N_CMP} == "
+        f"FmiHostEngine in emission order; == FmiHostEngine on "
+        f"{FMI_SIDE_READS} side reads and {N_STRESS} stress reads (most "
+        f"SMEMs a read {max(map(len, sgot))} of {ceng.max_smems} slots; "
+        f"{reruns} rerun launches), the stress reads == the waves; main "
+        f"reads: {work.extensions} extensions in {int(work.waves.max())} "
+        f"waves at most a read, {work.sectors()} distinct sectors of occ "
+        f"blocks; the kernel's threads {int(k_steps.max())} extensions at "
+        f"most; kernel {report['fmi_smem']['ms']:.4f} ms alone, "
+        f"{report['fmi_smem']['device_ms']:.4f} ms on the card, waves "
+        f"{plain_s * 1e3:.0f} ms")
+
+    return report
+
+
+def start_process(call: str) -> subprocess.Popen:
+    """A Python statement run by a process of its own beside this one."""
+    code = f"import sys; sys.path.insert(0, {ROOT!r}); {call}"
     return subprocess.Popen([sys.executable, "-c", code],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
 
 
-def finish_index_build(proc: subprocess.Popen) -> None:
+def start_index_build(mbp: float) -> subprocess.Popen:
+    """The bench genome's index (bench_util.get_index), built in a process
+    of its own while the kernel phases run on the card: its build is a
+    minute or more of host work that nothing before the search phase
+    needs. A cached index returns at once."""
+    return start_process("from bwameme_tpu_torch.bench_util import "
+                         f"get_index; get_index({mbp!r})")
+
+
+def start_host_work() -> dict:
+    """Every process of host work that runs while the kernel phases do:
+    the bench genome's learned index and FM-index (index -a mem2's files,
+    bench_util.get_fm_index) and the scalar FmiHostEngine on the side and
+    stress reads (fmi_oracle)."""
+    return {"index build": start_index_build(GENOME_MBP),
+            "FM-index build": start_process(
+                "from bwameme_tpu_torch.bench_util import get_fm_index; "
+                f"get_fm_index({GENOME_MBP!r})"),
+            "FmiHostEngine": start_process(
+                "import chip_smoke; chip_smoke.fmi_oracle()")}
+
+
+def finish_index_build(proc: subprocess.Popen,
+                       what: str = "index build") -> None:
     out, _ = proc.communicate()
     for line in out.splitlines():
-        log(f"  index build: {line}")
-    check(proc.returncode == 0, f"the index build exited {proc.returncode}")
+        log(f"  {what}: {line}")
+    check(proc.returncode == 0, f"the {what} exited {proc.returncode}")
 
 
 def mangled(name: str) -> str:
     """The part of a seeding variant's mangled kernel name that ptxas
-    reports it under: seed_round1[m1,wide] -> seed_round1_kernelILi1ExE."""
+    reports it under: seed_round1[m1,kmer,wide] ->
+    seed_round1_kernelILi1ExLb1EE."""
     base, _, tag = name.partition("[")
     tags = tag.rstrip("]").split(",") if tag else []
     mode = next((int(t[1:]) for t in tags if t.startswith("m")), 4)
     rank = "x" if "wide" in tags else "i"
-    if base == "prmi_window":
-        return f"prmi_window_kernelI{rank}E"
-    return f"{base}_kernelILi{mode}E{rank}E"
+    kmer = int("kmer" in tags or base == "kmer_window")
+    if base in ("prmi_window", "kmer_window"):
+        return f"window_kernelI{rank}Lb{kmer}EE"
+    return f"{base}_kernelILi{mode}E{rank}Lb{kmer}EE"
 
 
 def main() -> int:
@@ -2081,7 +2694,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         return out
 
-    index_proc = start_index_build(GENOME_MBP)
+    host_work = start_host_work()
     try:
         smi, build_log = timed("card", phase_card)
         report, time_banded = timed("banded_sw", phase_kernels, dev)
@@ -2089,7 +2702,8 @@ def main() -> int:
         report.update(sw)
         # every timing from here on, those of phases 2 and 2b first, runs
         # with the host to itself
-        timed("index_wait", finish_index_build, index_proc)
+        timed("index_wait", lambda: [finish_index_build(p, what) for what, p
+                                     in host_work.items()])
         timed("kernel_times", lambda: (time_banded(), time_sw_full()))
         gather, chain_us = timed("gather", phase_gather, dev)
         report.update(gather)
@@ -2106,10 +2720,18 @@ def main() -> int:
                              N_READS, N_LONG, BATCH, N_CMP, main_fq))
         by_path.update(timed("paired_end", phase_pairs, GENOME_MBP, N_PAIRS,
                              BATCH, N_CMP_PAIRS))
+        by_path.update(timed("ert", phase_ert, dev, main_fq))
+        for k in (1, 2, 3):
+            report[f"seed_round{k}[kmer]"]["launches"] = by_path["ert"][
+                f"seed_round{k}[kmer]"]
+        fmi, fmi_paths = timed("fmi", phase_fmi, dev, chain_us, main_fq)
+        report.update(fmi)
+        by_path.update(fmi_paths)
     finally:
-        if index_proc.poll() is None:
-            index_proc.kill()
-            index_proc.wait()
+        for proc in host_work.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     # the default mem run's counts; the pair form runs on the long reads'
     # path; mode 1's rounds on mem --mode 1
     for name in ("banded_sw_coord", "seed_round1", "seed_round2",
@@ -2125,12 +2747,20 @@ def main() -> int:
         f"{took}")
     kernels = []
     for name, (src, repl) in KERNELS.items():
-        for v in variants(name) if name in SEEDING else [name]:
+        if name == "kmer_window":
+            names = variants("prmi_window", "kmer")
+        elif name == "prmi_window" or name not in SEEDING:
+            names = variants(name) if name in SEEDING else [name]
+        else:
+            names = variants(name) + variants(name, "kmer")
+        for v in names:
             entry = dict(name=v, route="cuda", source=CSRC + src,
                          replaces=repl, launch_path=launch_path(v),
                          **report[v])
-            if name in SEEDING:
-                usage = ptxas_usage(build_log, mangled(v))
+            if name in SEEDING or name.startswith(("kmer_", "fmi_")):
+                usage = ptxas_usage(build_log, f"{name}_kernel"
+                                    if name.startswith("fmi_")
+                                    else mangled(v))
                 entry.update(registers=usage["registers"],
                              spill_stores=usage["spill_stores"])
             kernels.append(entry)

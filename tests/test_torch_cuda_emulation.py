@@ -34,10 +34,13 @@ from bwameme_tpu_torch.index.build import build_index
 from bwameme_tpu_torch.index.packing import pack_words
 from bwameme_tpu_torch.ops import banded_sw as bsw
 from bwameme_tpu_torch.ops import banded_sw_cuda, build, gather_bench, launch
+from bwameme_tpu_torch.ops import fmi_search, fmi_search_cuda
 from bwameme_tpu_torch.ops import sa_search as ss
 from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
 from bwameme_tpu_torch.ops import sw_full, sw_full_cuda
+from bwameme_tpu_torch.index.fmindex import build_fm_index
 from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+from bwameme_tpu_torch.seeding.fmi_engine import FmiDeviceEngine, FmiHostEngine
 from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine
 from bwameme_tpu_torch.utils.config import MemOptions
 
@@ -64,6 +67,7 @@ using std::max;
 using std::min;
 struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
+struct int4 { int x, y, z, w; };
 struct EmuDim { unsigned x; };
 static EmuDim blockIdx, blockDim, threadIdx;
 typedef void* cudaStream_t;
@@ -78,6 +82,7 @@ static inline int __clz(int x) {
     return x == 0 ? 32 : __builtin_clz((unsigned)x);
 }
 static inline int __ffs(int x) { return __builtin_ffs(x); }
+static inline int __popc(unsigned x) { return __builtin_popcount(x); }
 // separately rounded float steps (the file is built with -ffp-contract=off)
 static inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 static inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
@@ -248,6 +253,7 @@ LAUNCH = re.compile(
 DYNAMIC_SHARED = re.compile(r"extern __shared__ int (\w+)\[\];")
 # name -> (launches in the source, extra g++ flags)
 EMULATED = {"seed_smem": (5, ("-DEMU_FIBERS",)), "gather_bench": (2, ()),
+            "fmi_search": (3, ()),
             "banded_sw": (2, ("-DEMU_FIBERS",)),
             "sw_full": (2, ("-DEMU_FIBERS",))}
 
@@ -275,7 +281,8 @@ def emulated_libs(tmp_path_factory):
                        capture_output=True)
     # the card's build makes a library of each mode's variants; this one
     # holds all of them
-    paths.update((f"seed_smem_m{m}", paths["seed_smem"]) for m in (1, 2, 3, 4))
+    paths.update((f"seed_smem_m{m}{root}", paths["seed_smem"])
+                 for m in (1, 2, 3, 4) for root in ("", "_kmer"))
     return paths
 
 
@@ -289,7 +296,8 @@ def on_emulation(emulated_libs, monkeypatch):
         build, "build", lambda: build.BuildResult(emulated_libs, 0.0, ""))
     monkeypatch.setattr(launch, "raw_stream", lambda index: None)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
-    for mod in (seed_smem_cuda, banded_sw_cuda, sw_full_cuda):
+    for mod in (seed_smem_cuda, banded_sw_cuda, sw_full_cuda,
+                fmi_search_cuda):
         monkeypatch.setattr(mod, "cuda_device", lambda x, what: x.device)
     before = dict(launch.stats.launches)
     yield
@@ -696,6 +704,140 @@ def test_kernel_variants_of_every_layout(world, on_emulation, monkeypatch,
             assert launch.stats.launches[name] == 0
 
 
+KMER_LAYOUTS = [(4, False, 3), (1, False, 5), (2, False, 9), (3, False, 6),
+                (4, True, 7), (1, True, 4), (2, True, 8), (3, True, 3)]
+
+
+@pytest.mark.parametrize("mode,wide,bits", KMER_LAYOUTS,
+                         ids=[f"mode{m}{'_wide' if w else ''}_k{b}"
+                              for m, w, b in KMER_LAYOUTS])
+def test_kmer_root_variants_of_every_layout(world, on_emulation, monkeypatch,
+                                            mode, wide, bits):
+    """The k-mer (ERT) root's variant of every seeding kernel in every
+    layout: kmer_window on every stored key and on cut ones, sa_query on
+    jobs of every length and min_intv, the three rounds, each against its
+    plain version, and the engine's whole path against the host oracle. A
+    3-base root gives windows of some 800 ranks (two tree steps before the
+    last probe), a 9-base root windows of a few. Launches are counted under
+    the variant's own name."""
+    idx, opt = world["idx"], world["opt"]
+    w = dict(world, eng=DeviceSeedingEngine(idx, opt, device="cpu",
+                                            mode=mode, wide=wide,
+                                            root="kmer", ert_bits=bits))
+    di = w["eng"].di
+    assert (di.mode, di.wide, di.root, di.kmer_bits) == (mode, wide, "kmer",
+                                                         bits)
+    widest = int((di.kmer_table[1:] - di.kmer_table[:-1]).max())
+    assert widest > 32 * 20 if bits == 3 else widest < 300
+    m = np.uint32(0xFFFF0000)
+    khi = idx.key_hi.astype(np.uint32)
+    kh = torch.from_numpy(np.concatenate([khi, khi & m, khi | ~m]).view(
+        np.int32))
+    kl = torch.from_numpy(np.concatenate(
+        [idx.key_lo.astype(np.uint32)] * 3).view(np.int32))
+    got = seed_smem_cuda.kmer_window(di, kh, kl)
+    want = seed_smem.kmer_window_torch(di, kh, kl)
+    assert got[0].dtype == di.rank_dtype
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    rng = np.random.default_rng(100 + mode + 10 * wide)
+    qbuf, nf, nr, _ = world["prep"]
+    R = world["lens"].shape[0]
+    n = 160
+    rd = rng.integers(0, R, n)
+    piv = rng.integers(0, np.maximum(world["lens"].numpy()[rd], 1))
+    rev = rng.integers(0, 2, n)
+    full = np.where(rev == 1, nr.numpy()[rd, piv], nf.numpy()[rd, piv]) - piv
+    v = np.where(rng.random(n) < 0.6, full,
+                 (rng.random(n) * (full + 1)).astype(np.int64))
+    jobs = [torch.from_numpy(a.astype(np.int32)) for a in
+            (rd + rev * R, piv, v, rng.choice([1, 2, 3, 9, 21, 1000], n))]
+    got = seed_smem_cuda.sa_query(di, qbuf, *jobs)
+    assert torch.equal(got, seed_smem.sa_query_torch(di, qbuf, *jobs))
+    k1, k2, k3 = _three_rounds_equal(w)
+    assert int(k1[1].sum()) > 0 and int(k3[1].sum()) > 0
+    monkeypatch.setattr(seed_smem, "_on_cuda", lambda x: True)
+    host = HostSeedingEngine(idx, opt)
+    want = [[(s.start, s.end, s.sa_lo, s.hitcount)
+             for s in host.sorted_smems(c)] for c in world["reads"]]
+    flat = w["eng"].sorted_smems_batch_flat(world["reads"])
+    assert [[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
+            for lst in flat.to_lists()] == want
+    for name in ("prmi_window", "sa_query", "seed_round1", "seed_round2",
+                 "seed_round3"):
+        assert launch.stats.launches[launch.variant(name, mode, wide,
+                                                    "kmer")] >= 1
+        assert launch.stats.launches[launch.variant(name, mode, wide)] == 0
+
+
+@pytest.fixture(scope="module")
+def fmi_world(world):
+    """The world's genome under its FM-index, and reads with N, mutations,
+    both strands, repeats, a long read and reads shorter than a seed."""
+    idx = world["idx"]
+    fm = build_fm_index(idx.bns.code)
+    reads = list(world["reads"]) + [idx.text[9000:9600].copy(),
+                                    idx.text[50:60].copy()]
+    return idx, fm, reads
+
+
+def test_fmi_primitive_kernels(fmi_world, on_emulation):
+    """fmi_backward_ext on units of every base and interval size, up to the
+    whole text and across the sentinel, and fmi_sa_lookup on every rank,
+    each against its plain version; the ranks' positions are the index's
+    sa."""
+    idx, fm, _ = fmi_world
+    dfm = fmi_search.DeviceFmIndex.from_host(fm, "cpu")
+    rng = np.random.default_rng(61)
+    n1, B = fm.n + 1, 4000
+    k = np.concatenate([rng.integers(0, n1, B), [0, fm.sentinel_index, 1]])
+    s = np.concatenate([np.minimum(rng.integers(0, 100, B), n1 - k[:B]),
+                        [n1, 1, n1 - 1]])
+    units = [torch.from_numpy(x.astype(np.int32)) for x in
+             (k, rng.integers(0, n1, B + 3), s, rng.integers(0, 4, B + 3))]
+    got = fmi_search_cuda.backward_ext(dfm, *units)
+    assert torch.equal(got, fmi_search.backward_ext_torch(dfm, *units))
+    ranks = torch.arange(n1, dtype=torch.int32)
+    got = fmi_search_cuda.sa_lookup(dfm, ranks)
+    assert torch.equal(got, fmi_search.sa_lookup_torch(dfm, ranks))
+    assert np.array_equal(got.numpy(), fm.sa)
+    assert launch.stats.launches["fmi_backward_ext"] == 1
+    assert launch.stats.launches["fmi_sa_lookup"] == 1
+
+
+@pytest.mark.parametrize("slots", [128, 3], ids=["M128", "M3_overflows"])
+def test_fmi_smem_kernel_in_the_host_engines_order(fmi_world, on_emulation,
+                                                   monkeypatch, slots):
+    """fmi_smem, a thread a read, through the engine: each read's SMEMs in
+    FmiHostEngine's emission order; at 3 slots a read the reads that outgrow
+    them are seeded again with room for all (no emission is lost), and the
+    flat path hands the batch to the whole-plane one."""
+    idx, fm, reads = fmi_world
+    opt = MemOptions()
+    monkeypatch.setattr(fmi_search, "_on_cuda", lambda x: True)
+    eng = FmiDeviceEngine(idx, opt, fm=fm, device="cpu")
+    eng.max_smems = slots
+    host = FmiHostEngine(idx, opt, fm=fm)
+    want = [[(s.start, s.end, s.sa_lo, s.hitcount)
+             for s in host.collect_smems(np.asarray(c))] for c in reads]
+    got = eng.collect_smems_batch(reads)
+    assert [[(s.start, s.end, s.sa_lo, s.hitcount) for s in x]
+            for x in got] == want
+    assert sum(map(len, want)) > 100
+    flat = eng.sorted_smems_batch_flat(reads)
+    if slots == 3:
+        assert eng.reruns == 1 and flat is None
+        assert max(map(len, want)) > 2 * slots
+    else:
+        assert eng.reruns == 0
+        assert [[(s.start, s.end, s.sa_lo, s.hitcount) for s in x]
+                for x in flat.to_lists()] == [sorted(x) for x in want]
+    steps = torch.zeros(len(reads), dtype=torch.int32)
+    eng._launch(reads, 128, steps=True)
+    assert bool((steps >= 0).all())
+    assert launch.stats.launches["fmi_smem"] >= 2
+
+
 def test_wide_prmi_window_on_a_human_scale_leaf_table(on_emulation):
     """The wide window on a synthetic leaf table of 6.2e9 suffixes (a human
     text and its reverse complement): leaf starts past 2^31 and 2^32, where
@@ -782,8 +924,8 @@ def test_launch_refused_raises(world, on_emulation, monkeypatch):
     """A launcher that reports a CUDA error makes the wrapper raise: no
     fallback to the plain version."""
     di = world["eng"].di
-    seed_smem_cuda._entry(4, "prmi_window_launch")  # bound, then replaced
-    monkeypatch.setitem(launch._entries, ("seed_smem_m4", "prmi_window_launch"),
+    seed_smem_cuda._entry(di, "window_launch")  # bound, then replaced
+    monkeypatch.setitem(launch._entries, ("seed_smem_m4", "window_launch"),
                         lambda *a: 9)
     z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="CUDA error 9"):

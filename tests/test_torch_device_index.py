@@ -102,5 +102,16 @@ def test_planes_of_each_layout_equal_jax(planes, mode, wide):
 
 
 def test_the_kmer_root_is_not_ported(planes):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        DeviceIndex.from_host(planes[0], "cpu", ert_bits=0)
+    """The k-mer (ERT) root, now ported: from_host(ert_bits=) builds
+    the JAX package's table (bits from pick_ert_bits at 0) in the rank type,
+    beside the mode's planes, and the index's root becomes "kmer"."""
+    idx = planes[0]
+    for bits, mode, wide in ((0, 4, False), (5, 1, True)):
+        jd = JaxDeviceIndex.from_host(idx, mode=mode, ert_bits=bits)
+        di = DeviceIndex.from_host(idx, "cpu", mode=mode, wide=wide,
+                                   ert_bits=bits)
+        assert di.root == "kmer" and di.kmer_bits == jd.kmer_bits
+        assert di.kmer_table.dtype == di.rank_dtype
+        assert np.array_equal(di.kmer_table.numpy(),
+                              np.asarray(jd.kmer_table))
+    assert DeviceIndex.from_host(idx, "cpu").root == "prmi"

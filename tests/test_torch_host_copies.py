@@ -21,11 +21,14 @@ import bwameme_tpu.align.pairing as j_pairing
 import bwameme_tpu.align.sw_scalar as j_sw
 import bwameme_tpu.index.bntseq as j_bntseq
 import bwameme_tpu.index.build as j_build
+import bwameme_tpu.index.ert as j_ert
+import bwameme_tpu.index.fmindex as j_fmindex
 import bwameme_tpu.index.packing as j_packing
 import bwameme_tpu.index.suffix_array as j_sa
 import bwameme_tpu.io.fastq as j_fastq
 import bwameme_tpu.io.sam as j_sam
 import bwameme_tpu.models.prmi as j_prmi
+import bwameme_tpu.seeding.fmi_engine as j_fmi_engine
 import bwameme_tpu.seeding.host_engine as j_host
 import bwameme_tpu.utils.config as j_config
 import bwameme_tpu.utils.timer as j_timer
@@ -37,6 +40,8 @@ import bwameme_tpu_torch.align.pairing as t_pairing
 import bwameme_tpu_torch.align.sw_scalar as t_sw
 import bwameme_tpu_torch.index.bntseq as t_bntseq
 import bwameme_tpu_torch.index.build as t_build
+import bwameme_tpu_torch.index.ert as t_ert
+import bwameme_tpu_torch.index.fmindex as t_fmindex
 import bwameme_tpu_torch.index.formats as t_formats
 import bwameme_tpu_torch.index.packing as t_packing
 import bwameme_tpu_torch.index.suffix_array as t_sa
@@ -44,6 +49,7 @@ import bwameme_tpu_torch.io.fastq as t_fastq
 import bwameme_tpu_torch.io.sam as t_sam
 import bwameme_tpu_torch.models.prmi as t_prmi
 import bwameme_tpu_torch.ops.build as t_ops_build
+import bwameme_tpu_torch.seeding.fmi_engine as t_fmi_engine
 import bwameme_tpu_torch.seeding.host_engine as t_host
 import bwameme_tpu_torch.utils.config as t_config
 import bwameme_tpu_torch.utils.fallbacks as t_fallbacks
@@ -179,6 +185,65 @@ def test_host_seeding_engine(indexes, reads):
     for c in reads:
         assert ([dataclasses.astuple(s) for s in a.sorted_smems(c)]
                 == [dataclasses.astuple(s) for s in b.sorted_smems(c)])
+
+
+def test_ert_copy(indexes):
+    """index/ert.py: the root table, its size, the reference .kmer_table
+    entry codec, the k-mer ids and the classes a reference table holds."""
+    key_hi = indexes[0].key_hi
+    for bits in (2, 6, 9):
+        a = j_ert.build_kmer_table(key_hi, bits)
+        b = t_ert.build_kmer_table(key_hi, bits)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for n in (4, 1000, 40000, 6 * 10**9):
+        assert j_ert.pick_ert_bits(n) == t_ert.pick_ert_bits(n)
+    rng = np.random.default_rng(9)
+    fields = (rng.integers(0, 4, 40), rng.integers(0, 1 << 14, 40),
+              rng.integers(0, 20, 40), rng.integers(0, 4, 40),
+              rng.integers(0, 1 << 30, 40))
+    e = j_ert.encode_kmer_entries(*fields)
+    assert np.array_equal(e, t_ert.encode_kmer_entries(*fields))
+    for x, y in zip(j_ert.decode_kmer_entries(e),
+                    t_ert.decode_kmer_entries(e)):
+        assert np.array_equal(x, y)
+    be = np.unique(key_hi >> np.uint32(2)).astype(np.int64)[:300]
+    assert np.array_equal(j_ert.ref_kmer_id_from_be(be),
+                          t_ert.ref_kmer_id_from_be(be))
+    for x, y in zip(j_ert.kmer_classes_from_planes(key_hi, be),
+                    t_ert.kmer_classes_from_planes(key_hi, be)):
+        assert np.array_equal(x, y)
+    assert t_ert.REF_NUM_KMERS == j_ert.REF_NUM_KMERS
+
+
+def test_fmindex_copy(tmp_path):
+    """index/fmindex.py: the planes, occ, the compressed-SA walk and the
+    reference .bwt.2bit.64 file."""
+    code = _code(seed=7, n=4000)
+    a, b = j_fmindex.build_fm_index(code), t_fmindex.build_fm_index(code)
+    for name in ("count", "bwt", "cp_count", "cp_bits", "sa", "sa_ms_byte",
+                 "sa_ls_word"):
+        assert np.array_equal(getattr(a, name), getattr(b, name)), name
+    assert (a.n, a.sentinel_index) == (b.n, b.sentinel_index)
+    p = np.arange(0, a.n + 2, 37)
+    for base in range(4):
+        assert np.array_equal(a.occ(base, p), b.occ(base, p))
+    for r in range(0, a.n + 1, 97):
+        assert a.get_sa_entry_compressed(r) == b.get_sa_entry_compressed(r)
+    t_fmindex.write_bwt_2bit_64(b, str(tmp_path / "t"))
+    c = j_fmindex.read_bwt_2bit_64(str(tmp_path / "t"))
+    d = t_fmindex.read_bwt_2bit_64(str(tmp_path / "t"))
+    assert np.array_equal(c.sa, d.sa) and np.array_equal(c.bwt, d.bwt)
+
+
+def test_fmi_host_engine_copy(indexes, reads):
+    """seeding/fmi_engine.FmiHostEngine: each read's SMEMs in emission
+    order."""
+    fm = t_fmindex.build_fm_index(indexes[1].bns.code)
+    a = j_fmi_engine.FmiHostEngine(indexes[0], j_config.MemOptions(), fm=fm)
+    b = t_fmi_engine.FmiHostEngine(indexes[1], t_config.MemOptions(), fm=fm)
+    for c in reads[:6]:
+        assert ([dataclasses.astuple(s) for s in a.collect_smems(c)]
+                == [dataclasses.astuple(s) for s in b.collect_smems(c)])
 
 
 def test_chains_from_chain_and_filter_raw(indexes, reads):

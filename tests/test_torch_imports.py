@@ -6,8 +6,8 @@ import hook there refuses every jax module and the top-level package
 ``bwameme_tpu``, then every module of the port (and chip_smoke.py) is
 imported, a toy index is built with the port's own index/build.py and a few
 reads and a pair whose second mate only a rescue places are aligned on the
-CPU with both seeding engines (so the pairing, finalize and alt copies and
-the full SW run too); the host libraries it loaded are the port's own, none
+CPU with every seeding engine (host, learned, ERT, both FM-index engines;
+so the pairing, finalize and alt copies and the full SW run too); the host libraries it loaded are the port's own, none
 from native/build/, which bwameme_tpu's loaders write. A source check
 backs the hook: no file of the port, nor chip_smoke.py, has an import
 statement that names bwameme_tpu.
@@ -46,6 +46,7 @@ from bwameme_tpu_torch.index.build import build_index
 from bwameme_tpu_torch.io.fastq import Read
 from bwameme_tpu_torch.pipeline import Aligner
 from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+from bwameme_tpu_torch.seeding.fmi_engine import FmiDeviceEngine, FmiHostEngine
 from bwameme_tpu_torch.utils.config import MEM_F_PE, MemOptions
 
 rng = np.random.default_rng(5)
@@ -59,7 +60,10 @@ reads = [Read(f"r{i}", "".join("ACGT"[c] for c in idx.text[s: s + 151]),
          for i, s in enumerate((100, 5000, 12000, 30000))]
 opt = MemOptions()
 engines = {"host": None,
-           "device": DeviceSeedingEngine(idx, opt, device="cpu")}
+           "device": DeviceSeedingEngine(idx, opt, device="cpu"),
+           "ert": DeviceSeedingEngine(idx, opt, device="cpu", root="kmer"),
+           "fmi": FmiDeviceEngine(idx, opt, device="cpu"),
+           "fmi_host": FmiHostEngine(idx, opt)}
 for name, engine in engines.items():
     sam = Aligner(idx, opt, seeding_engine=engine,
                   device="cpu").align_batch(reads)

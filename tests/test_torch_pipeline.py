@@ -276,9 +276,10 @@ def test_cli_default_engine_is_the_device_engine(golden_dir, tmp_path,
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--engine", "device", "-Z"], "Queue 1 items 6-7"),
-    (["--engine", "host", "--backend", "fmi"], "Queue 1 items 6-7"),
-    (["--engine", "host", "-Z"], "Queue 1 items 6-7"),
+    (["--engine", "device", "-Z", "--dp-shards", "2"], "Queue 1 item 8"),
+    (["--engine", "host", "--backend", "fmi", "--profile", "trace"],
+     "--profile"),
+    (["--engine", "host", "-Z"], "requires the device engine"),
     (["--engine", "host", "--shards", "2"], "Queue 1 item 8"),
 ], ids=["device_engine", "fmi", "ert", "shards"])
 def test_cli_refuses_what_is_not_ported(golden_dir, capsys, flags, msg):
@@ -300,11 +301,14 @@ def test_cli_without_cuda_is_an_error(golden_dir, monkeypatch, capsys):
 
 
 def test_cli_index_refuses_what_is_not_ported(golden_dir, capsys):
-    for algo in ("mem2", "ert", "all"):
-        rc = cli.main(["index", str(golden_dir / "ref.fa"), "-a", algo,
-                       "-p", str(golden_dir / "other")])
-        assert rc == 1
-        assert "Queue 1 items 6-7" in capsys.readouterr().err
+    """Every index type of the JAX package's CLI is ported (-a mem2, ert and
+    all: tests/test_torch_fmi.py and test_torch_ert.py); a type it does not
+    have is refused before anything is built."""
+    for algo in ("bwt", "mlt"):
+        with pytest.raises(SystemExit):
+            cli.main(["index", str(golden_dir / "ref.fa"), "-a", algo,
+                      "-p", str(golden_dir / "other")])
+        assert "invalid choice" in capsys.readouterr().err
     assert not os.path.exists(str(golden_dir / "other.meme"))
 
 
