@@ -56,8 +56,13 @@ steps the kernel reports it ran.
 mem2's files, built at first use under .bench_cache/): fmi_smem at 4096 and
 16384 reads of seed's kind, fmi_backward_ext on 128 units a read and
 fmi_sa_lookup on a rank a read at both sizes, each a call made alone and
-the card's time a call with the host out of the way; then fmi_smem's
-heaviest read alone (by the extensions its thread ran) against the batch.
+the card's time a call with the host out of the way; then at 4096 reads
+fmi_smem's warp steps (forward extensions and backward chunks apart), its
+heaviest read alone (by the extensions it ran, the read a thread-a-read
+kernel is slowest on) and the read of the longest chain of warp steps
+alone, against the batch. To compare with an earlier commit's kernel,
+run that tree's own copy of this file in the same call (before the
+warp-a-read design, ``fmi`` there times its thread-a-read kernel).
 """
 
 from __future__ import annotations
@@ -315,12 +320,19 @@ def bench_fmi():
             fmi_sa_lookup=dict(ranks=n, **times(
                 lambda: fmi_search_cuda.sa_lookup(dfm, ranks))))
     batch = reads[:BATCH]
-    steps = eng._launch(batch, eng.max_smems, steps=True)[2].cpu().numpy()
-    top = int(np.argmax(steps))
-    yield dict(what=f"fmi_smem at {BATCH} reads: the heaviest read alone "
-               "against the batch", steps_max=int(steps.max()),
-               steps_mean=float(steps.mean()),
+    fwd, bwd, bwd_ext = eng._launch(batch, eng.max_smems,
+                                    steps=True)[2].cpu().numpy()
+    ext, chain = fwd + bwd_ext, fwd + bwd
+    top, slow = int(np.argmax(ext)), int(np.argmax(chain))
+    yield dict(what=f"fmi_smem at {BATCH} reads: the warp's steps, the "
+               "heaviest read and the longest chain alone against the batch",
+               extensions_max=int(ext.max()), heaviest=top,
+               heaviest_steps=[int(fwd[top]), int(bwd[top])],
+               steps_max=int(chain.max()), slowest=slow,
+               slowest_steps=[int(fwd[slow]), int(bwd[slow])],
+               steps_mean=[float(fwd.mean()), float(bwd.mean())],
                heaviest_alone=smem_times([batch[top]]),
+               slowest_alone=smem_times([batch[slow]]),
                batch=smem_times(batch))
 
 

@@ -1,7 +1,8 @@
 """ctypes wrappers of the Hopper FM-index kernels (csrc/fmi_search.cu):
 ``fmi_backward_ext`` (a thread a unit), ``fmi_sa_lookup`` (a thread a rank)
-and ``fmi_smem`` (a thread a read: the read's three SMEM rounds to their end
-in one launch).
+and ``fmi_smem`` (a warp a read: the read's three SMEM rounds to their end
+in one launch, each backward step's list of intervals split across the
+lanes).
 
 Checks, launch and launch counts are those of ops/launch.py. The plain
 PyTorch versions are ``DeviceFmIndex``'s methods (ops/fmi_search.py) and,
@@ -88,19 +89,21 @@ def smem(dfm: DeviceFmIndex, codes, lens, min_seed: int, split_len: int,
     slots (4, R, M) int32 start, end, k (the interval's first rank), s (its
     count) in FmiHostEngine's emission order; nsm (R,) int32, each read's
     emissions, more than M where some found no slot (the caller reruns
-    those reads with more). ``steps``, where given, (R,) int32: the
-    extensions each read ran, its thread's dependent steps."""
+    those reads with more). ``steps``, where given, (3, R) int32: each
+    read's forward extensions and its backward steps' chunks of 32 entries
+    (the warp's dependent steps, those two), and its backward extensions."""
     dev = cuda_device(codes, _WHAT)
     check(lens, "lens", torch.int32, (None,), dev)
     R = lens.shape[0]
     check(codes, "codes", torch.uint8, (R, None), dev)
     L = codes.shape[1]
     if steps is not None:
-        check(steps, "steps", torch.int32, (R,), dev)
+        check(steps, "steps", torch.int32, (3, R), dev)
     slots = torch.empty((4, R, M), dtype=torch.int32, device=dev)
     nsm = torch.empty((R,), dtype=torch.int32, device=dev)
-    # each read's intervals in flight: at most one a base, and one more
-    scratch = torch.empty((5, L + 1, R), dtype=torch.int32, device=dev)
+    # each read's intervals in flight (k, l, s, end): at most one a base,
+    # and one more
+    scratch = torch.empty((R, L + 1, 4), dtype=torch.int32, device=dev)
     if R:
         launch("fmi_smem", _entry("fmi_smem_launch"), dev,
                *_fmi_args(dfm, dev), codes.data_ptr(), L, lens.data_ptr(), R,

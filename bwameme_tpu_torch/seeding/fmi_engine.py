@@ -18,11 +18,12 @@ non ``-7`` backend) and the oracle of the device engine:
 
 ``FmiDeviceEngine`` is the port of bwameme_tpu/seeding/fmi_engine.py:212. On
 a CUDA device a batch is one launch of ``fmi_smem`` (csrc/fmi_search.cu), a
-thread running each read's machines to their end in FmiHostEngine's order;
-on the CPU it runs the JAX engine's own design, the per-read state machines
-on the host and each wave of extensions one batched call of the plain
-``backward_ext`` (``collect_smems_waves``, also what the kernel is held
-against on the card).
+warp running each read's machines to their end in FmiHostEngine's order,
+the forward passes one chain of every lane and each backward step's list
+split across the lanes; on the CPU it runs the JAX engine's own design,
+the per-read state machines on the host and each wave of extensions one
+batched call of the plain ``backward_ext`` (``collect_smems_waves``, also
+what the kernel is held against on the card).
 
 Both emit the Smem tuples of the learned-index engines (start, end, sa_lo,
 hitcount) with sa_lo in THIS index's suffix-array coordinates; hit positions
@@ -510,7 +511,7 @@ class FmiDeviceEngine:
         """fmi_smem over an uploaded batch (``_upload``)."""
         from bwameme_tpu_torch.ops import fmi_search_cuda
 
-        st = (torch.zeros(lens.shape[0], dtype=torch.int32,
+        st = (torch.zeros((3, lens.shape[0]), dtype=torch.int32,
                           device=self.device) if steps else None)
         opt = self.opt
         slots, nsm = fmi_search_cuda.smem(

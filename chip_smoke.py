@@ -2450,7 +2450,12 @@ def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
     against FmiHostEngine in emission order, timed there with its bound
     from the waves' work; and against FmiHostEngine on the side genome's
     FMI_SIDE_READS reads and on the stress reads (the oracle's process
-    computed the scalar engine's). Returns the kernels' rows."""
+    computed the scalar engine's); the main batch's warp steps by round
+    (launched again with round 2, then rounds 2 and 3, off by their
+    options). Returns the kernels' rows."""
+    import copy
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2584,7 +2589,30 @@ def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
     # timed on the batch already on the card, as the other kernels are
     codes, lens = eng._upload(batch)
     kern = lambda: eng._smem(codes, lens, eng.max_smems)
-    k_steps = eng._smem(codes, lens, eng.max_smems, steps=True)[2]
+    _, k_nsm, k_steps = eng._smem(codes, lens, eng.max_smems, steps=True)
+    # the warp's dependent steps: forward extensions and backward chunks of
+    # 32 entries; with the backward extensions, the waves' extensions
+    fwd, bwd, bwd_ext = (x.cpu().numpy().astype(np.int64) for x in k_steps)
+    chain = fwd + bwd
+    slow = int(np.argmax(chain))
+    if int(k_nsm.max()) <= eng.max_smems:
+        check(int((fwd + bwd_ext).sum()) == work.extensions,
+              f"fmi_smem ran {int((fwd + bwd_ext).sum())} extensions, the "
+              f"waves {work.extensions}")
+
+    def steps_without(**off):
+        """(forward, backward chunks) of each read, rounds off"""
+        e = copy.copy(eng)
+        e.opt = dataclasses.replace(opt, **off)
+        st = e._smem(codes, lens, eng.max_smems, steps=True)[2][:2]
+        return st.cpu().numpy().astype(np.int64)
+
+    # rounds 2 and 3 change neither round 1 nor each other's steps
+    r13 = steps_without(split_width=-1)
+    r1 = steps_without(split_width=-1, max_mem_intv=0)
+    by_round = [r1, np.stack([fwd, bwd]) - r13, r13 - r1]
+    slow_by_round = [[int(x[0, slow]), int(x[1, slow])] for x in by_round]
+    chain_r2 = by_round[1].sum(0)
     n_sm = sum(map(len, got))
     # the occ blocks every extension stands on, the reads read and the
     # lengths, each SMEM (start, end, k, s) written once
@@ -2595,10 +2623,16 @@ def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
         bound_ms=(work.sectors() * SECTOR + codes.numel() + 4 * len(batch)
                   + 16 * n_sm) / HBM_BPS * 1e3,
         answer_sectors=work.sectors(), extensions=work.extensions,
-        kernel_extensions=int(k_steps.sum()),
+        kernel_extensions=int((fwd + bwd_ext).sum()),
         latency_steps=int(work.waves.max()),
         latency_bound_ms=int(work.waves.max()) * chain_us / 1e3,
-        kernel_steps_max=int(k_steps.max()), reruns=reruns)
+        kernel_steps_max=int(chain.max()),
+        kernel_steps_slowest=[int(fwd[slow]), int(bwd[slow])],
+        kernel_steps_total=[int(fwd.sum()), int(bwd.sum())],
+        kernel_steps_slowest_by_round=slow_by_round,
+        kernel_steps_max_round2=int(chain_r2.max()),
+        kernel_steps_max_without_round2=int(r13.sum(0).max()),
+        reruns=reruns)
     log(f"fmi_smem on {BATCH} main reads at {GENOME_MBP:g} Mbp ({n_sm} "
         f"SMEMs) == the plain wave engine, its first {N_CMP} == "
         f"FmiHostEngine in emission order; == FmiHostEngine on "
@@ -2607,8 +2641,13 @@ def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
         f"{reruns} rerun launches), the stress reads == the waves; main "
         f"reads: {work.extensions} extensions in {int(work.waves.max())} "
         f"waves at most a read, {work.sectors()} distinct sectors of occ "
-        f"blocks; the kernel's threads {int(k_steps.max())} extensions at "
-        f"most; kernel {report['fmi_smem']['ms']:.4f} ms alone, "
+        f"blocks; the kernel's warps {int(chain.max())} steps at most "
+        f"({int(fwd[slow])} forward, {int(bwd[slow])} backward chunks; "
+        f"{int(fwd.sum())} and {int(bwd.sum())} in all; the slowest "
+        f"read's (forward, backward) by round {slow_by_round}, round 2's "
+        f"{int(chain_r2.max())} steps at most a read, rounds 1 and 3 "
+        f"{int(r13.sum(0).max())}); kernel "
+        f"{report['fmi_smem']['ms']:.4f} ms alone, "
         f"{report['fmi_smem']['device_ms']:.4f} ms on the card, waves "
         f"{plain_s * 1e3:.0f} ms")
 

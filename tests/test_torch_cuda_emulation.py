@@ -17,6 +17,7 @@ card can show
 (that nvcc accepts the source, the float intrinsics' rounding, races between
 lanes that a lock-step run cannot have, timing) is chip_smoke.py's."""
 
+import dataclasses
 import os
 import re
 import shutil
@@ -41,7 +42,7 @@ from bwameme_tpu_torch.ops import sw_full, sw_full_cuda
 from bwameme_tpu_torch.index.fmindex import build_fm_index
 from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
 from bwameme_tpu_torch.seeding.fmi_engine import FmiDeviceEngine, FmiHostEngine
-from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine
+from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine, Smem
 from bwameme_tpu_torch.utils.config import MemOptions
 
 SHIM_HEADER = r"""// A stand-in for <cuda_runtime.h> that lets g++ compile the port's CUDA
@@ -253,7 +254,7 @@ LAUNCH = re.compile(
 DYNAMIC_SHARED = re.compile(r"extern __shared__ int (\w+)\[\];")
 # name -> (launches in the source, extra g++ flags)
 EMULATED = {"seed_smem": (5, ("-DEMU_FIBERS",)), "gather_bench": (2, ()),
-            "fmi_search": (3, ()),
+            "fmi_search": (3, ("-DEMU_FIBERS",)),
             "banded_sw": (2, ("-DEMU_FIBERS",)),
             "sw_full": (2, ("-DEMU_FIBERS",))}
 
@@ -805,37 +806,197 @@ def test_fmi_primitive_kernels(fmi_world, on_emulation):
     assert launch.stats.launches["fmi_sa_lookup"] == 1
 
 
-@pytest.mark.parametrize("slots", [128, 3], ids=["M128", "M3_overflows"])
-def test_fmi_smem_kernel_in_the_host_engines_order(fmi_world, on_emulation,
-                                                   monkeypatch, slots):
-    """fmi_smem, a thread a read, through the engine: each read's SMEMs in
-    FmiHostEngine's emission order; at 3 slots a read the reads that outgrow
-    them are seeded again with room for all (no emission is lost), and the
-    flat path hands the batch to the whole-plane one."""
-    idx, fm, reads = fmi_world
-    opt = MemOptions()
-    monkeypatch.setattr(fmi_search, "_on_cuda", lambda x: True)
+class CountingHostEngine(FmiHostEngine):
+    """FmiHostEngine that counts its extensions (a forward extension is one
+    backward extension of the complement) and records each backward step of
+    its round-1/2 passes as (prev, base, min_intv, emitted, curr)."""
+
+    def backward_ext(self, k, l, s, a):
+        self.extensions += 1
+        return super().backward_ext(k, l, s, a)
+
+    def _one_pos(self, codes, x, min_intv, min_seed, out):
+        """FmiHostEngine._one_pos (a copy of it), recording its backward
+        steps."""
+        l_seq = len(codes)
+        a = int(codes[x])
+        next_x = x + 1
+        if a >= 4:
+            return next_x
+        k, l, s = self._init_intv(a)
+        m, n = x, x
+        prev = []
+        j = x + 1
+        while j < l_seq:
+            a = int(codes[j])
+            next_x = j + 1
+            if a >= 4:
+                break
+            nk, nl, ns = self.forward_ext(k, l, s, a)
+            if ns != s:
+                prev.append((k, l, s, m, n))
+            if ns < min_intv:
+                next_x = j
+                break
+            k, l, s, n = nk, nl, ns, j
+            j += 1
+        if s >= min_intv:
+            prev.append((k, l, s, m, n))
+        prev.reverse()
+        for j in range(x - 1, -1, -1):
+            a = int(codes[j])
+            if a >= 4:
+                break
+            curr = []
+            curr_s = -1
+            p = 0
+            emitted = False
+            while p < len(prev):
+                pk, pl, ps, pm, pn = prev[p]
+                nk, nl, ns = self.backward_ext(pk, pl, ps, a)
+                if ns < min_intv and (pn - pm + 1) >= min_seed:
+                    out.append(Smem(pm, pn + 1, pk, ps))
+                    emitted = True
+                    p += 1
+                    break
+                if ns >= min_intv and ns != curr_s:
+                    curr_s = ns
+                    curr.append((nk, nl, ns, j, pn))
+                    p += 1
+                    break
+                p += 1
+            while p < len(prev):
+                pk, pl, ps, pm, pn = prev[p]
+                nk, nl, ns = self.backward_ext(pk, pl, ps, a)
+                if ns >= min_intv and ns != curr_s:
+                    curr_s = ns
+                    curr.append((nk, nl, ns, j, pn))
+                p += 1
+            self.trace.append((prev, a, min_intv, emitted, curr))
+            prev = curr
+            if not prev:
+                break
+        if prev:
+            pk, pl, ps, pm, pn = prev[0]
+            if pn - pm + 1 >= min_seed:
+                out.append(Smem(pm, pn + 1, pk, ps))
+        return next_x
+
+    def run(self, reads):
+        """Each read's SMEMs in emission order, its extensions, and the
+        backward steps."""
+        lists, ext, self.trace = [], [], []
+        for c in reads:
+            self.extensions = 0
+            lists.append([(s.start, s.end, s.sa_lo, s.hitcount)
+                          for s in self.collect_smems(np.asarray(c))])
+            ext.append(self.extensions)
+        return lists, np.array(ext), self.trace
+
+
+def check_fmi_smem(idx, fm, reads, slots, opt=MemOptions()):
+    """fmi_smem through the engine against FmiHostEngine: each read's SMEMs
+    in emission order (at a few slots a read, with the reruns of the reads
+    that outgrow them, and the flat path then handing the batch to the
+    whole-plane one); the warp's steps at most, and its extensions exactly,
+    the host's extensions. Returns the host's lists and trace."""
     eng = FmiDeviceEngine(idx, opt, fm=fm, device="cpu")
     eng.max_smems = slots
-    host = FmiHostEngine(idx, opt, fm=fm)
-    want = [[(s.start, s.end, s.sa_lo, s.hitcount)
-             for s in host.collect_smems(np.asarray(c))] for c in reads]
+    want, ext, trace = CountingHostEngine(idx, opt, fm=fm).run(reads)
     got = eng.collect_smems_batch(reads)
     assert [[(s.start, s.end, s.sa_lo, s.hitcount) for s in x]
             for x in got] == want
-    assert sum(map(len, want)) > 100
     flat = eng.sorted_smems_batch_flat(reads)
-    if slots == 3:
+    if slots < 128:
         assert eng.reruns == 1 and flat is None
-        assert max(map(len, want)) > 2 * slots
     else:
         assert eng.reruns == 0
         assert [[(s.start, s.end, s.sa_lo, s.hitcount) for s in x]
                 for x in flat.to_lists()] == [sorted(x) for x in want]
-    steps = torch.zeros(len(reads), dtype=torch.int32)
-    eng._launch(reads, 128, steps=True)
-    assert bool((steps >= 0).all())
+    steps = eng._launch(reads, 128, steps=True)[2].numpy()
+    assert np.array_equal(steps[0] + steps[2], ext)
+    assert (steps[0] + steps[1] <= ext).all() and (steps[1] > 0).any()
     assert launch.stats.launches["fmi_smem"] >= 2
+    return want, trace
+
+
+@pytest.mark.parametrize("slots", [128, 3], ids=["M128", "M3_overflows"])
+def test_fmi_smem_kernel_in_the_host_engines_order(fmi_world, on_emulation,
+                                                   monkeypatch, slots):
+    """fmi_smem, a warp a read, through the engine on the world's reads (a
+    600-base one among them)."""
+    idx, fm, reads = fmi_world
+    monkeypatch.setattr(fmi_search, "_on_cuda", lambda x: True)
+    want, _ = check_fmi_smem(idx, fm, reads, slots)
+    assert sum(map(len, want)) > 100 and max(map(len, want)) > 2 * 3
+
+
+@pytest.fixture(scope="module")
+def fmi_family():
+    """A genome with a repeat family, 40 copies of a 200 bp unit, copy i
+    mutated at offset i, so that a forward pass over the unit's first 40
+    bases loses one hit a base, and three copies in four also at offset
+    127, so that a backward step over it gives runs of four equal counts.
+    Reads: the unit's reverse complement from offsets 0 to 7 with a
+    substitution 20 or 30 bases in (round 1 pivots past it, and its
+    backward steps take lists of some 45 intervals across offset 127, or
+    back to the substitution, where all of them die), and unit reads of
+    both strands with up to two substitutions."""
+    rng = np.random.default_rng(53)
+    n, unit_len, copies = 20000, 200, 40
+    code = rng.integers(0, 4, n).astype(np.uint8)
+    unit = rng.integers(0, 4, unit_len).astype(np.uint8)
+    for i in range(copies):
+        st = 2000 + 400 * i
+        code[st:st + unit_len] = unit
+        for q in (i, 127) if i % 4 else (i,):
+            code[st + q] = (unit[q] + rng.integers(1, 4)) % 4
+    bns = bntseq.BntSeq(l_pac=n, contigs=[bntseq.Contig("f", "", 0, n, 0)],
+                        ambs=[], code=code)
+    reads = []
+    for o in range(8):
+        for sub in (20, 30):
+            c = (3 - unit[o:o + 151])[::-1].copy()
+            c[sub] = (c[sub] + 1) % 4
+            reads.append(c)
+    for r in range(4):
+        o = int(rng.integers(0, unit_len - 151 + 1))
+        c = unit[o:o + 151].copy()
+        for _ in range(int(rng.integers(0, 3))):
+            q = int(rng.integers(0, 151))
+            c[q] = (c[q] + 1) % 4
+        reads.append((3 - c)[::-1].copy() if r % 2 else c)
+    return build_index(bns, rmi_bits=8), build_fm_index(code), reads
+
+
+@pytest.mark.parametrize("slots", [128, 3], ids=["M128", "M3_overflows"])
+@pytest.mark.parametrize("rounds", ["all", "no_round2"])
+def test_fmi_smem_kernel_on_lists_longer_than_a_warp(fmi_family, on_emulation,
+                                                     monkeypatch, slots,
+                                                     rounds):
+    """fmi_smem on the repeat family's reads, with every round and with
+    round 2 off by its options (as chip_smoke.py splits the warp's steps by
+    round): FmiHostEngine's SMEMs in emission order. The host's own backward steps show what the lanes must get
+    right: lists of more than 32 intervals, a first event that is an
+    emission followed by kept survivors, survivors of equal counts on both
+    sides of entry 32 (the second is dropped), and steps in which entry 32,
+    past the first event, dies long enough to be an SMEM (and is not
+    emitted)."""
+    idx, fm, reads = fmi_family
+    monkeypatch.setattr(fmi_search, "_on_cuda", lambda x: True)
+    opt = MemOptions()
+    if rounds == "no_round2":
+        opt = dataclasses.replace(opt, split_width=-1)
+    _, trace = check_fmi_smem(idx, fm, reads, slots, opt)
+    host = FmiHostEngine(idx, MemOptions(), fm=fm)
+    assert max(len(prev) for prev, *_ in trace) > 32
+    assert any(emitted and curr for *_, emitted, curr in trace)
+    counts = [(prev, [host.backward_ext(*e[:3], a)[2] for e in prev[:33]],
+               min_intv) for prev, a, min_intv, *_ in trace if len(prev) > 32]
+    assert any(ns[31] == ns[32] >= min_intv for _, ns, min_intv in counts)
+    min_seed = MemOptions().min_seed_len
+    assert any(ns[32] < min_intv and prev[32][4] - prev[32][3] + 1 >= min_seed
+               for prev, ns, min_intv in counts)
 
 
 def test_wide_prmi_window_on_a_human_scale_leaf_table(on_emulation):

@@ -101,8 +101,8 @@ def test_planes_of_each_layout_equal_jax(planes, mode, wide):
         assert torch.equal(getattr(back, name), t)
 
 
-def test_the_kmer_root_is_not_ported(planes):
-    """The k-mer (ERT) root, now ported: from_host(ert_bits=) builds
+def test_device_index_builds_the_jax_kmer_table(planes):
+    """The k-mer (ERT) root: from_host(ert_bits=) builds
     the JAX package's table (bits from pick_ert_bits at 0) in the rank type,
     beside the mode's planes, and the index's root becomes "kmer"."""
     idx = planes[0]

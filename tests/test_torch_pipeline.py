@@ -281,7 +281,7 @@ def test_cli_default_engine_is_the_device_engine(golden_dir, tmp_path,
      "--profile"),
     (["--engine", "host", "-Z"], "requires the device engine"),
     (["--engine", "host", "--shards", "2"], "Queue 1 item 8"),
-], ids=["device_engine", "fmi", "ert", "shards"])
+], ids=["dp_shards", "profile", "ert_host", "shards"])
 def test_cli_refuses_what_is_not_ported(golden_dir, capsys, flags, msg):
     reads = str(golden_dir / "reads_se.fq")
     rc = cli.main(["mem", str(golden_dir / "idx"), reads, *flags])
