@@ -15,6 +15,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CACHE = os.path.join(ROOT, ".bench_cache")
+HBM_BPS = 3.35e12   # an H100's device memory, bytes a second
+SECTOR = 32
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -67,6 +69,57 @@ def queued_us(fn, n: int = 400) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n * 1e3
+
+
+def ptxas_usage(build_log: str, kernel: str) -> dict:
+    """Registers, spill bytes and stack frame bytes that ptxas reported for
+    a kernel's entry, found by a part of its (mangled) name (None when the
+    libraries were already built and nothing was compiled)."""
+    import re
+
+    usage = dict(registers=None, spill_stores=None, spill_loads=None,
+                 stack_frame=None)
+    entry = props = False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = kernel in line
+        elif "Function properties for" in line:
+            props = kernel in line
+        elif props and "stack frame" in line:
+            usage["stack_frame"] = int(re.search(
+                r"(\d+) bytes stack frame", line).group(1))
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            usage.update(spill_stores=int(st), spill_loads=int(ld))
+            props = False
+        elif entry and "registers" in line:
+            usage["registers"] = int(re.search(r"Used (\d+) registers",
+                                               line).group(1))
+    return usage
+
+
+def two_array_sectors(blocks) -> int:
+    """The 32-byte sectors that FM-index occ blocks (ids, repeats allowed)
+    take in the two-array layout, a 16-byte count record (two a sector) and
+    a 32-byte bitmap record a block: the yardstick beside the record
+    layout's one sector a block (ops.fmi_search.block_sectors)."""
+    import torch
+
+    blk = torch.unique(blocks)
+    return int(torch.unique(blk >> 1).numel() + blk.numel())
+
+
+def fmi_row(sectors: int, old_sectors: int, other_bytes: int,
+            device_ms: float) -> dict:
+    """An FM-index kernel's byte bound over HBM_BPS: its distinct occ
+    blocks, a sector each, and the other bytes it must move; beside it the
+    same blocks in the two-array layout; the random-sector rate it reaches
+    (the blocks' bytes over its time on the card, TB/s)."""
+    return dict(
+        bound_ms=(sectors * SECTOR + other_bytes) / HBM_BPS * 1e3,
+        bound_ms_two_arrays=(old_sectors * SECTOR + other_bytes)
+        / HBM_BPS * 1e3,
+        distinct_blocks=sectors,
+        sector_tbs=sectors * SECTOR / device_ms / 1e9)
 
 
 def random_pairs(rng, B: int, Q: int, T: int, w: int):

@@ -16,17 +16,24 @@
 //
 // The index is int32 throughout, as in the JAX package (its text, forward +
 // reverse complement + sentinel, is below 2^31 bases; ops/fmi_search.py
-// checks it). occ(b, p) is the 64-base block's checkpoint count plus the
-// popcount of base b's one-hot bitmap under the block's first p & 63 bases,
-// most significant bit first: a block is one 16-byte load of its four
-// counts and two 16-byte loads of its eight bitmap words, so an extension,
-// which needs the blocks of k and k + s, is one dependent step.
+// checks it). A 64-base block of the BWT is one 32-byte record, one sector:
+// the occ of the four bases at the block's start (four int32), then the
+// block's 64 codes as two 64-bit bit planes, H the high bit of each code
+// and L the low bit, bit o for the block's base o. The sentinel has no
+// base: its slot holds code 0, and occ(0, p) takes it out again when it
+// lies in [64 blk, p); the LF walk finds it by p == sentinel, a compare
+// with no load. occ(b, p) is the record's count of b plus the popcount of
+// b's match plane (H & L for 3, H & ~L for 2, ~H & L for 1, ~(H | L) for
+// 0) under the block's first p & 63 bases. A record is two 16-byte loads
+// of one sector, issued together; an extension needs the records of k and
+// of k + s, one when they are one block, so it is one dependent step.
 //
 // What bounds fmi_smem on this card is not bytes (a 4096-read batch stands
-// on some 58 MB of occ blocks, 0.018 ms at 3.35 TB/s) but the slowest read's
-// chain of dependent occ loads, 0.5 us each, and on a full card how many
-// such chains an SM keeps going (on an H100, a 4096-read batch at 100 Mbp
-// takes 2.5x its slowest read alone). A thread a read made every extension
+// on some 33 MB of occ blocks, 0.010 ms at 3.35 TB/s) but the slowest read's
+// chain of dependent occ loads, 0.5 us each, and on a full card the work an
+// SM does a step for its warps (on an H100, a 4096-read batch at 100 Mbp
+// takes 1.9x its slowest read alone, 2.5x with an occ block in two arrays,
+// three loads on two lines). A thread a read made every extension
 // a step of that chain, the backward pass's too, and a warp ran the union
 // of its 32 reads' branches. So the design is a warp a read, four reads a
 // block (a 4096-read batch is 1024 blocks over all 132 SMs):
@@ -67,34 +74,59 @@ constexpr int SA_COMPX_MASK = (1 << SA_COMPX) - 1;
 constexpr int THREADS = 128;
 
 struct Fmi {
-    const int4* cp_count;   // (nb) occ of the four bases at block starts
-    const uint4* cp_bits;   // (nb, 2) words (base, word) of a block's bitmaps
+    const int4* occ;        // (nb, 2) a block's record: counts, (H, L)
     const int32_t* sa_comp; // ((n >> 3) + 1) every 8th suffix position
     int count[5];           // first rank of each base, count[4] = n + 1
     int nb;
     int sentinel;
 };
 
-// mask with the top nbits (clipped to 0..32) bits set
-__device__ __forceinline__ uint32_t high_mask(int nbits) {
-    if (nbits <= 0) return 0u;
-    if (nbits >= 32) return FULL;
-    return ~(FULL >> nbits);
+// a block's record in registers
+struct Blk {
+    int4 c;          // occ of bases 0-3 at the block's start
+    uint64_t h, l;   // the high and the low bit planes of its codes
+};
+
+// the block of rank p, 0 <= p <= n + 1
+__device__ __forceinline__ int block_of(const Fmi& f, int p) {
+    const int blk = p >> 6;
+    return blk < f.nb - 1 ? blk : f.nb - 1;
 }
 
-// occ of the four bases in bwt[0:p), 0 <= p <= n + 1
-__device__ __forceinline__ void occ4(const Fmi& f, int p, int o[4]) {
-    int blk = p >> 6;
-    if (blk > f.nb - 1) blk = f.nb - 1;
-    const int off = p & 63;
-    const int4 c = __ldg(f.cp_count + blk);
-    const uint4 w01 = __ldg(f.cp_bits + 2 * blk);
-    const uint4 w23 = __ldg(f.cp_bits + 2 * blk + 1);
-    const uint32_t m0 = high_mask(off), m1 = high_mask(off - 32);
-    o[0] = c.x + __popc(w01.x & m0) + __popc(w01.y & m1);
-    o[1] = c.y + __popc(w01.z & m0) + __popc(w01.w & m1);
-    o[2] = c.z + __popc(w23.x & m0) + __popc(w23.y & m1);
-    o[3] = c.w + __popc(w23.z & m0) + __popc(w23.w & m1);
+// both halves of a record, one sector, issued back to back
+__device__ __forceinline__ Blk load_block(const Fmi& f, int blk) {
+    const int4 c = __ldg(f.occ + 2 * blk);
+    const int4 w = __ldg(f.occ + 2 * blk + 1);
+    return Blk{c, (uint64_t)(uint32_t)w.y << 32 | (uint32_t)w.x,
+               (uint64_t)(uint32_t)w.w << 32 | (uint32_t)w.z};
+}
+
+// v[a] of four values, a select chain (no local array)
+__device__ __forceinline__ int pick(int a, int v0, int v1, int v2, int v3) {
+    return a == 0 ? v0 : a == 1 ? v1 : a == 2 ? v2 : v3;
+}
+
+// the bases under p & 63 in its block
+__device__ __forceinline__ uint64_t below(int p) {
+    return (1ull << (p & 63)) - 1ull;
+}
+
+// occ(a, p) from p's record x of block blk; the sentinel's slot, code 0, is
+// no base
+__device__ __forceinline__ int occ_at(const Fmi& f, const Blk& x, int blk,
+                                      int p, int a) {
+    const uint64_t m = ((a & 2) ? x.h : ~x.h) & ((a & 1) ? x.l : ~x.l);
+    const int sent = (a == 0 && p > f.sentinel && f.sentinel >= blk << 6);
+    return pick(a, x.c.x, x.c.y, x.c.z, x.c.w) + __popcll(m & below(p))
+           - sent;
+}
+
+// the bases greater than a in bwt[0:p), from p's record x
+__device__ __forceinline__ int occ_above(const Blk& x, int p, int a) {
+    const uint64_t m = a == 0 ? x.h | x.l : a == 1 ? x.h : a == 2 ? x.h & x.l
+                                                                  : 0ull;
+    return pick(a, x.c.y + x.c.z + x.c.w, x.c.z + x.c.w, x.c.w, 0)
+           + __popcll(m & below(p));
 }
 
 struct Intv {
@@ -102,22 +134,23 @@ struct Intv {
 };
 
 // backward extension of (k, l, s) by base a, with the sentinel rule for the
-// complement side (reference: src/FMI_search.cpp:1039-1067); both blocks'
-// loads are issued before either is used
+// complement side (reference: src/FMI_search.cpp:1039-1067): l of base a's
+// child is l, plus the sentinel if it lies in [k, k + s), plus the bases
+// greater than a there. Both records' loads are issued before either is
+// used, and one is loaded when k and k + s share a block.
 __device__ __forceinline__ Intv backward_ext(const Fmi& f, int k, int l,
                                              int s, int a) {
-    int ok[4], oks[4];
-    occ4(f, k, ok);
-    occ4(f, k + s, oks);
-    const int sent = (k <= f.sentinel && k + s > f.sentinel) ? 1 : 0;
-    const int l3 = l + sent;
-    const int l2 = l3 + (oks[3] - ok[3]);
-    const int l1 = l2 + (oks[2] - ok[2]);
-    const int l0 = l1 + (oks[1] - ok[1]);
+    const int e = k + s;
+    const int bk = block_of(f, k), be = block_of(f, e);
+    const Blk x = load_block(f, bk);
+    Blk y = x;
+    if (be != bk) y = load_block(f, be);
+    const int ok = occ_at(f, x, bk, k, a);
+    const int sent = (k <= f.sentinel && e > f.sentinel) ? 1 : 0;
     Intv r;
-    r.k = f.count[a] + ok[a];
-    r.s = oks[a] - ok[a];
-    r.l = a == 0 ? l0 : a == 1 ? l1 : a == 2 ? l2 : l3;
+    r.k = pick(a, f.count[0], f.count[1], f.count[2], f.count[3]) + ok;
+    r.s = occ_at(f, y, be, e, a) - ok;
+    r.l = l + sent + occ_above(y, e, a) - occ_above(x, k, a);
     return r;
 }
 
@@ -347,36 +380,27 @@ __global__ void fmi_backward_ext_kernel(Fmi f, const int32_t* k,
     out[2 * n + i] = r.s;
 }
 
-// the BWT base at rank p from the bitmaps, 4 at the sentinel
-__device__ __forceinline__ int bwt_base(const Fmi& f, int p) {
-    const int off = p & 63;
-    const uint4 w01 = __ldg(f.cp_bits + 2 * (p >> 6));
-    const uint4 w23 = __ldg(f.cp_bits + 2 * (p >> 6) + 1);
-    const bool hi = off >= 32;
-    const uint32_t bit = 1u << (31 - (off & 31));
-    if ((hi ? w01.y : w01.x) & bit) return 0;
-    if ((hi ? w01.w : w01.z) & bit) return 1;
-    if ((hi ? w23.y : w23.x) & bit) return 2;
-    if ((hi ? w23.w : w23.z) & bit) return 3;
-    return 4;
-}
-
 // a thread a rank: LF-walk to a stored entry of the compressed suffix array
-// or to the sentinel (reference: src/FMI_search.cpp:1117-1180)
+// or to the sentinel (reference: src/FMI_search.cpp:1117-1180). A step is
+// one dependent record load, issued before any branch: the base, the
+// sentinel test and occ(b, sp) all come from its registers.
 __global__ void fmi_sa_lookup_kernel(Fmi f, const int32_t* rank, int n,
                                      int32_t* pos) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     int sp = rank[i], offset = 0;
     while (sp & SA_COMPX_MASK) {
-        const int b = bwt_base(f, sp);
-        if (b == 4) {
+        const int blk = block_of(f, sp);
+        const Blk x = load_block(f, blk);
+        if (sp == f.sentinel) {
             pos[i] = offset;
             return;
         }
-        int o[4];
-        occ4(f, sp, o);
-        sp = f.count[b] + o[b];
+        const int off = sp & 63;
+        const int b = (int)((x.h >> off) & 1ull) << 1
+                      | (int)((x.l >> off) & 1ull);
+        sp = pick(b, f.count[0], f.count[1], f.count[2], f.count[3])
+             + occ_at(f, x, blk, sp, b);
         ++offset;
     }
     pos[i] = __ldg(f.sa_comp + (sp >> SA_COMPX)) + offset;
@@ -384,12 +408,10 @@ __global__ void fmi_sa_lookup_kernel(Fmi f, const int32_t* rank, int n,
 
 // ------------------------------------------------------------- launchers
 
-static Fmi make_fmi(const void* count, const void* cp_count,
-                    const void* cp_bits, const void* sa_comp, int nb,
-                    int sentinel) {
+static Fmi make_fmi(const void* count, const void* occ, const void* sa_comp,
+                    int nb, int sentinel) {
     Fmi f;
-    f.cp_count = (const int4*)cp_count;
-    f.cp_bits = (const uint4*)cp_bits;
+    f.occ = (const int4*)occ;
     f.sa_comp = (const int32_t*)sa_comp;
     for (int b = 0; b < 5; ++b) f.count[b] = ((const int32_t*)count)[b];
     f.nb = nb;
@@ -399,11 +421,12 @@ static Fmi make_fmi(const void* count, const void* cp_count,
 
 static int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
-// count: the five counts on the host (a kernel parameter)
+// count: the five counts on the host (a kernel parameter); occ: the (nb, 8)
+// int32 records, 32-byte aligned
 #define FMI_PARAMS                                                          \
-    const void *count, const void *cp_count, const void *cp_bits,          \
-        const void *sa_comp, int nb, int sentinel
-#define FMI_ARGS make_fmi(count, cp_count, cp_bits, sa_comp, nb, sentinel)
+    const void *count, const void *occ, const void *sa_comp, int nb,       \
+        int sentinel
+#define FMI_ARGS make_fmi(count, occ, sa_comp, nb, sentinel)
 
 extern "C" {
 

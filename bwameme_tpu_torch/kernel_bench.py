@@ -56,7 +56,14 @@ steps the kernel reports it ran.
 mem2's files, built at first use under .bench_cache/): fmi_smem at 4096 and
 16384 reads of seed's kind, fmi_backward_ext on 128 units a read and
 fmi_sa_lookup on a rank a read at both sizes, each a call made alone and
-the card's time a call with the host out of the way; then at 4096 reads
+the card's time a call with the host out of the way; the primitives held
+against their plain versions, and each kernel's byte bound (its distinct
+occ blocks, one 32-byte sector each, and its other bytes over 3.35 TB/s),
+the same blocks' bound in the two-array layout (a 16-byte count record and
+a 32-byte bitmap record a block), and the random-sector rate it reaches
+(the blocks' bytes over its time on the card; fmi_smem's blocks at 4096
+reads, from the plain wave engine's run); ptxas's registers and stack
+frame where this process built the kernels; then at 4096 reads
 fmi_smem's warp steps (forward extensions and backward chunks apart), its
 heaviest read alone (by the extensions it ran, the read a thread-a-read
 kernel is slowest on) and the read of the longest chain of warp steps
@@ -277,10 +284,15 @@ def bench_fmi():
     from bwameme_tpu_torch import bench_util as bu
     from bwameme_tpu_torch.index.build import load_index
     from bwameme_tpu_torch.index.fmindex import load_fm_index
-    from bwameme_tpu_torch.ops import fmi_search_cuda
-    from bwameme_tpu_torch.seeding.fmi_engine import FmiDeviceEngine
+    from bwameme_tpu_torch.ops import build, fmi_search, fmi_search_cuda
+    from bwameme_tpu_torch.seeding.fmi_engine import (FmiDeviceEngine,
+                                                      FmiWork)
     from bwameme_tpu_torch.utils.config import MemOptions
 
+    log = build.build().log
+    yield dict(what="ptxas, the FM-index kernels (None: built before)",
+               **{k: bu.ptxas_usage(log, f"{k}_kernel") for k in (
+                   "fmi_backward_ext", "fmi_sa_lookup", "fmi_smem")})
     dev = torch.device("cuda", 0)
     idx = load_index(bu.get_index(SEED_MBP))
     fm = load_fm_index(bu.get_fm_index(SEED_MBP))
@@ -294,6 +306,14 @@ def bench_fmi():
         return dict(alone_ms=[bu.cuda_ms(fn, 10) for _ in range(2)],
                     device_ms=[bu.queued_us(fn, queued) / 1e3
                                for _ in range(2)])
+
+    def bounds(row, blocks, other_bytes):
+        """The byte bounds and the random-sector rate (bench_util.fmi_row)
+        of a row's blocks, at its fastest time on the card."""
+        row.update(bu.fmi_row(
+            fmi_search.block_sectors(blocks), bu.two_array_sectors(blocks),
+            other_bytes, min(row["device_ms"])))
+        return row
 
     def smem_times(batch):
         """fmi_smem on the batch already on the card: the launch alone,
@@ -312,20 +332,34 @@ def bench_fmi():
         ranks = torch.from_numpy(rng.integers(0, n1, n).astype(
             np.int32)).to(dev)
         batch = reads[:n]
+        ext = lambda: fmi_search_cuda.backward_ext(dfm, *units)
+        look = lambda: fmi_search_cuda.sa_lookup(dfm, ranks)
+        visited = []
+        if not (torch.equal(ext(), fmi_search.backward_ext_torch(dfm, *units))
+                and torch.equal(look(), fmi_search.sa_lookup_torch(
+                    dfm, ranks, visited=visited))):
+            raise RuntimeError("an FM-index kernel differs from its plain "
+                               "version")
         yield dict(
             what=f"the FM-index kernels at {n} reads",
             fmi_smem=smem_times(batch),
-            fmi_backward_ext=dict(units=u, **times(
-                lambda: fmi_search_cuda.backward_ext(dfm, *units))),
-            fmi_sa_lookup=dict(ranks=n, **times(
-                lambda: fmi_search_cuda.sa_lookup(dfm, ranks))))
+            fmi_backward_ext=bounds(dict(units=u, **times(ext)),
+                                    fmi_search.ext_blocks(units[0], units[2]),
+                                    u * (16 + 12)),
+            fmi_sa_lookup=bounds(dict(ranks=n, **times(look)),
+                                 torch.cat(visited), n * (4 + 4 + 4)))
     batch = reads[:BATCH]
-    fwd, bwd, bwd_ext = eng._launch(batch, eng.max_smems,
-                                    steps=True)[2].cpu().numpy()
+    work = FmiWork(len(batch))
+    eng.collect_smems_waves(batch, work)
+    codes, lens = eng._upload(batch)
+    _, nsm, k_steps = eng._smem(codes, lens, eng.max_smems, steps=True)
+    n_sm = int(torch.clamp(nsm, max=eng.max_smems).sum())
+    fwd, bwd, bwd_ext = k_steps.cpu().numpy()
     ext, chain = fwd + bwd_ext, fwd + bwd
     top, slow = int(np.argmax(ext)), int(np.argmax(chain))
-    yield dict(what=f"fmi_smem at {BATCH} reads: the warp's steps, the "
-               "heaviest read and the longest chain alone against the batch",
+    yield dict(what=f"fmi_smem at {BATCH} reads: its bounds, the warp's "
+               "steps, the heaviest read and the longest chain alone "
+               "against the batch",
                extensions_max=int(ext.max()), heaviest=top,
                heaviest_steps=[int(fwd[top]), int(bwd[top])],
                steps_max=int(chain.max()), slowest=slow,
@@ -333,7 +367,8 @@ def bench_fmi():
                steps_mean=[float(fwd.mean()), float(bwd.mean())],
                heaviest_alone=smem_times([batch[top]]),
                slowest_alone=smem_times([batch[slow]]),
-               batch=smem_times(batch))
+               batch=bounds(smem_times(batch), work.blocks(),
+                            codes.numel() + 4 * len(batch) + 16 * n_sm))
 
 
 def main() -> int:

@@ -25,7 +25,7 @@ _WHAT = "the CUDA FM-index kernels"
 
 def _declare(lib) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    fmi = [P, P, P, P, I, I]   # count, cp_count, cp_bits, sa_comp, nb, sentinel
+    fmi = [P, P, P, I, I]   # count, blocks, sa_comp, nb, sentinel
     lib.fmi_backward_ext_launch.argtypes = fmi + [P, P, P, P, I, P, P]
     lib.fmi_sa_lookup_launch.argtypes = fmi + [P, I, P, P]
     lib.fmi_smem_launch.argtypes = fmi + [P, I, P, I, I, I, I, I, I, P, P, P,
@@ -42,16 +42,14 @@ def _entry(fn_name: str):
 def _fmi_args(dfm: DeviceFmIndex, dev) -> tuple:
     """The index as the launchers take it; the five counts go to the kernel
     as a parameter, from the index's host copy of them."""
-    for name, x in (("cp_count", dfm.cp_count), ("cp_bits", dfm.cp_bits),
-                    ("sa_comp", dfm.sa_comp)):
-        check(x, name, torch.int32, (x.shape[0],), dev)
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
+    check(dfm.blocks, "blocks", torch.int32, (None, 8), dev)
+    check(dfm.sa_comp, "sa_comp", torch.int32, (None,), dev)
+    if dfm.blocks.data_ptr() % 32:
+        raise ValueError("blocks: not 32-byte aligned")
     # the array itself rides in the arguments: it lives through the call
     counts = (ctypes.c_int * 5)(*dfm.counts)
-    return (counts, dfm.cp_count.data_ptr(),
-            dfm.cp_bits.data_ptr(), dfm.sa_comp.data_ptr(), dfm.n_blocks,
-            dfm.sentinel)
+    return (counts, dfm.blocks.data_ptr(), dfm.sa_comp.data_ptr(),
+            dfm.n_blocks, dfm.sentinel)
 
 
 def backward_ext(dfm: DeviceFmIndex, k, l, s, a):

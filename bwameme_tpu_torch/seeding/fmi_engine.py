@@ -233,7 +233,7 @@ class FmiWork:
     waves of extensions each read took part in (its chain of dependent
     steps where a read's extensions of one step run side by side), and the
     occ blocks (64-base checkpoints) that every extension stands on, kept
-    by id (``sectors``: their distinct 32-byte sectors)."""
+    by id (``blocks``; ``sectors``: one 32-byte sector a block)."""
 
     def __init__(self, R: int) -> None:
         self.waves = np.zeros(R, np.int64)
@@ -243,13 +243,17 @@ class FmiWork:
     def add(self, reads, k, s) -> None:
         np.add.at(self.waves, np.unique(reads), 1)
         self.extensions += len(k)
-        self._blocks.append(torch.unique(torch.cat([k >> 6, (k + s) >> 6])))
+        self._blocks.append(torch.unique(fmi_search.ext_blocks(k, s)))
+
+    def blocks(self) -> torch.Tensor:
+        """The distinct blocks, int64 ids."""
+        if not self._blocks:
+            return torch.zeros(0, dtype=torch.int64)
+        return torch.unique(torch.cat(self._blocks))
 
     def sectors(self) -> int:
-        """Distinct 32-byte sectors of the blocks (fmi_search.block_sectors)."""
-        if not self._blocks:
-            return 0
-        return fmi_search.block_sectors(torch.cat(self._blocks))
+        """The blocks' 32-byte sectors (fmi_search.block_sectors)."""
+        return fmi_search.block_sectors(self.blocks())
 
 
 class FmiDeviceEngine:

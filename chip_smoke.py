@@ -624,25 +624,6 @@ def full_sw_edges(rng, text, Q: int):
     return q, np.stack([qlen, tstart, tlen]).astype(np.int32)
 
 
-def ptxas_usage(build_log: str, kernel: str) -> dict:
-    """Registers and spill bytes ptxas reported for a kernel's entry (None
-    when the libraries were already built and nothing was compiled)."""
-    import re
-
-    usage, entry = dict(registers=None, spill_stores=None,
-                        spill_loads=None), False
-    for line in build_log.splitlines():
-        if "Compiling entry function" in line:
-            entry = kernel in line
-        elif entry and "spill stores" in line:
-            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            usage.update(spill_stores=int(st), spill_loads=int(ld))
-        elif entry and "registers" in line:
-            usage["registers"] = int(re.search(r"Used (\d+) registers",
-                                               line).group(1))
-    return usage
-
-
 def phase_sw_full(dev, build_log: str):
     """sw_full, both forms, against its plain version on the card, all seven
     outputs exactly equal: the rescue batch (RESCUE_SHAPE), the edge jobs,
@@ -655,7 +636,7 @@ def phase_sw_full(dev, build_log: str):
     import torch
 
     from bwameme_tpu_torch.align.sw_scalar import sw_align
-    from bwameme_tpu_torch.bench_util import cuda_ms, queued_us
+    from bwameme_tpu_torch.bench_util import cuda_ms, ptxas_usage, queued_us
     from bwameme_tpu_torch.index.packing import pack_words
     from bwameme_tpu_torch.ops import sw_full, sw_full_cuda
     from bwameme_tpu_torch.ops.launch import stats
@@ -2459,8 +2440,9 @@ def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
     import numpy as np
     import torch
 
-    from bwameme_tpu_torch.bench_util import (CACHE, cuda_ms, get_index,
-                                              queued_us)
+    from bwameme_tpu_torch.bench_util import (CACHE, cuda_ms, fmi_row,
+                                              get_index, queued_us,
+                                              two_array_sectors)
     from bwameme_tpu_torch.index.build import load_index
     from bwameme_tpu_torch.index.fmindex import load_fm_index
     from bwameme_tpu_torch.ops import fmi_search, fmi_search_cuda
@@ -2480,9 +2462,11 @@ def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
     torch.cuda.synchronize()
     t_up = time.perf_counter() - t0
     dfm = eng.dfm
+    # the two-array layout: 16 + 32 bytes a block where a record is 32
     log(f"FM-index at {GENOME_MBP:g} Mbp: loaded in {t_load:.1f} s (its host "
         f"sa {fm.sa.nbytes / 2**20:.0f} MiB), {dfm.nbytes / 2**20:.1f} MiB "
-        f"uploaded in {t_up:.2f} s")
+        f"uploaded in {t_up:.2f} s (the two-array layout: "
+        f"{(dfm.nbytes + 16 * dfm.n_blocks) / 2**20:.1f} MiB)")
     report = {}
     rng = np.random.default_rng(37)
 
@@ -2505,17 +2489,23 @@ def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
     check(all(tuple(int(v) for v in g[:, t]) == host.backward_ext(
         int(k[t]), int(l[t]), int(s[t]), int(a[t])) for t in range(256)),
         "fmi_backward_ext differs from FmiHostEngine.backward_ext")
-    sectors = fmi_search.ext_sectors(dfm, units[0], units[2])
+    blocks = fmi_search.ext_blocks(units[0], units[2])
+    sectors = fmi_search.block_sectors(blocks)
     kern = lambda: fmi_search_cuda.backward_ext(dfm, *units)
+    device_ms = queued_us(kern, 100) / 1e3
+    # the blocks of k and k + s, each unit read (16 bytes) and its child
+    # written (12) once
     report["fmi_backward_ext"] = dict(
         launches=launches, max_abs_err=err, ms=cuda_ms(kern, 10),
-        device_ms=queued_us(kern, 100) / 1e3,
+        device_ms=device_ms,
         plain_ms=cuda_ms(lambda: fmi_search.backward_ext_torch(dfm, *units),
                          3),
         library_ms=None, bound_by="bytes",
-        bound_ms=(sectors * SECTOR + FMI_UNITS * (16 + 12)) / HBM_BPS * 1e3,
-        answer_sectors=sectors, latency_steps=1,
-        latency_bound_ms=chain_us / 1e3)
+        **fmi_row(sectors, two_array_sectors(blocks),
+                  FMI_UNITS * (16 + 12), device_ms),
+        one_block_units=int(((units[0] >> 6) == (
+            (units[0] + units[2]) >> 6)).sum()),
+        latency_steps=1, latency_bound_ms=chain_us / 1e3)
 
     # sa_lookup: random ranks, their positions == the index's sa
     ranks = rng.integers(0, n1, FMI_RANKS)
@@ -2524,29 +2514,36 @@ def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
     got = fmi_search_cuda.sa_lookup(dfm, rk)
     launches = stats.launches["fmi_sa_lookup"]
     steps = torch.zeros(FMI_RANKS, dtype=torch.int64, device=dev)
-    want = fmi_search.sa_lookup_torch(dfm, rk, steps)
+    visited = []
+    want = fmi_search.sa_lookup_torch(dfm, rk, steps, visited)
     err = abs_err(got, want)
     check(err == 0, f"fmi_sa_lookup differs from its plain version: {err}")
     check(np.array_equal(got.cpu().numpy(), fm.sa[ranks]),
           "fmi_sa_lookup differs from the FM-index's sa")
     n_steps, most = int(steps.sum()), int(steps.max())
+    visited = torch.cat(visited)
     kern = lambda: fmi_search_cuda.sa_lookup(dfm, rk)
-    # an LF step reads one block (16 bytes of counts, 32 of bitmaps), the
-    # end a stored entry; each rank read and each position written once
+    device_ms = queued_us(kern, 100) / 1e3
+    # an LF step reads its block, the end a stored entry; each rank read
+    # and each position written once
     report["fmi_sa_lookup"] = dict(
         launches=launches, max_abs_err=err, ms=cuda_ms(kern, 10),
-        device_ms=queued_us(kern, 100) / 1e3,
+        device_ms=device_ms,
         plain_ms=cuda_ms(lambda: fmi_search.sa_lookup_torch(dfm, rk), 3),
         library_ms=None, bound_by="bytes",
-        bound_ms=(n_steps * 48 + FMI_RANKS * (4 + 4 + 4)) / HBM_BPS * 1e3,
+        **fmi_row(fmi_search.block_sectors(visited),
+                  two_array_sectors(visited), FMI_RANKS * (4 + 4 + 4),
+                  device_ms),
         lf_steps=n_steps, latency_steps=most + 1,
         latency_bound_ms=(most + 1) * chain_us / 1e3)
     log(f"fmi_backward_ext == plain == FmiHostEngine on {FMI_UNITS} units "
-        f"({sectors} distinct sectors of occ blocks); fmi_sa_lookup == plain "
-        f"== sa on {FMI_RANKS} ranks ({n_steps} LF steps, {most} at most); "
-        "ms alone / on the card: " + ", ".join(
-            f"{n} {report[n]['ms']:.4f} / {report[n]['device_ms']:.4f}"
-            for n in ("fmi_backward_ext", "fmi_sa_lookup")))
+        f"({sectors} distinct occ blocks); fmi_sa_lookup == plain == sa on "
+        f"{FMI_RANKS} ranks ({n_steps} LF steps, {most} at most); ms alone "
+        "/ on the card, bound [two-array layout], random sectors TB/s: "
+        + ", ".join(
+            f"{n} {r['ms']:.4f} / {r['device_ms']:.4f}, {r['bound_ms']:.5f} "
+            f"[{r['bound_ms_two_arrays']:.5f}], {r['sector_tbs']:.3f}"
+            for n, r in report.items()))
 
     # fmi_smem: one batch of the main reads, as mem --backend fmi launches
     # it, against the plain wave engine (SMEM sets; its work gives the
@@ -2614,15 +2611,15 @@ def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
     slow_by_round = [[int(x[0, slow]), int(x[1, slow])] for x in by_round]
     chain_r2 = by_round[1].sum(0)
     n_sm = sum(map(len, got))
+    device_ms = queued_us(kern, 50) / 1e3
     # the occ blocks every extension stands on, the reads read and the
     # lengths, each SMEM (start, end, k, s) written once
     report["fmi_smem"] = dict(
-        max_abs_err=err, ms=cuda_ms(kern, 10),
-        device_ms=queued_us(kern, 50) / 1e3, plain_ms=plain_s * 1e3,
-        library_ms=None, bound_by="bytes",
-        bound_ms=(work.sectors() * SECTOR + codes.numel() + 4 * len(batch)
-                  + 16 * n_sm) / HBM_BPS * 1e3,
-        answer_sectors=work.sectors(), extensions=work.extensions,
+        max_abs_err=err, ms=cuda_ms(kern, 10), device_ms=device_ms,
+        plain_ms=plain_s * 1e3, library_ms=None, bound_by="bytes",
+        **fmi_row(work.sectors(), two_array_sectors(work.blocks()),
+                  codes.numel() + 4 * len(batch) + 16 * n_sm, device_ms),
+        extensions=work.extensions,
         kernel_extensions=int((fwd + bwd_ext).sum()),
         latency_steps=int(work.waves.max()),
         latency_bound_ms=int(work.waves.max()) * chain_us / 1e3,
@@ -2640,8 +2637,11 @@ def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
         f"SMEMs a read {max(map(len, sgot))} of {ceng.max_smems} slots; "
         f"{reruns} rerun launches), the stress reads == the waves; main "
         f"reads: {work.extensions} extensions in {int(work.waves.max())} "
-        f"waves at most a read, {work.sectors()} distinct sectors of occ "
-        f"blocks; the kernel's warps {int(chain.max())} steps at most "
+        f"waves at most a read, {work.sectors()} distinct occ blocks (bound "
+        f"{report['fmi_smem']['bound_ms']:.5f} ms [two-array layout "
+        f"{report['fmi_smem']['bound_ms_two_arrays']:.5f}], random sectors "
+        f"{report['fmi_smem']['sector_tbs']:.3f} TB/s); the kernel's warps "
+        f"{int(chain.max())} steps at most "
         f"({int(fwd[slow])} forward, {int(bwd[slow])} backward chunks; "
         f"{int(fwd.sum())} and {int(bwd.sum())} in all; the slowest "
         f"read's (forward, backward) by round {slow_by_round}, round 2's "
@@ -2717,6 +2717,7 @@ def main() -> int:
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from bwameme_tpu_torch.bench_util import ptxas_usage
     from bwameme_tpu_torch.ops.launch import SEEDING, variant, variants
 
     dev = torch.device("cuda", 0)
@@ -2801,7 +2802,8 @@ def main() -> int:
                                     if name.startswith("fmi_")
                                     else mangled(v))
                 entry.update(registers=usage["registers"],
-                             spill_stores=usage["spill_stores"])
+                             spill_stores=usage["spill_stores"],
+                             stack_frame=usage["stack_frame"])
             kernels.append(entry)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched by no path")

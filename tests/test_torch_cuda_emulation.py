@@ -84,6 +84,9 @@ static inline int __clz(int x) {
 }
 static inline int __ffs(int x) { return __builtin_ffs(x); }
 static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+static inline int __popcll(unsigned long long x) {
+    return __builtin_popcountll(x);
+}
 // separately rounded float steps (the file is built with -ffp-contract=off)
 static inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 static inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
@@ -798,6 +801,62 @@ def test_fmi_primitive_kernels(fmi_world, on_emulation):
              (k, rng.integers(0, n1, B + 3), s, rng.integers(0, 4, B + 3))]
     got = fmi_search_cuda.backward_ext(dfm, *units)
     assert torch.equal(got, fmi_search.backward_ext_torch(dfm, *units))
+    ranks = torch.arange(n1, dtype=torch.int32)
+    got = fmi_search_cuda.sa_lookup(dfm, ranks)
+    assert torch.equal(got, fmi_search.sa_lookup_torch(dfm, ranks))
+    assert np.array_equal(got.numpy(), fm.sa)
+    assert launch.stats.launches["fmi_backward_ext"] == 1
+    assert launch.stats.launches["fmi_sa_lookup"] == 1
+
+
+def _fm_with_sentinel_at(slot: int):
+    """The FM-index of a 150-base random text (301 ranks, five blocks, the
+    last one partial) whose sentinel is base ``slot`` of its block: the
+    first seed that gives one."""
+    for seed in range(4000):
+        code = np.random.default_rng(seed).integers(0, 4, 150)
+        fm = build_fm_index(code.astype(np.uint8))
+        if fm.sentinel_index % 64 == slot:
+            return fm
+    raise AssertionError(f"no seed puts the sentinel at slot {slot}")
+
+
+@pytest.mark.parametrize("slot", [0, 63, 5], ids=["first", "last", "inner"])
+def test_fmi_primitive_kernels_at_the_block_edges(on_emulation, slot):
+    """fmi_backward_ext and fmi_sa_lookup on a text whose sentinel is the
+    first, the last or an inner base of its block, against their plain
+    versions, FmiHostEngine's backward extension and the index's sa: every
+    k and every base, with k + s in k's block (s = 0, 1 and to its last
+    base), at the next block's first base and in the block after, and at
+    n + 1 (the end of the last, partial block), so that base 0 is counted
+    with p on each side of the sentinel, on it and in its block."""
+    fm = _fm_with_sentinel_at(slot)
+    dfm = fmi_search.DeviceFmIndex.from_host(fm, "cpu")
+    n1 = fm.n + 1
+    assert n1 % 64 and dfm.n_blocks == n1 // 64 + 1
+    k = np.arange(n1 + 1)
+    ends = np.stack([k, k + 1, k | 63, (k | 63) + 1, (k | 63) + 65,
+                     np.full_like(k, n1)], 1)
+    ends = np.minimum(ends, n1)
+    k = np.broadcast_to(k[:, None], ends.shape).reshape(-1)
+    s = ends.reshape(-1) - k
+    k, s = np.repeat(k, 4), np.repeat(s, 4)
+    a = np.tile(np.arange(4), len(k) // 4)
+    l = np.random.default_rng(slot).integers(0, n1, len(k))
+    e = k + s
+    sent = fm.sentinel_index
+    # the cases named: one block, adjacent blocks, the end, the sentinel
+    assert ((k >> 6) == (e >> 6)).any() and ((e >> 6) == (k >> 6) + 1).any()
+    assert (e == n1).any()
+    for p in (sent, sent + 1):
+        assert ((a == 0) & (k == p)).any() and ((a == 0) & (e == p)).any()
+    units = [torch.from_numpy(x.astype(np.int32)) for x in (k, l, s, a)]
+    got = fmi_search_cuda.backward_ext(dfm, *units)
+    assert torch.equal(got, fmi_search.backward_ext_torch(dfm, *units))
+    host = FmiHostEngine(None, None, fm=fm)
+    want = np.array([host.backward_ext(*(int(v[t]) for v in (k, l, s, a)))
+                     for t in range(len(k))]).T
+    assert np.array_equal(got.numpy(), want)
     ranks = torch.arange(n1, dtype=torch.int32)
     got = fmi_search_cuda.sa_lookup(dfm, ranks)
     assert torch.equal(got, fmi_search.sa_lookup_torch(dfm, ranks))

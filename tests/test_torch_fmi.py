@@ -121,6 +121,35 @@ def test_fm_files_round_trip(small, tmp_path):
         assert np.array_equal(getattr(back, arr), getattr(fm, arr))
 
 
+def test_device_blocks_decode_to_the_host_planes(small):
+    """DeviceFmIndex holds one 32-byte record a 64-base block, 32-byte
+    aligned: its four int32 checkpoint counts, then its codes as two
+    64-bit planes, H the high bit and L the low bit, bit o for base o.
+    Every record gives back the host index's cp_count and one-hot cp_bits
+    exactly. Code 0 stands where the one-hot bitmaps have no bit, the
+    sentinel's slot and the last block's slots past the BWT's end; decoded,
+    both are no base."""
+    _idx, fm, _jfm = small
+    dfm = DeviceFmIndex.from_host(fm, "cpu")
+    nb = fm.cp_count.shape[0]
+    rec = dfm.blocks.numpy()
+    assert rec.shape == (nb, 8) and dfm.blocks.data_ptr() % 32 == 0
+    assert dfm.nbytes == 4 * (5 + 8 * nb + len(fm.sa_ls_word))
+    assert np.array_equal(rec[:, :4], fm.cp_count)
+    planes = rec[:, 4:].copy().view("<u8")               # (nb, 2): H, L
+    bits = (planes[:, :, None] >> np.arange(64, dtype=np.uint64)) & 1
+    code = (2 * bits[:, 0] + bits[:, 1]).reshape(-1)
+    pos = np.arange(nb * 64)
+    none = (pos > fm.n) | (pos == fm.sentinel_index)
+    assert (pos > fm.n).any() and (code[none] == 0).all()
+    assert np.array_equal(code[~none], fm.bwt[~none[: fm.n + 1]])
+    onehot = (code == np.arange(4)[:, None]) & ~none     # (4, nb * 64)
+    weights = np.uint64(1) << np.arange(31, -1, -1, dtype=np.uint64)
+    words = (onehot.reshape(4, nb, 2, 32) * weights).sum(-1)
+    assert np.array_equal(words.astype(np.uint32).transpose(1, 0, 2),
+                          fm.cp_bits)
+
+
 def test_primitives_equal_jax(small):
     """occ, backward_ext, forward_ext, init_intv and sa_lookup of the plain
     versions against bwameme_tpu/ops/fmi_search.py on the same inputs."""
