@@ -10,9 +10,10 @@ kernel, for pairs mate rescue in the full-SW CUDA kernel (the serial host
 SW with ``--engine host``), native finalization; it writes the same SAM
 header and records as bwameme_tpu. ``-Z`` (``--backend ert``) seeds from the
 ERT k-mer root and ``--backend fmi`` from the FM-index (``index -a
-mem2|ert|all`` persists them). The flags are bwameme_tpu's (bwa-mem's
-single-letter names); what is not ported yet exits 1 naming its ROADMAP
-item.
+mem2|ert|all`` persists them). ``--profile DIR`` writes a torch.profiler
+trace of the alignment into DIR (utils/timer.start_trace). The flags are
+bwameme_tpu's (bwa-mem's single-letter names); what is not ported yet exits
+1 naming its ROADMAP item.
 
 The device is CUDA unless BWAMEME_PLATFORM=cpu asks for the CPU (where the
 kernels' plain PyTorch versions run). A missing CUDA device is an error,
@@ -146,8 +147,10 @@ def build_parser() -> argparse.ArgumentParser:
                     "thread a read (PERF.md)")
     pm.add_argument("--profile", dest="profile_dir", default=None,
                     metavar="DIR",
-                    help="capture a profiler trace of the run into DIR (not "
-                    "ported)")
+                    help="write a torch.profiler trace of the alignment "
+                    "into DIR (TensorBoard layout; the CPU, and the device "
+                    "when the run is on the card), every stage and kernel "
+                    "launch a named range")
     pm.add_argument("--mode", type=int, choices=[1, 2, 3, 4], default=None,
                     help="device memory tier of the index (reference MODE "
                     "axis), bytes a suffix narrow/wide: 4=fused rank rows "
@@ -208,8 +211,6 @@ def cmd_index(args) -> int:
 def _not_ported(args) -> str | None:
     if args.shards > 1 or args.dp_shards > 1:
         return "--shards/--dp-shards are not ported yet (ROADMAP Queue 1 item 8)"
-    if args.profile_dir:
-        return "--profile (a jax.profiler trace) has no counterpart in the port"
     return None
 
 
@@ -399,7 +400,8 @@ def fmi_engine(args, idx, opt, device, timer):
 def cmd_mem(args) -> int:
     from bwameme_tpu_torch.index.build import load_index
     from bwameme_tpu_torch.io import fastq, sam
-    from bwameme_tpu_torch.utils.timer import TPROF, StageTimer
+    from bwameme_tpu_torch.utils.timer import (TPROF, StageTimer, start_trace,
+                                               stop_trace)
     from bwameme_tpu_torch.pipeline import Aligner
 
     msg = _not_ported(args)
@@ -422,6 +424,16 @@ def cmd_mem(args) -> int:
         print("[mem] no CUDA device is available (set BWAMEME_PLATFORM=cpu "
               "to run the plain PyTorch path on the CPU)", file=sys.stderr)
         return 1
+    on_card = device.type == "cuda"
+    if args.profile_dir and on_card:
+        import torch
+
+        if (torch.profiler.ProfilerActivity.CUDA
+                not in torch.profiler.supported_activities()):
+            print("[mem] --profile: this PyTorch cannot trace the CUDA "
+                  "device (no ProfilerActivity.CUDA); a trace of the CPU "
+                  "alone would hide the device", file=sys.stderr)
+            return 1
 
     timer = StageTimer()
     with timer.stage("index_load"):
@@ -487,6 +499,7 @@ def cmd_mem(args) -> int:
             c.is_alt = False
 
     out = open(args.outfile, "w") if args.outfile else sys.stdout
+    prof = None
     try:
         pg = sam.make_pg_line(__version__, " ".join(sys.argv))
         out.write(sam.sam_header(idx.bns, rg_line=rg_line, pg_line=pg,
@@ -494,6 +507,8 @@ def cmd_mem(args) -> int:
         chunk_bp = args.K if args.K else 10_000_000 * max(args.t, 1)
         paired = args.reads2 is not None or args.smartpe
         n = 0
+        if args.profile_dir:
+            prof = start_trace(args.profile_dir, cuda=on_card)
         t0 = time.time()
         for chunk in fastq.read_chunks(
                 args.reads1, args.reads2, chunk_bp,
@@ -512,13 +527,17 @@ def cmd_mem(args) -> int:
             print(f"[mem] processed {n} reads "
                   f"({n / (time.time() - t0):.0f} reads/s, {device})",
                   file=sys.stderr)
+        timer.report(sys.stderr)
+        if args.verbose >= 3:
+            TPROF.report(sys.stderr, total=time.time() - t0,
+                         label="pipeline sub-stages (of wall)")
     finally:
+        if prof is not None:
+            stop_trace(prof)
+            print(f"[mem] torch profiler trace -> {args.profile_dir}",
+                  file=sys.stderr)
         if out is not sys.stdout:
             out.close()
-    timer.report(sys.stderr)
-    if args.verbose >= 3:
-        TPROF.report(sys.stderr, total=time.time() - t0,
-                     label="pipeline sub-stages (of wall)")
     return 0
 
 

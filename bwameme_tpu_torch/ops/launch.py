@@ -12,7 +12,9 @@ can show that its main path went through the kernels; a seeding kernel
 counts each variant (the index's layout and root) under its own name
 (``variant``).
 With ``stats.events`` set to a list, each launch also appends a (name,
-start, end) triple of CUDA events.
+start, end) triple of CUDA events. While a torch.profiler trace runs
+(utils/timer.start_trace) each launch is a ``record_function`` range of the
+same name.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import dataclasses
 import torch
 
 from bwameme_tpu_torch.ops import build
+from bwameme_tpu_torch.utils import timer
 
 SEEDING = ("prmi_window", "sa_query", "seed_round1", "seed_round2",
            "seed_round3")
@@ -145,6 +148,13 @@ def launch(name: str, fn, dev: torch.device, *args) -> None:
     if torch.cuda.current_device() != dev.index:
         with torch.cuda.device(dev):
             return launch(name, fn, dev, *args)
+    if timer.RANGES:
+        with torch.profiler.record_function(name):
+            return _launch(name, fn, dev, args)
+    _launch(name, fn, dev, args)
+
+
+def _launch(name: str, fn, dev: torch.device, args) -> None:
     events = stats.events
     if events is not None:
         start = torch.cuda.Event(enable_timing=True)

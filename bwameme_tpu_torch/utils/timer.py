@@ -1,6 +1,13 @@
 """Per-stage wall-clock profiling — the analog of the reference's rdtsc
 counter matrix + display_stats (reference: src/profiling.cpp:54-160,
-src/macro.h:72-178). Keeps a display_stats-style end-of-run breakdown."""
+src/macro.h:72-178). Keeps a display_stats-style end-of-run breakdown.
+
+``start_trace``/``stop_trace`` run a torch.profiler trace (``mem --profile
+DIR``, the counterpart of the JAX CLI's jax.profiler trace). While one runs
+(``RANGES``), every stage and every kernel launch (ops/launch.py) is a
+``record_function`` range of its name: the port's kernels are launched
+through ctypes, so no torch op names them in the trace. Without a trace
+nothing of this runs."""
 
 from __future__ import annotations
 
@@ -8,6 +15,11 @@ import contextlib
 import sys
 import time
 from collections import defaultdict
+
+import torch
+
+# True while start_trace's trace runs
+RANGES = False
 
 
 class StageTimer:
@@ -19,7 +31,11 @@ class StageTimer:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            if RANGES:
+                with torch.profiler.record_function(name):
+                    yield
+            else:
+                yield
         finally:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
@@ -63,3 +79,25 @@ TPROF = StageTimer()
 def tstage(name: str):
     """Record a with-block into the global stage table."""
     return TPROF.stage(name)
+
+
+def start_trace(trace_dir: str, cuda: bool):
+    """Start a torch.profiler trace of the CPU and, with ``cuda``, the CUDA
+    device, written at stop_trace into ``trace_dir`` in TensorBoard's layout
+    (``trace_dir/<worker>.<ts>.pt.trace.json``); stages and launches are
+    named ranges until then. Returns the profiler."""
+    global RANGES
+    act = torch.profiler.ProfilerActivity
+    prof = torch.profiler.profile(
+        activities=[act.CPU] + ([act.CUDA] if cuda else []),
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir))
+    prof.start()
+    RANGES = True
+    return prof
+
+
+def stop_trace(prof) -> None:
+    """Stop start_trace's trace and write it."""
+    global RANGES
+    RANGES = False
+    prof.stop()

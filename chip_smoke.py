@@ -44,7 +44,8 @@ of which ends the run with a non-zero exit and no result line when it fails:
    ns per row, us per dependent round, GB/s, and one library call's time.
    The kernels' line reads the 4-word, 4096-lane case, counted on its own,
    with the host's time a launch and the card's time a call beside
-   torch.index_select's; 128-word rows at 65536 lanes (32 MB each way)
+   torch.index_select's, and the chain's time on the card (calls queued)
+   beside its latency bound; 128-word rows at 65536 lanes (32 MB each way)
    give the flat gather's GB/s beside index_select's.
 4. search: on the bench genome's index (100 Mbp, built at first use under
    .bench_cache/), the P-RMI window of 2^20 keys and sa_query of >= 10^5
@@ -73,7 +74,8 @@ of which ends the run with a non-zero exit and no result line when it fails:
    and 1: each engine's path over the 4096 reads, then kmer_window (every
    stored key's rank inside its window), sa_query and the three rounds
    against their plain versions, timed, and mode 4's SMEMs against the
-   HostSeedingEngine's. Both roots give the same answers, so the work is
+   HostSeedingEngine's. Each root's window is timed alone and on the card
+   (calls queued), in every layout phases 4 and 4b check. Both roots give the same answers, so the work is
    counted once a layout: a k-mer variant's plain version counts nothing,
    and its bound is the P-RMI count's rank rows and text with the k-mer
    table's entries of the same keys in place of the leaf records.
@@ -109,6 +111,24 @@ of which ends the run with a non-zero exit and no result line when it fails:
    host, those of the deletion reads to a CPU run of --engine host (the
    scalar seeding and the plain banded SW), and those of the long reads to
    their CPU run.
+5c. profile: ``mem --mode 1 --profile DIR`` on the main run's reads, whose
+   SAM must be the default mem's byte for byte. The torch.profiler trace
+   must hold the align range, every pipeline sub-stage as often as TPROF
+   counted it and one record_function range a kernel launch; where it has
+   device kernel events, each of the port's kernels (by demangled name: the
+   seeding kernels are templates) as many as its launches, and where it has
+   none, torch's own kernels none either (said so in the log). Logs the
+   device-busy share of the traced window and of align, the five device ops
+   with the most time and the three longest idle gaps inside align with the
+   stage ranges around them; no time of the profiled run is compared with
+   an unprofiled run's.
+5d. library and long reads: align1 (align/extra.py) on the card, with the
+   host engine and with the device engine, against align1 on the CPU on 64
+   sequences of the 2 Mbp cut (plain, reverse-complemented, with indels,
+   random), every region's fields and reg2ovlp's hits equal; the card runs,
+   counted from 0, launch banded_sw_pairs. Then 16 reads each of 151, 300
+   and 500 bp through mem's default (device) engine on the cut, whose SAM
+   must be --engine host's.
 5b. paired-end: ``mem r1.fq r2.fq`` with the default engine on 4096 FR
    pairs of 2 x 151 bp (insert N(400, 40), Poisson(1) substitutions; in
    every eighth pair the second mate has a substitution every 12 bases, so
@@ -290,6 +310,11 @@ RESCUED = 8
 FMI_UNITS = 1 << 20
 FMI_RANKS = 1 << 16
 FMI_SIDE_READS = 1024
+# phase 5d: sequences for align1; reads of mixed lengths through mem's
+# device engine (the learned path's cap is 500 bp)
+N_ALIGN1 = 64
+MIXED_LENGTHS = (151, 300, 500)
+N_MIXED = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -925,7 +950,14 @@ def phase_gather(dev):
             bound_ms=n_bytes / HBM_BPS * 1e3, bound_by="bytes",
             launches=launches[name])
         check(launches[name] > 0, f"{name} was not launched by the benchmark")
-    report["gather_chain"]["latency_bound_ms"] = GATHER_ROUNDS * chain_us / 1e3
+    chain = report["gather_chain"]
+    chain["latency_bound_ms"] = GATHER_ROUNDS * chain_us / 1e3
+    # the card's time a call with the host out of the way, beside the
+    # latency bound (a call made alone is mostly the launch's own time)
+    chain["device_ms"] = queued_us(cases["gather_chain"][0]) / 1e3
+    log(f"gather_chain, {GATHER_ROUNDS} rounds at {lanes} lanes: "
+        f"{chain['ms']:.4f} ms a call alone, {chain['device_ms']:.4f} ms on "
+        f"the card, latency bound {chain['latency_bound_ms']:.5f} ms")
 
     # where the call's time goes at 64 KB a call: the host's time a launch
     # and the card's time a call, beside index_select's
@@ -1162,7 +1194,7 @@ def check_layout(eng, reads, kh, kl, dev, chain_us: float, rng,
     the sa_query result, (the jobs, the work counted))."""
     import torch
 
-    from bwameme_tpu_torch.bench_util import Rounds, cuda_ms
+    from bwameme_tpu_torch.bench_util import Rounds, cuda_ms, queued_us
     from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
     from bwameme_tpu_torch.ops.sa_search import Work
 
@@ -1183,6 +1215,7 @@ def check_layout(eng, reads, kh, kl, dev, chain_us: float, rng,
     wide_leaf = di.wide and di.root == "prmi"
     report[name] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: win(di, khd, kld), 20),
+        device_ms=queued_us(lambda: win(di, khd, kld), 100) / 1e3,
         plain_ms=cuda_ms(lambda: win_plain(di, khd, kld), 5),
         library_ms=None, bound_by="bytes",
         bound_ms=n * (SECTOR * (2 if wide_leaf else 1) + 8 + 2 * rb)
@@ -1313,7 +1346,9 @@ def phase_search(dev, mbp: float, n_reads: int, n_cmp: int, n_keys: int,
           "inside their windows")
     log(f"prmi_window == plain on {n_keys} keys (a third zero-padded, a "
         f"third one-padded; {100 * inside:.3f}% of the stored keys' ranks "
-        f"inside their windows, mean width {float((hi - lo).mean()):.1f})")
+        f"inside their windows, mean width {float((hi - lo).mean()):.1f}); "
+        f"kernel {report['prmi_window']['ms']:.4f} ms a call alone, "
+        f"{report['prmi_window']['device_ms']:.4f} ms on the card")
     row = report["sa_query"]
     n = jobs[0].shape[0]
     log(f"sa_query == plain on {n} jobs (longest match "
@@ -1599,13 +1634,16 @@ def phase_jumbo(dev):
 # ---------------------------------------------------- phase 5: end to end
 
 
-def write_reads(path: str, text, l_pac: int, n: int, read_len: int, rng):
+def write_reads(path: str, text, l_pac: int, n: int, read_len, rng):
     """n reads from the forward strand, Poisson(1) substitutions, every other
-    one reverse-complemented; the name holds the source position."""
+    one reverse-complemented; the name holds the source position. read_len:
+    a length, or a tuple of lengths the reads take in turn."""
     import numpy as np
 
+    lens = read_len if isinstance(read_len, tuple) else (read_len,)
     with open(path, "w") as f:
         for i in range(n):
+            read_len = lens[i % len(lens)]
             st = int(rng.integers(0, l_pac - read_len - 1))
             c = np.array(text[st: st + read_len])
             for _ in range(rng.poisson(1.0)):
@@ -1936,6 +1974,345 @@ def phase_end_to_end(mbp: float, n_reads: int, n_long: int, batch: int,
         f"== CPU on all {n_long} long reads ({ok_l}/{n_l} long at source) "
         f"and 64 two-deletion reads at -w 20 (device engine against the "
         f"CPU's --engine host; {retry} band-retry launches)")
+    return by_path
+
+
+# ------------------------------------------ phase 5c: mem --profile DIR
+
+
+def demangle(sym: str) -> str:
+    """A C++ name as the C++ runtime's demangler gives it: a symbol
+    (``_Z...``) or a type's mangling (``18seed_round1_kernelILi1EiLb0EE``);
+    the name itself when it is neither."""
+    import ctypes
+
+    fn = ctypes.CDLL("libstdc++.so.6").__cxa_demangle
+    fn.restype = ctypes.c_void_p
+    fn.argtypes = (ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int))
+    status = ctypes.c_int(0)
+    p = fn(sym.encode(), None, None, ctypes.byref(status))
+    if not p:
+        return sym
+    try:
+        return ctypes.string_at(p).decode()
+    finally:
+        free = ctypes.CDLL(None).free
+        free.argtypes = (ctypes.c_void_p,)
+        free(p)
+
+
+def trace_kernel_name(name: str) -> str:
+    """The name a launch counter's kernel has in a profiler trace, demangled
+    and without its return type and parameters (kernel_of): a seeding
+    variant by its template arguments, seed_round1[m1] ->
+    seed_round1_kernel<1, int, false>; the others by their own names."""
+    base = name.partition("[")[0]
+    if base in ("prmi_window", "kmer_window", "sa_query", "seed_round1",
+                "seed_round2", "seed_round3"):
+        m = mangled(name)
+        return demangle(f"{len(m.partition('I')[0])}{m}")
+    names = {"banded_sw_coord": "banded_sw_coord",
+             "banded_sw_pairs": "banded_sw_pairs",
+             "fmi_smem": "fmi_smem_kernel",
+             "fmi_backward_ext": "fmi_backward_ext_kernel",
+             "fmi_sa_lookup": "fmi_sa_lookup_kernel"}
+    check(base in names, f"{name}: no kernel name known for the trace")
+    return names[base]
+
+
+def kernel_of(event_name: str) -> str:
+    """A device event's name as trace_kernel_name gives it: demangled, its
+    return type, anonymous namespaces and parameters taken off."""
+    n = demangle(event_name) if event_name.startswith("_Z") else event_name
+    n = n.replace("(anonymous namespace)::", "")
+    return n.removeprefix("void ").split("(")[0]
+
+
+def merged(intervals) -> list:
+    """The union of (start, end) intervals, as sorted disjoint [start, end]."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def covered(union, lo: float, hi: float) -> float:
+    """How much of [lo, hi] the disjoint intervals ``union`` cover."""
+    return sum(max(0.0, min(e, hi) - max(s, lo)) for s, e in union)
+
+
+def phase_profile(mbp: float, batch: int, main_fq: str):
+    """mem --mode 1 --profile DIR on the main run's reads: its SAM is the
+    default mem's byte for byte; the torch.profiler trace holds the align
+    range and every pipeline sub-stage as often as TPROF counted it, and a
+    record_function range for each kernel launch; where it has device
+    kernel events, each kernel of the port has as many as it had launches
+    (by demangled name), and where it has none, torch's own have none
+    either. Logs the device-busy share of the traced window and of align,
+    the five device ops with the most time and the three longest idle gaps
+    inside align with the stage ranges that enclose them. Times of a
+    profiled run are not compared with an unprofiled run's."""
+    import glob
+    import json
+    import shutil
+
+    from bwameme_tpu_torch import cli
+    from bwameme_tpu_torch.bench_util import CACHE, get_index
+    from bwameme_tpu_torch.utils.timer import TPROF
+
+    prefix = get_index(mbp)
+    work = os.path.join(CACHE, "chip_smoke")
+    trace_dir = os.path.join(work, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    out = os.path.join(work, "short.m1.profile.gpu.sam")
+    TPROF.totals.clear()
+    TPROF.counts.clear()
+    wall, launches = run_mem(cli, prefix, main_fq, out, "cuda",
+                             ("--batch", str(batch), "--mode", "1",
+                              "--profile", trace_dir))
+    stage_counts = dict(TPROF.counts)
+    with open(out, "rb") as f, open(os.path.join(work, "short.gpu.sam"),
+                                    "rb") as g:
+        check(f.read() == g.read(), "mem --mode 1 --profile: the SAM differs "
+              "byte for byte from the default mem's")
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"mem --profile wrote {files} into {trace_dir}")
+    summary = check_trace(files[0], launches, stage_counts)
+    log(f"mem --mode 1 --profile on {N_READS} reads at {mbp:g} Mbp: SAM == "
+        f"the default mem's byte for byte; wall {wall:.2f} s (profiled); "
+        f"trace {json.dumps(summary)}")
+    return {"profile": launches}
+
+
+def check_trace(path: str, launches: dict, stage_counts: dict) -> dict:
+    """phase_profile's checks of a trace file against the run's launch
+    counts and TPROF's stage counts, and its logs; returns the trace's
+    summary."""
+    import json
+    from collections import Counter
+
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+
+    # the ranges: every stage and every launch
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    n_ranges = Counter(e["name"] for e in ranges)
+    launched = {k: v for k, v in launches.items() if v}
+    check(launched, "mem --profile launched no kernel")
+    for name, n in launches.items():
+        check(n_ranges.get(name, 0) == n, f"{name}: {n_ranges.get(name, 0)} "
+              f"record_function ranges in the trace for {n} launches")
+    check(n_ranges["align"] >= 1, "the trace has no align range")
+    for name, n in stage_counts.items():
+        check(n_ranges.get(name, 0) == n, f"stage {name}: "
+              f"{n_ranges.get(name, 0)} ranges in the trace, {n} in TPROF")
+
+    # the device events: kernels by demangled name, copies and sets
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = Counter(kernel_of(e["name"]) for e in device
+                      if e["cat"] == "kernel")
+    ours = {trace_kernel_name(k): k for k in launched}
+    if device:
+        for tname, k in ours.items():
+            check(kernels.get(tname, 0) == launched[k], f"{k} ({tname}): "
+                  f"{kernels.get(tname, 0)} device events in the trace for "
+                  f"{launched[k]} launches")
+        theirs = sum(n for name, n in kernels.items() if name not in ours)
+        log(f"mem --profile: device events in the trace: each of the "
+            f"port's kernels as many as its launches ({launched}); "
+            f"torch's own and the copies: {theirs} kernel, "
+            f"{len(device) - sum(kernels.values())} copy/set events")
+    else:
+        log("mem --profile: the trace holds no device event, torch's own "
+            "kernels and copies included (CUPTI reaches no device here); "
+            "the record_function ranges hold every launch")
+
+    # shares, the heaviest device ops, the longest idle gaps inside align
+    busy = merged((e["ts"], e["ts"] + e["dur"]) for e in device)
+    aligns = merged((e["ts"], e["ts"] + e["dur"]) for e in ranges
+                    if e["name"] == "align")
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    align_us = sum(e - s for s, e in aligns)
+    summary = dict(trace_mib=size / 2**20, window_ms=(hi - lo) / 1e3,
+                   align_ms=align_us / 1e3, ranges=sum(n_ranges.values()),
+                   device_events=len(device))
+    if device:
+        summary.update(
+            busy_share_window=covered(busy, lo, hi) / (hi - lo),
+            busy_share_align=sum(covered(busy, s, e) for s, e in aligns)
+            / align_us)
+        per_op = Counter()
+        for e in device:
+            per_op[kernel_of(e["name"]) if e["cat"] == "kernel"
+                   else e["name"]] += e["dur"]
+        busy_us = sum(e - s for s, e in busy)
+        log("mem --profile: the five device ops with the most time: " + "; ".join(
+            f"{name[:70]} {t / 1e3:.3f} ms ({100 * t / busy_us:.1f}% of busy)"
+            for name, t in per_op.most_common(5)))
+        gaps = []
+        for s, e in aligns:
+            t = s
+            for b0, b1 in busy:
+                if b1 <= s or b0 >= e:
+                    continue
+                if b0 > t:
+                    gaps.append((b0 - t, t, b0))
+                t = max(t, b1)
+            if e > t:
+                gaps.append((e - t, t, e))
+        stages = [r for r in ranges if r["name"] not in launches]
+        ops = [e for e in events if e.get("cat") == "cpu_op"]
+        for dur, g0, g1 in sorted(gaps, reverse=True)[:3]:
+            mid = (g0 + g1) / 2
+            around = sorted((r for r in stages
+                             if r["ts"] <= mid <= r["ts"] + r["dur"]),
+                            key=lambda r: r["ts"])
+            inside = Counter()
+            for e in ops:
+                if g0 <= e["ts"] < g1:
+                    inside[e["name"]] += e["dur"]
+            log(f"mem --profile: idle gap {dur / 1e3:.3f} ms at "
+                f"{(g0 - aligns[0][0]) / 1e3:.3f} ms into align, inside "
+                + " > ".join(r["name"] for r in around) + "; torch ops in "
+                "it (ms, nested ops counted in each): " + ", ".join(
+                    f"{k} {v / 1e3:.3f}" for k, v in inside.most_common(3)))
+    return summary
+
+
+# ------------------------------- phase 5d: align1, reads of mixed lengths
+
+
+def library_seqs(text, l_pac: int, n: int, rng):
+    """n sequences of 151 bp for align1, of four kinds in turn: from the
+    forward strand with Poisson(1) substitutions, the same
+    reverse-complemented, with a 1-3 base insertion and a 1-3 base deletion,
+    and random. Returns (kind, sequence) pairs."""
+    import numpy as np
+
+    out = []
+    kinds = ("plain", "revcomp", "indels", "random")
+    for i in range(n):
+        kind = kinds[i % 4]
+        st = int(rng.integers(0, l_pac - 200))
+        c = np.array(text[st: st + 160])
+        for _ in range(rng.poisson(1.0)):
+            p = int(rng.integers(0, 160))
+            c[p] = (c[p] + rng.integers(1, 4)) % 4
+        if kind == "revcomp":
+            c = (3 - c[::-1]).astype(np.uint8)
+        elif kind == "indels":
+            a, b = (int(x) for x in rng.integers(1, 4, 2))
+            c = np.concatenate([c[:50], rng.integers(0, 4, a).astype(
+                np.uint8), c[50:100], c[100 + b:]])
+        elif kind == "random":
+            c = rng.integers(0, 4, 160).astype(np.uint8)
+        out.append((kind, "".join("ACGT"[x] for x in c[:151])))
+    return out
+
+
+def phase_library(dev, batch: int):
+    """align1 (align/extra.py) on the card against align1 on the CPU on
+    N_ALIGN1 sequences of the bench genome cut to SIDE_MBP, region for
+    region and field for field (its chain and seeds included), and reg2ovlp
+    of both, with the default engine (the host engine) and with the device
+    engine on the card; the card runs, counted from 0, launch
+    banded_sw_pairs. Then reads of MIXED_LENGTHS, N_MIXED of each, through
+    mem's default (device) engine, whose SAM must be --engine host's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch import cli
+    from bwameme_tpu_torch.align.extra import align1, reg2ovlp
+    from bwameme_tpu_torch.bench_util import CACHE, get_index
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    side = get_index(SIDE_MBP)
+    idx = load_index(side)
+    opt = MemOptions()
+    seqs = library_seqs(idx.text, idx.l_pac, N_ALIGN1,
+                        np.random.default_rng(31))
+    fields = lambda regs: [dataclasses.asdict(r) for r in regs]
+    by_path = {}
+
+    def on(device, engine=None, path=None):
+        stats.reset()
+        t0 = time.perf_counter()
+        regs = [align1(idx, opt, s, engine=engine, device=device)
+                for _, s in seqs]
+        if path:
+            torch.cuda.synchronize()
+            by_path[path] = {k: v for k, v in stats.launches.items() if v}
+        return regs, time.perf_counter() - t0
+
+    cpu, cpu_s = on("cpu")
+    gpu, gpu_s = on(dev, path="align1")
+    deng = DeviceSeedingEngine(idx, opt, lanes=1, device=dev)
+    dgpu, dgpu_s = on(dev, deng, "align1, device engine")
+    for path in ("align1", "align1, device engine"):
+        check(by_path[path].get("banded_sw_pairs", 0) > 0, f"{path} on the "
+              f"card launched no banded_sw_pairs: {by_path[path]}")
+    check(all(by_path["align1, device engine"].get(f"seed_round{k}", 0)
+              for k in (1, 2, 3)), "align1 with the device engine launched "
+          f"{by_path['align1, device engine']}")
+    for (kind, s), c, g, d in zip(seqs, cpu, gpu, dgpu):
+        for what, got in (("the card", g), ("the card's device engine", d)):
+            check(fields(got) == fields(c), f"align1 on {what} differs from "
+                  f"the CPU's on a {kind} sequence: {got[:2]} | {c[:2]}")
+            check(fields(reg2ovlp(idx.bns, len(s), got)) == fields(
+                reg2ovlp(idx.bns, len(s), c)), f"reg2ovlp differs on {what} "
+                f"for a {kind} sequence")
+    found = {k: sum(1 for (kind, _), r in zip(seqs, cpu) if kind == k and r)
+             for k in ("plain", "revcomp", "indels", "random")}
+    check(all(found[k] >= N_ALIGN1 // 4 - 1 for k in ("plain", "revcomp",
+                                                       "indels")),
+          f"align1 found regions for only {found} sequences")
+    log(f"align1 on the card == align1 on the CPU, field for field, and "
+        f"reg2ovlp, on {N_ALIGN1} sequences of the {SIDE_MBP:g} Mbp genome "
+        f"(sequences with regions: {found}; "
+        f"{sum(len(r) for r in cpu)} regions), with the host engine "
+        f"({gpu_s:.2f} s on the card, {cpu_s:.2f} s on the CPU) and the "
+        f"device engine ({dgpu_s:.2f} s); launches "
+        f"{by_path['align1']} / {by_path['align1, device engine']}")
+
+    work = os.path.join(CACHE, "chip_smoke")
+    mixed_fq = os.path.join(work, "mixed.fq")
+    write_reads(mixed_fq, idx.text, idx.l_pac, N_MIXED * len(MIXED_LENGTHS),
+                MIXED_LENGTHS, np.random.default_rng(32))
+    del idx
+    gpu_sam = os.path.join(work, "mixed.gpu.sam")
+    host_sam = os.path.join(work, "mixed.host.sam")
+    _, by_path["mixed"] = run_mem(cli, side, mixed_fq, gpu_sam, "cuda",
+                                  ("--batch", str(batch)))
+    check(all(by_path["mixed"][f"seed_round{k}"] for k in (1, 2, 3)),
+          f"the mixed-length reads' run launched {by_path['mixed']}")
+    run_mem(cli, side, mixed_fq, host_sam, "cuda", ("--engine", "host"))
+    recs = sam_records(gpu_sam)
+    check(recs == sam_records(host_sam), "the mixed-length reads' SAM "
+          "differs between the device engine and --engine host")
+    # the cut keeps the bench genome's 200 planted repeats, so a read may
+    # lie at a copy of its source: every read mapped, those at the source
+    # counted
+    ok, n = mapped_to_source(recs)
+    unmapped = sum(int(ln.split("\t")[1]) & 4 != 0 for ln in recs)
+    check(n == N_MIXED * len(MIXED_LENGTHS) and not unmapped,
+          f"mixed-length reads: {n} primary records, {unmapped} unmapped")
+    log(f"reads of {MIXED_LENGTHS} bp ({N_MIXED} of each) through mem's "
+        f"device engine on the {SIDE_MBP:g} Mbp genome: SAM == --engine "
+        f"host's; all mapped, {ok}/{n} at their source; launches "
+        f"{ {k: v for k, v in by_path['mixed'].items() if v} }")
     return by_path
 
 
@@ -2758,6 +3135,9 @@ def main() -> int:
         timed("jumbo", phase_jumbo, dev)
         by_path.update(timed("single_end", phase_end_to_end, GENOME_MBP,
                              N_READS, N_LONG, BATCH, N_CMP, main_fq))
+        by_path.update(timed("profile", phase_profile, GENOME_MBP, BATCH,
+                             main_fq))
+        by_path.update(timed("library", phase_library, dev, BATCH))
         by_path.update(timed("paired_end", phase_pairs, GENOME_MBP, N_PAIRS,
                              BATCH, N_CMP_PAIRS))
         by_path.update(timed("ert", phase_ert, dev, main_fq))

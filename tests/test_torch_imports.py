@@ -7,8 +7,10 @@ import hook there refuses every jax module and the top-level package
 imported, a toy index is built with the port's own index/build.py and a few
 reads and a pair whose second mate only a rescue places are aligned on the
 CPU with every seeding engine (host, learned, ERT, both FM-index engines;
-so the pairing, finalize and alt copies and the full SW run too); the host libraries it loaded are the port's own, none
-from native/build/, which bwameme_tpu's loaders write. A source check
+so the pairing, finalize and alt copies and the full SW run too), and one
+read through the library entry point align1; the host libraries it loaded
+are the port's own, none from native/build/, which bwameme_tpu's loaders
+write. A source check
 backs the hook: no file of the port, nor chip_smoke.py, has an import
 statement that names bwameme_tpu.
 """
@@ -86,6 +88,12 @@ for name, engine in engines.items():
     got = [ln.split("\t")[1:4] for ln in sam]
     assert got == [["99", "chrT", "3001"], ["147", "chrT", "3251"]], (name,
                                                                       got)
+# the library entry point (align/extra.py)
+from bwameme_tpu_torch.align.extra import align1, reg2ovlp
+
+regs = align1(idx, opt, reads[1].seq, device="cpu")
+assert regs and regs[0].rb == 5000, regs
+assert reg2ovlp(idx.bns, 151, regs)[0].rb == 5000
 maps = open("/proc/self/maps").read()
 assert "/native/build/" not in maps
 assert "/bwameme_tpu_torch/build/libhostkernels.so" in maps

@@ -277,16 +277,58 @@ def test_cli_default_engine_is_the_device_engine(golden_dir, tmp_path,
 
 @pytest.mark.parametrize("flags,msg", [
     (["--engine", "device", "-Z", "--dp-shards", "2"], "Queue 1 item 8"),
-    (["--engine", "host", "--backend", "fmi", "--profile", "trace"],
-     "--profile"),
     (["--engine", "host", "-Z"], "requires the device engine"),
     (["--engine", "host", "--shards", "2"], "Queue 1 item 8"),
-], ids=["dp_shards", "profile", "ert_host", "shards"])
+], ids=["dp_shards", "ert_host", "shards"])
 def test_cli_refuses_what_is_not_ported(golden_dir, capsys, flags, msg):
     reads = str(golden_dir / "reads_se.fq")
     rc = cli.main(["mem", str(golden_dir / "idx"), reads, *flags])
     assert rc == 1
     assert msg in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("engine", [[], ["--engine", "host"]],
+                         ids=["device", "host"])
+def test_cli_profile_writes_a_trace(golden_dir, tmp_path, monkeypatch,
+                                    capsys, engine):
+    """mem --profile DIR writes a torch.profiler trace in TensorBoard's
+    layout: it holds the align range and the stage ranges inside it (with
+    the device engine the seeding rounds' stages, where a launch on the card
+    would be its own range), and the SAM is byte for byte the SAM without
+    the flag. The first 48 golden reads in three batches: the trace records
+    every torch op of the plain versions, which makes a traced CPU run
+    some ten times slower."""
+    import glob
+    import json
+
+    from bwameme_tpu_torch.utils import timer
+
+    monkeypatch.setenv("BWAMEME_PLATFORM", "cpu")
+    fq = tmp_path / "head.fq"
+    with open(golden_dir / "reads_se.fq") as f:
+        fq.write_text("".join(f.readlines()[: 4 * 48]))
+    args = ["mem", "-K", "100000000", str(golden_dir / "idx"), str(fq),
+            "--batch", "16", *engine]
+    plain, traced = tmp_path / "plain.sam", tmp_path / "traced.sam"
+    assert cli.main(args + ["-o", str(plain)]) == 0
+    trace_dir = tmp_path / "trace"
+    assert cli.main(args + ["-o", str(traced), "--profile",
+                            str(trace_dir)]) == 0
+    assert f"trace -> {trace_dir}" in capsys.readouterr().err
+    assert not timer.RANGES
+    assert traced.read_bytes() == plain.read_bytes()
+    files = glob.glob(str(trace_dir / "*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        ranges = [e["name"] for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "user_annotation"]
+    stages = {"align", "write", "extend.submit", "extend.finish",
+              "finalize"}
+    stages |= {"seed.collect"} if engine else {
+        "seed.submit", "seed.finish", "seed.round1", "seed.round2",
+        "seed.round3"}
+    assert stages <= set(ranges)
+    assert ranges.count("align") == 1
 
 
 def test_cli_without_cuda_is_an_error(golden_dir, monkeypatch, capsys):
