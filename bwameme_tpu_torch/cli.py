@@ -11,9 +11,12 @@ SW with ``--engine host``), native finalization; it writes the same SAM
 header and records as bwameme_tpu. ``-Z`` (``--backend ert``) seeds from the
 ERT k-mer root and ``--backend fmi`` from the FM-index (``index -a
 mem2|ert|all`` persists them). ``--profile DIR`` writes a torch.profiler
-trace of the alignment into DIR (utils/timer.start_trace). The flags are
-bwameme_tpu's (bwa-mem's single-letter names); what is not ported yet exits
-1 naming its ROADMAP item.
+trace of the alignment into DIR (utils/timer.start_trace). ``--shards N``
+splits the index's per-suffix planes in rank blocks over the first N
+visible cards and ``--dp-shards D`` aligns each chunk as D contiguous slices
+on D rows of them (parallel/dp.py), N x D cards in all; under
+BWAMEME_PLATFORM=cpu the shards are CPU blocks. The flags are bwameme_tpu's
+(bwa-mem's single-letter names).
 
 The device is CUDA unless BWAMEME_PLATFORM=cpu asks for the CPU (where the
 kernels' plain PyTorch versions run). A missing CUDA device is an error,
@@ -160,11 +163,15 @@ def build_parser() -> argparse.ArgumentParser:
                     "(BWAMEME_HBM_BYTES overrides the card's size); int64 "
                     "coordinates from 2^31 suffixes on")
     pm.add_argument("--shards", type=int, default=1,
-                    help="shard the suffix-array index by key range over N "
-                    "devices (not ported); 1 = single device")
+                    help="shard the suffix-array index by key range (rank "
+                    "blocks) over the first N visible cards, each block "
+                    "read where it lies (peer pointers across cards); 1 = "
+                    "single device")
     pm.add_argument("--dp-shards", type=int, default=1,
-                    help="data-parallel rows over N devices (not ported); "
-                    "1 = no data parallelism")
+                    help="data-parallel rows: each chunk split into N "
+                    "contiguous slices, each aligned by a row of --shards "
+                    "cards that holds the whole index (parallel/dp.py); 1 = "
+                    "no data parallelism")
     return p
 
 
@@ -208,10 +215,34 @@ def cmd_index(args) -> int:
     return 0
 
 
-def _not_ported(args) -> str | None:
-    if args.shards > 1 or args.dp_shards > 1:
-        return "--shards/--dp-shards are not ported yet (ROADMAP Queue 1 item 8)"
+def mesh_refused(args) -> str | None:
+    """Why --shards/--dp-shards cannot run with the other flags, as
+    bwameme_tpu.cli.cmd_mem says it (the FM-index and the host engine have
+    no mesh); None when they can."""
+    if args.shards < 1 or args.dp_shards < 1:
+        return "--shards and --dp-shards take counts of 1 or more"
+    if (args.shards > 1 or args.dp_shards > 1) and (
+            args.backend == "fmi" or args.engine == "host"):
+        return ("--shards/--dp-shards require the device engine with the "
+                "learned or ert backend")
     return None
+
+
+def shard_mesh(args, device):
+    """The rows of devices of --dp-shards D x --shards N (parallel/dp.py
+    make_dp_mesh) over the visible cards, or over CPU blocks on the CPU;
+    None without either flag. Raises ValueError, with the message of
+    bwameme_tpu.cli.cmd_mem, for fewer devices than N x D."""
+    if args.shards == 1 and args.dp_shards == 1:
+        return None
+    from bwameme_tpu_torch.parallel.dp import make_dp_mesh, visible_devices
+
+    need = args.shards * args.dp_shards
+    devs = [device] * need if device.type == "cpu" else visible_devices()
+    if len(devs) < need:
+        raise ValueError(f"--dp-shards {args.dp_shards} x --shards "
+                         f"{args.shards}: only {len(devs)} device(s) visible")
+    return make_dp_mesh(args.dp_shards, args.shards, devs)
 
 
 def mem_options(args):
@@ -404,7 +435,7 @@ def cmd_mem(args) -> int:
                                                stop_trace)
     from bwameme_tpu_torch.pipeline import Aligner
 
-    msg = _not_ported(args)
+    msg = mesh_refused(args)
     if msg:
         print(f"[mem] {msg}", file=sys.stderr)
         return 1
@@ -424,6 +455,15 @@ def cmd_mem(args) -> int:
         print("[mem] no CUDA device is available (set BWAMEME_PLATFORM=cpu "
               "to run the plain PyTorch path on the CPU)", file=sys.stderr)
         return 1
+    try:
+        mesh = shard_mesh(args, device)
+    except ValueError as e:
+        print(f"[mem] {e}", file=sys.stderr)
+        return 1
+    if mesh is not None:
+        print(f"[mem] {args.dp_shards} dp row(s) x {args.shards} index "
+              f"shard(s) on {', '.join(str(d) for row in mesh for d in row)}",
+              file=sys.stderr)
     on_card = device.type == "cuda"
     if args.profile_dir and on_card:
         import torch
@@ -452,7 +492,13 @@ def cmd_mem(args) -> int:
         for f in rg_line.split("\t"):
             if f.startswith("ID:"):
                 rg_id = f[3:]
-    engine = None
+    pes0 = None
+    if args.insert_spec:
+        pes0 = insert_size(args.insert_spec)
+        fr = pes0[1]
+        print(f"[mem] fixed FR insert size: avg={fr.avg} std={fr.std} "
+              f"range [{fr.low},{fr.high}]", file=sys.stderr)
+    engine = aligner = None
     if args.backend == "fmi":
         try:
             engine = fmi_engine(args, idx, opt, device, timer)
@@ -462,28 +508,39 @@ def cmd_mem(args) -> int:
     elif args.engine == "device":
         from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
 
-        kw = {}
+        kw = dict(mode=args.mode)
         if args.backend == "ert":
-            kw = dict(root="kmer", ert_bits=ert_bits(args.prefix, idx))
+            kw.update(root="kmer", ert_bits=ert_bits(args.prefix, idx))
+
+        # each dp row sees 1/dp of every batch
+        lanes = -(-args.batch // len(mesh)) if mesh else args.batch
+
+        def make_engine(row):
+            return DeviceSeedingEngine(idx, opt, lanes=lanes, device=row[0],
+                                       shards=row if len(row) > 1 else None,
+                                       **kw)
+
         with timer.stage("index_upload"):
             try:
-                engine = DeviceSeedingEngine(idx, opt, lanes=args.batch,
-                                             device=device, mode=args.mode,
-                                             **kw)
+                if mesh is None or len(mesh) == 1:
+                    engine = make_engine(mesh[0] if mesh else [device])
+                else:
+                    from bwameme_tpu_torch.parallel.dp import \
+                        DataParallelAligner
+
+                    aligner = DataParallelAligner(
+                        idx, opt, mesh=mesh, engine_factory=make_engine,
+                        rg_id=rg_id, copy_comment=args.copy_comment,
+                        pes0=pes0)
             except (ValueError, RuntimeError) as e:
                 # a layout the index cannot have (modes 3 and 4 of a
                 # --no-isa index) or that does not fit the device
                 print(f"[mem] {e}", file=sys.stderr)
                 return 1
-    pes0 = None
-    if args.insert_spec:
-        pes0 = insert_size(args.insert_spec)
-        fr = pes0[1]
-        print(f"[mem] fixed FR insert size: avg={fr.avg} std={fr.std} "
-              f"range [{fr.low},{fr.high}]", file=sys.stderr)
-    aligner = Aligner(idx, opt, seeding_engine=engine, rg_id=rg_id,
-                      copy_comment=args.copy_comment, device=device,
-                      pes0=pes0)
+    if aligner is None:
+        aligner = Aligner(idx, opt, seeding_engine=engine, rg_id=rg_id,
+                          copy_comment=args.copy_comment, device=device,
+                          pes0=pes0)
     extra_hdr = None
     if args.hdr_insert:
         hdr_lines = []

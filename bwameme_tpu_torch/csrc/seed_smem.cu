@@ -66,6 +66,19 @@
 // come from uniform loads, ballots and shuffles), so no lane leaves a loop in
 // which the others still meet at a warp primitive; lane 0 writes the slots.
 //
+// Built with SEED_SHARDED, the same source gives the sharded variants
+// (ops/build.py builds them into libraries of their own, so that the whole
+// index's variants keep their code): the index's per-suffix planes (rank
+// rows, positions, keys) lie in equal blocks of block_rows rows, and a rank
+// r (or, for mode 3's keys, a position) is row r - b * block_rows of block
+// b = r / block_rows, whose base address a table on the card holds. It is
+// the counterpart of the JAX package's sharded gathers
+// (bwameme_tpu/ops/sa_search.py:495-506 _owned,
+// bwameme_tpu/parallel/sharded_index.py:137-146 owned), which psum every
+// shard's masked row: here the block that owns the row answers alone,
+// through an ordinary pointer where it shares the card, a peer pointer over
+// NVLink where it does not. Only load_head differs; one division a probe.
+//
 // Packed words compare as unsigned (uint32_t). The one float step, the P-RMI
 // prediction, rounds its multiply and its add separately (__fmul_rn,
 // __fadd_rn; the file is also built with -fmad=false): the error windows of
@@ -115,6 +128,13 @@ template <typename RT> struct Index {
     bool counting;
     int sectors;
     int steps;
+#ifdef SEED_SHARDED
+    // the blocks' base addresses of the rank-indexed plane (rk, or sa) and
+    // of the keys (ktext or key2), and the rows a block
+    const long long* rank_blocks;
+    const long long* key_blocks;
+    RT block_rows;
+#endif
 };
 
 // the pattern read[pivot:] of one row of the packed query buffer
@@ -257,6 +277,7 @@ __device__ __forceinline__ void root_window(const Index<RT>& ix,
 
 // The head of the suffix at rank r (in range): its text position, and its
 // first head_bases<MODE>() bases in h, 16 a word.
+#ifndef SEED_SHARDED
 template <int MODE, typename RT>
 __device__ __forceinline__ long long load_head(const Index<RT>& ix,
                                                long long r, uint32_t* h) {
@@ -285,6 +306,49 @@ __device__ __forceinline__ long long load_head(const Index<RT>& ix,
         return pos;
     }
 }
+#else
+// The block that owns row r of a plane (a rank, or a text position) and the
+// row's place in it; the arithmetic of a wide variant is 64-bit.
+template <typename T, typename RT>
+__device__ __forceinline__ const T* owner(const Index<RT>& ix,
+                                          const long long* blocks,
+                                          long long r, long long& row) {
+    const RT b = (RT)r / ix.block_rows;
+    row = r - (long long)b * ix.block_rows;
+    return reinterpret_cast<const T*>(__ldg(blocks + b));
+}
+
+template <int MODE, typename RT>
+__device__ __forceinline__ long long load_head(const Index<RT>& ix,
+                                               long long r, uint32_t* h) {
+    long long o;
+    if constexpr (MODE == 4 && sizeof(RT) == 4) {
+        const uint4 row = __ldg(owner<uint4>(ix, ix.rank_blocks, r, o) + o);
+        h[0] = row.y;
+        h[1] = row.z;
+        h[2] = row.w;
+        return row.x;
+    } else if constexpr (MODE == 4) {
+        const uint32_t* w =
+            owner<uint32_t>(ix, ix.rank_blocks, r, o) + 5 * o;
+        const uint32_t lo = __ldg(w), hi = __ldg(w + 1);
+        h[0] = __ldg(w + 2);
+        h[1] = __ldg(w + 3);
+        h[2] = __ldg(w + 4);
+        return (long long)(((unsigned long long)hi << 32) | lo);
+    } else {
+        const long long pos =
+            (long long)__ldg(owner<RT>(ix, ix.rank_blocks, r, o) + o);
+        if constexpr (MODE != 1) {
+            const uint2 k = __ldg(
+                owner<uint2>(ix, ix.key_blocks, MODE == 3 ? pos : r, o) + o);
+            h[0] = k.x;
+            h[1] = k.y;
+        }
+        return pos;
+    }
+}
+#endif
 
 // One lane's compare: (less, lcp) of suffix rank sa_idx against pattern[:v].
 // Meets no other lane, so lanes may part ways inside. deep: the steps of
@@ -911,8 +975,12 @@ struct IndexArgs {
     long long n_sa;
     const void* kmer_table;
     int kmer_bits;
+#ifdef SEED_SHARDED
+    long long block_rows;   // rk, sa and keys: the block tables
+#endif
 };
 
+#ifndef SEED_SHARDED
 template <typename RT> static Index<RT> make_index(const IndexArgs& a) {
     return Index<RT>{(const uint32_t*)a.rk, (const RT*)a.sa,
                      (const uint2*)a.keys, (const uint32_t*)a.text32,
@@ -921,6 +989,17 @@ template <typename RT> static Index<RT> make_index(const IndexArgs& a) {
                      (RT)a.n_sa, (const RT*)a.kmer_table, a.kmer_bits, 0,
                      false, 0, 0};
 }
+#else
+template <typename RT> static Index<RT> make_index(const IndexArgs& a) {
+    return Index<RT>{nullptr, nullptr, nullptr, (const uint32_t*)a.text32,
+                     a.n_text_words, (const uint32_t*)a.params,
+                     (const long long*)a.params64, a.n_leaf, a.bits,
+                     (RT)a.n_sa, (const RT*)a.kmer_table, a.kmer_bits, 0,
+                     false, 0, 0,
+                     (const long long*)(a.rk ? a.rk : a.sa),
+                     (const long long*)a.keys, (RT)a.block_rows};
+}
+#endif
 
 static const int KEY_THREADS = 128;
 
@@ -1042,6 +1121,7 @@ static int query(const IndexArgs& ia, const void* qbuf, int W,
         default: return (int)cudaErrorInvalidValue;                         \
     }
 
+#ifndef SEED_SHARDED
 #define INDEX_PARAMS                                                        \
     int mode, int wide, const void *rk, const void *sa, const void *keys,  \
         const void *text32, long long n_text_words, const void *params,    \
@@ -1050,6 +1130,17 @@ static int query(const IndexArgs& ia, const void* qbuf, int W,
 #define INDEX_ARGS                                                          \
     IndexArgs { rk, sa, keys, text32, n_text_words, params, params64,      \
                 n_leaf, bits, n_sa, kmer_table, kmer_bits }
+#else
+// rk, sa and keys are the planes' block tables
+#define INDEX_PARAMS                                                        \
+    int mode, int wide, const void *rk, const void *sa, const void *keys,  \
+        const void *text32, long long n_text_words, const void *params,    \
+        const void *params64, int n_leaf, int bits, long long n_sa,        \
+        const void *kmer_table, int kmer_bits, long long block_rows
+#define INDEX_ARGS                                                          \
+    IndexArgs { rk, sa, keys, text32, n_text_words, params, params64,      \
+                n_leaf, bits, n_sa, kmer_table, kmer_bits, block_rows }
+#endif
 
 extern "C" {
 
@@ -1088,8 +1179,10 @@ int seed_round3_launch(INDEX_PARAMS, const void* qbuf, int W, const void* nf,
             slots, nsm, dropped, counts, stream)
 }
 
+#ifndef SEED_SHARDED
 // the window of the index's root (prmi_window, or kmer_window with
-// kmer_bits > 0), the same code in every mode
+// kmer_bits > 0), the same code in every mode; it reads no per-suffix
+// plane, so a sharded index takes it from the whole index's library
 int window_launch(INDEX_PARAMS, const void* khi, const void* klo, int n,
                   void* lo, void* hi, void* stream) {
     if (n == 0) return 0;
@@ -1110,6 +1203,7 @@ int window_launch(INDEX_PARAMS, const void* khi, const void* klo, int n,
 #endif
     return (int)cudaErrorInvalidValue;
 }
+#endif
 
 int sa_query_launch(INDEX_PARAMS, const void* qbuf, int W, const void* row,
                     const void* pivot, const void* v, const void* min_intv,
@@ -1118,5 +1212,25 @@ int sa_query_launch(INDEX_PARAMS, const void* qbuf, int W, const void* row,
     VARIANT(query, INDEX_ARGS, qbuf, W, row, pivot, v, min_intv, n, out,
             counts, stream)
 }
+
+#ifdef SEED_SHARDED
+// lets card `device` read the memory of card `peer` (once a pair: an
+// enabled pair is no error); the current card is left as it was
+int enable_peer_access(int device, int peer) {
+    int prev = 0;
+    cudaError_t err = cudaGetDevice(&prev);
+    if (err == cudaSuccess) err = cudaSetDevice(device);
+    if (err == cudaSuccess) {
+        err = cudaDeviceEnablePeerAccess(peer, 0);
+        if (err == cudaErrorPeerAccessAlreadyEnabled) {
+            cudaGetLastError();
+            err = cudaSuccess;
+        }
+        const cudaError_t back = cudaSetDevice(prev);
+        if (err == cudaSuccess) err = back;
+    }
+    return (int)err;
+}
+#endif
 
 }  // extern "C"

@@ -39,6 +39,16 @@ arithmetic): the CUDA kernels read them as ``uint32_t`` and the plain
 versions widen them to int64 (``words_u32``). ``sa`` is int32 narrow and
 int64 wide. A layout that does not fit the card raises, never moving to
 another mode.
+
+Sharded (``from_host(..., shards=[devices])``, the counterpart of the JAX
+package's ``mesh=``, bwameme_tpu/ops/sa_search.py:88-279): the per-suffix
+planes ``rk``, ``sa`` and ``key2`` are split by rank and ``ktext`` by text
+position into equal blocks (``ShardedPlane``), one a device of the list,
+which may repeat a device; the text, the leaf records, ``params64`` and the
+k-mer table stay whole on the home device, the list's first. The sharded
+seeding kernels read a rank's row from its block through a table of the
+blocks' base addresses; the plain versions take it with
+``ops.sa_search.owned``.
 """
 
 from __future__ import annotations
@@ -58,6 +68,9 @@ DEFAULT_DEVICE_BYTES = 16 << 30
 # the first bases of a suffix that a compare takes from the mode's planes
 HEAD_BASES = {4: 48, 3: 32, 2: 32, 1: 0}
 PLANES = ("rk", "sa", "ktext", "key2", "params64")
+# the per-suffix planes a sharded index splits in blocks (by rank; ktext by
+# text position)
+SHARDED = ("rk", "sa", "ktext", "key2")
 
 
 def words_u32(x: torch.Tensor) -> torch.Tensor:
@@ -149,12 +162,15 @@ def device_bytes(device: torch.device) -> int:
     return DEFAULT_DEVICE_BYTES
 
 
-def choose_mode(n_sa: int, has_isa: bool, wide: bool, hbm: int) -> int:
+def choose_mode(n_sa: int, has_isa: bool, wide: bool, hbm: int,
+                shards: int = 1) -> int:
     """The JAX package's ladder (bwameme_tpu/ops/sa_search.py:192-214): the
     fastest layout whose planes fit three quarters of the device's memory,
     at 16 bytes a suffix for mode 4 (narrow only), 12 for modes 3 (with the
-    ISA) and 2 (without), mode 1 otherwise."""
+    ISA) and 2 (without), mode 1 otherwise; over ``shards`` blocks, the
+    suffixes of one block (:205)."""
     budget = int(hbm * 0.75)
+    n_sa //= max(shards, 1)
     if has_isa and not wide and n_sa * 16 <= budget:
         return 4
     if has_isa and n_sa * 12 <= budget:
@@ -164,7 +180,88 @@ def choose_mode(n_sa: int, has_isa: bool, wide: bool, hbm: int) -> int:
     return 1
 
 
+def _norm(device) -> torch.device:
+    """A device with its index: "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def plane_bytes(x) -> int:
+    if isinstance(x, ShardedPlane):
+        return sum(plane_bytes(b) for b in x.blocks)
+    return x.numel() * x.element_size()
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedPlane:
+    """A per-suffix plane in equal blocks of ``block_rows`` rows,
+    ceil(rows / shards): block s holds rows s * block_rows onwards on its
+    own device, the last padded with zeros as the JAX package's put_shard
+    pads (no read reaches the padding: ranks and positions stay below
+    n_sa). ``table``: the blocks' base addresses, int64, on the first
+    block's device, which the sharded seeding kernels read (csrc/
+    seed_smem.cu built with SEED_SHARDED); on the card, a block on another
+    card than the table's is read through a peer pointer."""
+
+    blocks: tuple
+    rows: int
+    table: torch.Tensor
+
+    @classmethod
+    def split(cls, x: torch.Tensor, devices) -> "ShardedPlane":
+        """``x`` in len(devices) blocks, block s copied to devices[s] (a
+        separate allocation, also where the device repeats)."""
+        n = x.shape[0]
+        B = max(1, -(-n // len(devices)))
+        blocks = []
+        for s, d in enumerate(devices):
+            part = x[s * B: (s + 1) * B]
+            blk = torch.zeros((B, *x.shape[1:]), dtype=x.dtype, device=d)
+            blk[: part.shape[0]].copy_(part)
+            blocks.append(blk)
+        table = torch.tensor([b.data_ptr() for b in blocks],
+                             dtype=torch.int64, device=blocks[0].device)
+        return cls(tuple(blocks), n, table)
+
+    @property
+    def block_rows(self) -> int:
+        return self.blocks[0].shape[0]
+
+    @property
+    def devices(self) -> list:
+        return [b.device for b in self.blocks]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    @property
+    def shape(self) -> tuple:
+        return (self.rows, *self.blocks[0].shape[1:])
+
+    def whole(self) -> torch.Tensor:
+        """The plane in one tensor on the table's device (for checks)."""
+        return torch.cat([b.to(self.table.device)
+                          for b in self.blocks])[: self.rows]
+
+
 def _check(x, name: str, dtype, shape: tuple) -> None:
+    if isinstance(x, ShardedPlane):
+        S, B = len(x.blocks), x.block_rows
+        if x.rows != shape[0] or B != max(1, -(-x.rows // S)):
+            raise ValueError(f"{name}: {x.rows} rows in {S} blocks of {B}, "
+                             f"expected {shape[0]} rows in blocks of "
+                             f"ceil(rows / {S})")
+        for s, blk in enumerate(x.blocks):
+            _check(blk, f"{name} block {s}", dtype, (B, *shape[1:]))
+        if x.table.dtype != torch.int64 or x.table.shape != (S,) or \
+                x.table.device != x.blocks[0].device or \
+                x.table.tolist() != [b.data_ptr() for b in x.blocks]:
+            raise ValueError(f"{name}: the block table does not hold the "
+                             "blocks' base addresses")
+        return
     if x.dtype != dtype:
         raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
     if x.dim() != len(shape) or any(
@@ -180,10 +277,11 @@ class DeviceIndex:
     n_sa: int
     mode: int = 4
     wide: bool = False
-    rk: torch.Tensor | None = None        # mode 4: uint32[N, 4] / [N, 5]
-    sa: torch.Tensor | None = None        # modes 1-3: int32[N] / int64[N]
-    ktext: torch.Tensor | None = None     # mode 3: uint32[N, 2]
-    key2: torch.Tensor | None = None      # mode 2: uint32[N, 2]
+    # the per-suffix planes, each a tensor or a ShardedPlane
+    rk: torch.Tensor | ShardedPlane | None = None  # mode 4: uint32[N, 4/5]
+    sa: torch.Tensor | ShardedPlane | None = None  # modes 1-3: int32/64[N]
+    ktext: torch.Tensor | ShardedPlane | None = None  # mode 3: uint32[N, 2]
+    key2: torch.Tensor | ShardedPlane | None = None   # mode 2: uint32[N, 2]
     params64: torch.Tensor | None = None  # wide: int64[L + 1]
     kmer_table: torch.Tensor | None = None  # ERT root: [4^kb + 1] ranks
     kmer_bits: int = 0
@@ -230,6 +328,15 @@ class DeviceIndex:
                                  "outside 1..16")
             _check(self.kmer_table, "kmer_table", self.rank_dtype,
                    ((1 << (2 * self.kmer_bits)) + 1,))
+        split = [getattr(self, k) for k in SHARDED
+                 if isinstance(getattr(self, k), ShardedPlane)]
+        if split and (len(split) != sum(getattr(self, k) is not None
+                                        for k in SHARDED)
+                      or any(p.devices != split[0].devices for p in split)
+                      or split[0].devices[0] != self.text32.device):
+            raise ValueError("a sharded index splits every per-suffix plane "
+                             "over the same devices, the first of which "
+                             "holds the text")
 
     @property
     def planes(self) -> dict:
@@ -247,34 +354,80 @@ class DeviceIndex:
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self.planes.values())
+        return sum(plane_bytes(t) for t in self.planes.values())
+
+    @property
+    def shards(self) -> list | None:
+        """The devices of the per-suffix planes' blocks, None when whole."""
+        for k in SHARDED:
+            x = getattr(self, k)
+            if isinstance(x, ShardedPlane):
+                return x.devices
+        return None
 
     @classmethod
-    def from_tensors(cls, device=None, **kw) -> "DeviceIndex":
+    def from_tensors(cls, device=None, shards=None, **kw) -> "DeviceIndex":
         """From planes given as tensors (on any one device, ``device`` moves
         them there): mode, width and root follow from the planes given.
-        Before a move to a card, checks that the planes and HEADROOM_BYTES
-        fit its free memory, and raises if not."""
+        ``shards``: a list of devices (``device`` is its first, or None)
+        over which the per-suffix planes are split (``shard``). Before a
+        move to a card, checks that the planes and HEADROOM_BYTES fit each
+        card's free memory, and raises if not."""
         mode = (4 if kw.get("rk") is not None else
                 3 if kw.get("ktext") is not None else
                 2 if kw.get("key2") is not None else 1)
         di = cls(mode=mode, wide=kw.get("params64") is not None, **kw)
+        if shards is not None:
+            if device is not None and _norm(device) != _norm(shards[0]):
+                raise ValueError(f"a sharded index lives on its first "
+                                 f"shard's device {shards[0]}, not {device}")
+            return di.shard(shards)
         if device is None:
             return di
-        device = torch.device(device)
-        if device.type == "cuda":
-            free, _total = torch.cuda.mem_get_info(device)
-            if di.nbytes + HEADROOM_BYTES > free:
-                raise RuntimeError(
-                    f"the mode-{mode} index needs {di.nbytes / 2**30:.2f} "
-                    f"GiB plus {HEADROOM_BYTES / 2**30:.0f} GiB of working "
-                    f"memory; {free / 2**30:.2f} GiB are free on {device}")
+        device = _norm(device)
+        di._check_fits({device: di.nbytes})
         return dataclasses.replace(di, **{k: t.to(device) for k, t
                                           in di.planes.items()})
 
+    def shard(self, devices) -> "DeviceIndex":
+        """This index (whole planes, on any one device) with its per-suffix
+        planes split in len(devices) blocks, one a device of the list (a
+        device may repeat), and the other planes moved to the list's first
+        device. Checks every card's free memory first."""
+        if self.shards is not None:
+            raise ValueError("the index is sharded already")
+        devices = [_norm(d) for d in devices]
+        if not devices:
+            raise ValueError("shards: no device")
+        need = dict.fromkeys(devices, 0)
+        for k, t in self.planes.items():
+            if k in SHARDED:
+                for d in devices:
+                    need[d] += plane_bytes(t) // len(devices)
+            else:
+                need[devices[0]] += plane_bytes(t)
+        self._check_fits(need)
+        return dataclasses.replace(self, **{
+            k: ShardedPlane.split(t, devices) if k in SHARDED
+            else t.to(devices[0]) for k, t in self.planes.items()})
+
+    def _check_fits(self, need: dict) -> None:
+        """Raises unless each card's ``need`` bytes and HEADROOM_BYTES fit
+        its free memory."""
+        for device, nbytes in need.items():
+            if device.type != "cuda":
+                continue
+            free, _total = torch.cuda.mem_get_info(device)
+            if nbytes + HEADROOM_BYTES > free:
+                raise RuntimeError(
+                    f"the mode-{self.mode} index needs {nbytes / 2**30:.2f} "
+                    f"GiB on {device} plus {HEADROOM_BYTES / 2**30:.0f} GiB "
+                    f"of working memory; {free / 2**30:.2f} GiB are free")
+
     @classmethod
     def from_numpy(cls, text32, params, bits: int, n_sa: int, device,
-                   kmer_bits: int = 0, **planes) -> "DeviceIndex":
+                   kmer_bits: int = 0, shards=None,
+                   **planes) -> "DeviceIndex":
         """From the arrays of a bwameme_tpu ``DeviceIndex`` as numpy, any
         mode and width: the state that carries across from the JAX package.
         ``planes`` holds the layout's own (rk; sa and ktext or key2; and
@@ -293,27 +446,31 @@ class DeviceIndex:
             else:
                 kw[name] = torch.from_numpy(_as_i32(a))
         return cls.from_tensors(
-            device, text32=torch.from_numpy(_as_i32(text32)),
+            device, shards, text32=torch.from_numpy(_as_i32(text32)),
             params=torch.from_numpy(_as_i32(params)), bits=int(bits),
             n_sa=int(n_sa), kmer_bits=int(kmer_bits), **kw)
 
     @classmethod
     def from_host(cls, idx, device, mode: int | None = None,
                   wide: bool | None = None,
-                  ert_bits: int | None = None) -> "DeviceIndex":
+                  ert_bits: int | None = None,
+                  shards=None) -> "DeviceIndex":
         """Build the device planes from a ``MemeIndex``. ``wide``: int64
         coordinates, by default when n_sa >= 2^31. ``mode``: by default the
         JAX package's ladder over the device's memory (``choose_mode``).
         ``ert_bits``: with the ERT root of that many bases (0: the size
         index/ert.pick_ert_bits gives), as bwameme_tpu/ops/sa_search.py
-        builds it."""
+        builds it. ``shards``: a list of devices, ``device`` its first,
+        over which the per-suffix planes are split (``shard``); the ladder
+        then budgets a block a device."""
         device = torch.device(device)
         n = int(idx.n_sa)
         if wide is None:
             wide = n >= 2**31
         if mode is None:
             mode = choose_mode(n, idx.isa is not None, wide,
-                               device_bytes(device))
+                               device_bytes(device),
+                               len(shards) if shards else 1)
         if mode in (3, 4) and idx.isa is None:
             raise ValueError(
                 f"mode {mode} needs the inverse suffix array (the index was "
@@ -338,7 +495,8 @@ class DeviceIndex:
             kmer_bits = ert_bits if ert_bits > 0 else pick_ert_bits(n)
             planes["kmer_table"] = kmer_root(idx.key_hi, kmer_bits, wide)
         return cls.from_numpy(idx.text32, fuse_rmi_params(idx), idx.rmi_bits,
-                              n, device, kmer_bits=kmer_bits, **planes)
+                              n, device, kmer_bits=kmer_bits, shards=shards,
+                              **planes)
 
     @property
     def device(self) -> torch.device:

@@ -9,6 +9,7 @@ object a line.
                                                    [--root kmer]
     python3 bwameme_tpu_torch/kernel_bench.py sw_full
     python3 bwameme_tpu_torch/kernel_bench.py fmi
+    python3 bwameme_tpu_torch/kernel_bench.py shards [--mbp M]
 
 ``launch``: what one call of the flat row gather costs at the seeding
 batch's shape (16-byte rows, 4096 lanes, 64 KB a call) beside
@@ -70,6 +71,21 @@ kernel is slowest on) and the read of the longest chain of warp steps
 alone, against the batch. To compare with an earlier commit's kernel,
 run that tree's own copy of this file in the same call (before the
 warp-a-read design, ``fmi`` there times its thread-a-read kernel).
+
+``shards``: the sharded index's seeding rounds (csrc/seed_smem.cu built with
+SEED_SHARDED) on the bench genome cut to ``--mbp`` (10 by default) and
+4096 reads of seed's kind, its rank rows in blocks placed three ways: the
+whole index (the unsharded variants), four blocks on cuda:0, and one block
+a visible card when there are two or more (peer pointers over NVLink). Each
+placement's rounds equal the whole index's; a call alone and the card's
+time a call; with two cards or more also two blocks on two cards. The
+byte bound is the answers' distinct sectors (the plain
+version's count) over 3.35 TB/s, and across cards the larger of that and
+the (n - 1)/n of them that lie on other cards over NVLink's 450 GB/s each
+way. With two cards or more, then: mem --shards N (one block a card)
+against mem on one card, SAM for SAM; the dry run over N cards
+(parallel/dryrun.dryrun_multichip); and N processes under nccl, a card
+each (parallel/multihost.py), against one process.
 """
 
 from __future__ import annotations
@@ -237,6 +253,113 @@ def bench_seed(mode: int | None = None, wide: bool | None = None,
             given=times(batch, k))
 
 
+SHARD_MBP = 10
+HBM_BPS = 3.35e12
+NVLINK_BPS = 450e9     # each way, to the other cards of an H100 SXM host
+
+
+def bench_shards(mbp: float = SHARD_MBP):
+    """Yields the rows of ``shards`` as they are measured."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch import bench_util as bu
+    from bwameme_tpu_torch import cli
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.ops import sa_search as ss
+    from bwameme_tpu_torch.parallel import multihost
+    from bwameme_tpu_torch.parallel.dryrun import dryrun_multichip
+    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    dev = torch.device("cuda", 0)
+    n_cards = torch.cuda.device_count()
+    prefix = bu.get_index(mbp)
+    idx = load_index(prefix)
+    eng = DeviceSeedingEngine(idx, MemOptions(), lanes=BATCH, device=dev)
+    rng = np.random.default_rng(17)
+    reads = bu.simulated_reads(idx.text, idx.l_pac, BATCH, 151, rng,
+                               bu.planted_repeats(mbp))
+    whole = bu.Rounds(eng, reads, dev)
+    names = ("seed_round1", "seed_round2", "seed_round3")
+    want, sectors = [], []
+    for k in range(3):
+        want.append(whole.run(k, whole.kernels[k]))
+        work = ss.Work(BATCH, dev)
+        whole.run(k, whole.plain[k], work=work)
+        sectors.append(work.answer_sectors())
+    placements = {"whole": None, "4 blocks on cuda:0": [dev] * 4}
+    for n in sorted({2, n_cards} if n_cards >= 2 else ()):
+        placements[f"{n} blocks, one a card"] = [
+            torch.device("cuda", i) for i in range(n)]
+    for what, devices in placements.items():
+        sharded = eng
+        if devices is not None:
+            sharded = copy.copy(eng)
+            sharded.di = eng.di.shard(devices)
+        batch = bu.Rounds(sharded, reads, dev)
+        remote = (0.0 if devices is None else
+                  sum(d != dev for d in devices) / len(devices))
+        row = dict(what=f"the rounds at {BATCH} reads, {mbp:g} Mbp: {what}",
+                   remote_share=remote)
+        for k, name in enumerate(names):
+            got = batch.run(k, batch.kernels[k])
+            # the counts, the drops and the slots in use (the others are
+            # left as they were allocated)
+            used = (torch.arange(got[0].shape[2], device=dev)[None, :]
+                    < got[1][:, None])
+            if not (torch.equal(got[1], want[k][1])
+                    and torch.equal(got[2], want[k][2])
+                    and torch.equal(got[0][:, used], want[k][0][:, used])):
+                raise RuntimeError(f"{name}, {what}: differs from the whole "
+                                   "index's")
+            fn = lambda: batch.run(k, batch.kernels[k])
+            nbytes = sectors[k] * 32
+            row[name] = dict(
+                alone_ms=bu.cuda_ms(fn, 10),
+                device_ms=bu.queued_us(fn, 100) / 1e3,
+                answer_sectors=sectors[k],
+                bound_ms=max(nbytes / HBM_BPS,
+                             remote * nbytes / NVLINK_BPS) * 1e3)
+        yield row
+        del batch, sharded
+    if n_cards < 2:
+        return
+    work = tempfile.mkdtemp(prefix="bwameme_shards_")
+    fq = os.path.join(work, "reads.fq")
+    with open(fq, "w") as f:
+        for i, c in enumerate(reads[:1024]):
+            seq = "".join("ACGTN"[x] for x in c)
+            f.write(f"@r{i}\n{seq}\n+\n{'I' * len(seq)}\n")
+    sams = {}
+    for flags in ((), ("--shards", str(n_cards)),
+                  ("--dp-shards", "2", "--shards", str(n_cards // 2))):
+        out = os.path.join(work, f"{len(sams)}.sam")
+        rc = cli.main(["mem", prefix, fq, "-o", out, *flags])
+        if rc != 0:
+            raise RuntimeError(f"mem {' '.join(flags)} exited {rc}")
+        with open(out) as f:
+            sams[" ".join(flags) or "one card"] = [
+                ln for ln in f if not ln.startswith("@PG")]
+    one = sams.pop("one card")
+    for flags, sam in sams.items():
+        if sam != one:
+            raise RuntimeError(f"mem {flags}: another SAM than one card's")
+    yield dict(what=f"mem {', '.join(sams)} == one card's SAM on 1024 "
+               f"reads at {mbp:g} Mbp", records=len(one))
+    yield dict(what=f"dryrun_multichip({n_cards})",
+               **dryrun_multichip(n_cards))
+    got = multihost.run_multihost(n_cards, "nccl", timeout=600)
+    if got != multihost.single_process("cuda:0"):
+        raise RuntimeError("nccl processes: another SAM than one process's")
+    yield dict(what=f"{n_cards} processes under nccl, a card each == one "
+               "process's SAM", records=[g.count("\n") for g in got])
+
+
 SW_STEP_QLENS = (32, 64, 151, 256, 300)
 SW_STEP_ROWS = 4000
 SW_STEP_JOBS = 132 * 8
@@ -374,7 +497,9 @@ def bench_fmi():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", choices=("launch", "k1", "seed", "sw_full",
-                                     "fmi"))
+                                     "fmi", "shards"))
+    ap.add_argument("--mbp", type=float, default=SHARD_MBP,
+                    help="shards: the bench genome cut to this size")
     ap.add_argument("--mode", type=int, choices=(1, 2, 3, 4), default=None,
                     help="seed: the index's memory mode (default: the "
                     "ladder's)")
@@ -397,7 +522,8 @@ def main() -> int:
     else:
         rows = {"k1": bench_k1,
                 "seed": lambda: bench_seed(args.mode, args.wide, args.root),
-                "sw_full": bench_sw_full, "fmi": bench_fmi}[args.what]()
+                "sw_full": bench_sw_full, "fmi": bench_fmi,
+                "shards": lambda: bench_shards(args.mbp)}[args.what]()
         for row in rows:
             print(json.dumps(row), flush=True)
     return 0

@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # uses __fmul_rn/__fadd_rn); its variants build as a library a memory mode
 # (SEED_MODE) and a root (SEED_ROOT: the P-RMI, or the ERT k-mer table, the
 # library's name ending in _kmer), eight nvcc side by side instead of one
-# that takes eight times as long
+# that takes eight times as long; the sharded index's variants
+# (SEED_SHARDED) as a library a mode with both roots
 LIBRARIES = {
     "banded_sw": ("banded_sw", ()),
     "fmi_search": ("fmi_search", ()),
@@ -47,6 +48,9 @@ LIBRARIES = {
     **{f"seed_smem_m{m}{'_kmer' if k else ''}": (
         "seed_smem", ("-fmad=false", f"-DSEED_MODE={m}", f"-DSEED_ROOT={k}"))
        for k in (0, 1) for m in (1, 2, 3, 4)},
+    **{f"seed_smem_sharded_m{m}": (
+        "seed_smem", ("-fmad=false", f"-DSEED_MODE={m}", "-DSEED_SHARDED"))
+       for m in (1, 2, 3, 4)},
     "sw_full": ("sw_full", ()),
 }
 

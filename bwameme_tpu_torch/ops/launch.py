@@ -32,26 +32,30 @@ SEEDING = ("prmi_window", "sa_query", "seed_round1", "seed_round2",
 FMI = ("fmi_backward_ext", "fmi_smem", "fmi_sa_lookup")
 
 
-def variant(name: str, mode: int, wide: bool, root: str = "prmi") -> str:
+def variant(name: str, mode: int, wide: bool, root: str = "prmi",
+            sharded: bool = False) -> str:
     """The launch-count name of a seeding kernel's variant for an index of
     ``mode`` (1-4), width and root: the kernel's own name for mode 4 narrow
     with the P-RMI root, else ``name[...]`` with the mode where it is not 4
-    narrow, ``kmer`` for the ERT root and ``wide``: ``seed_round1[kmer]``,
-    ``seed_round2[m1,kmer,wide]``, ``sa_query[m4,wide]``. The window, the
-    same code in every mode, is ``prmi_window`` or ``kmer_window``, with
-    ``[wide]``."""
+    narrow, ``kmer`` for the ERT root, ``wide`` and ``shard`` for a sharded
+    index's variant: ``seed_round1[kmer]``, ``seed_round2[m1,kmer,wide]``,
+    ``sa_query[m4,wide]``, ``seed_round3[shard]``. The window, the same
+    code in every mode and in a sharded index, is ``prmi_window`` or
+    ``kmer_window``, with ``[wide]``."""
     kmer = root == "kmer"
     if name == "prmi_window":
         return ("kmer_window" if kmer else name) + ("[wide]" if wide else "")
     tags = ([f"m{mode}"] if mode != 4 or wide else []) + (
-        ["kmer"] if kmer else []) + (["wide"] if wide else [])
+        ["kmer"] if kmer else []) + (["wide"] if wide else []) + (
+        ["shard"] if sharded else [])
     return f"{name}[{','.join(tags)}]" if tags else name
 
 
-def variants(name: str, root: str = "prmi") -> list[str]:
+def variants(name: str, root: str = "prmi", sharded: bool = False
+             ) -> list[str]:
     """Every variant's name of a seeding kernel with a root, mode 4 narrow
     first."""
-    return list(dict.fromkeys(variant(name, m, w, root)
+    return list(dict.fromkeys(variant(name, m, w, root, sharded)
                               for w in (False, True) for m in (4, 1, 2, 3)))
 
 
@@ -59,6 +63,8 @@ KERNELS = ("banded_sw_pairs", "banded_sw_coord", "gather_flat",
            "gather_window", "gather_chain",
            *(v for r in ("prmi", "kmer") for k in SEEDING
              for v in variants(k, r)),
+           *(v for r in ("prmi", "kmer") for k in SEEDING[1:]
+             for v in variants(k, r, sharded=True)),
            "sw_full", *FMI)
 
 

@@ -51,7 +51,8 @@ from __future__ import annotations
 
 import torch
 
-from bwameme_tpu_torch.index.device import DeviceIndex, words_u32
+from bwameme_tpu_torch.index.device import (DeviceIndex, ShardedPlane,
+                                             words_u32)
 
 FULL = 0xFFFFFFFF
 I64 = torch.int64
@@ -301,19 +302,47 @@ def _multiword_cmp(swords, kwords, total: int):
     return less, lcp
 
 
+def owned(plane, g, fill):
+    """The rows of a per-suffix plane at global ranks (or, for ktext, text
+    positions) ``g``, ``fill`` where g is outside [0, rows). A whole plane
+    takes them at once; a ShardedPlane as the JAX package's sharded search
+    does (bwameme_tpu/parallel/sharded_index.py:137-146, ops/sa_search.py
+    :495-506): every block takes its row at the clipped local index, keeps
+    it where it owns g and gives zero elsewhere, and the blocks' parts are
+    summed on g's device."""
+    n = plane.shape[0]
+    if isinstance(plane, ShardedPlane):
+        B = plane.block_rows
+        tot = 0
+        for s, blk in enumerate(plane.blocks):
+            local = g.to(blk.device) - s * B
+            mine = (local >= 0) & (local < B)
+            val = blk[local.clamp(0, B - 1)]
+            mine = mine.reshape(*mine.shape, *[1] * (val.dim() - mine.dim()))
+            tot = tot + torch.where(mine, val, torch.zeros_like(val)).to(
+                g.device)
+    else:
+        tot = plane[g.clamp(0, n - 1)]
+    inb = (g >= 0) & (g < n)
+    inb = inb.reshape(*inb.shape, *[1] * (tot.dim() - inb.dim()))
+    return torch.where(inb, tot, torch.full_like(tot, fill))
+
+
 def suffix_heads(di: DeviceIndex, idx):
     """(text positions, head words) of the suffixes at ranks ``idx`` (in
     range): the layout's first ``di.head_bases`` bases, 16 a word."""
     if di.mode == 4:
-        r0 = words_u32(di.rk[idx])
+        r0 = words_u32(owned(di.rk, idx, 0))
         if di.wide:     # (pos_lo, pos_hi, key_hi, key_lo, b48)
             return r0[:, 0] | (r0[:, 1] << 32), [r0[:, 2], r0[:, 3],
                                                  r0[:, 4]]
         return r0[:, 0], [r0[:, 1], r0[:, 2], r0[:, 3]]
-    pos = di.sa[idx].to(I64)
+    pos = owned(di.sa, idx, 0).to(I64)
     if di.mode == 1:
         return pos, []
-    k = words_u32(di.ktext[pos] if di.mode == 3 else di.key2[idx])
+    # past the text a key is all ones, as the JAX package's ktext_at fills it
+    k = words_u32(owned(di.ktext, pos, -1) if di.mode == 3
+                  else owned(di.key2, idx, 0))
     return pos, [k[:, 0], k[:, 1]]
 
 

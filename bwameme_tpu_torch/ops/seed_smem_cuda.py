@@ -5,6 +5,14 @@ each in the variant of the index's layout (its mode, 1-4, and its width) and
 root, whose launches are counted under the variant's own name
 (``ops.launch.variant``).
 
+Over a sharded index (``DeviceIndex.shards``) the rounds and sa_query
+launch the sharded variants (csrc/seed_smem.cu built with SEED_SHARDED, a
+library a mode), which read each rank's row through the planes' block
+tables; their launches count under ``...[shard]``. Blocks on another card
+than the launch's are read through peer pointers: the first launch enables
+peer access once a pair, and a pair of cards without it raises. The window
+reads no per-suffix plane and launches the whole index's variant.
+
 Checks, launch and launch counts are those of ops/launch.py. The plain
 PyTorch versions live in ops/seed_smem.py and ops/sa_search.py;
 ops/seed_smem.py dispatches to these wrappers for CUDA tensors only. A
@@ -19,45 +27,113 @@ import ctypes
 
 import torch
 
-from bwameme_tpu_torch.index.device import DeviceIndex
+from bwameme_tpu_torch.index.device import DeviceIndex, ShardedPlane
 from bwameme_tpu_torch.ops.launch import (check, cuda_device, entry, launch,
                                           variant)
 
 _WHAT = "the CUDA seeding kernels"
+# pairs of cards (the launch's, a block's) with peer access enabled
+_peers: set = set()
 
 
-def _declare(lib) -> None:
+def _declare(lib, sharded: bool = False) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # mode, wide, rk, sa, keys, text32, n_text_words, params, params64,
-    # n_leaf, bits, n_sa, kmer_table, kmer_bits
-    index = [I, I, P, P, P, P, LL, P, P, I, I, LL, P, I]
+    # n_leaf, bits, n_sa, kmer_table, kmer_bits; sharded: rk, sa and keys
+    # are block tables, then block_rows
+    index = [I, I, P, P, P, P, LL, P, P, I, I, LL, P, I] + (
+        [LL] if sharded else [])
     lib.seed_round1_launch.argtypes = index + [
         P, I, P, P, P, I, P, I, I, I, P, P, P, P, P]
     lib.seed_round2_launch.argtypes = index + [
         P, I, P, P, I, P, I, P, P, I, I, I, I, I, P, P, P, P, P]
     lib.seed_round3_launch.argtypes = index + [
         P, I, P, I, P, I, I, I, I, P, P, P, P, P]
-    lib.window_launch.argtypes = index + [P, P, I, P, P, P]
     lib.sa_query_launch.argtypes = index + [P, I, P, P, P, P, I, P, P, P]
-    for fn in (lib.seed_round1_launch, lib.seed_round2_launch,
-               lib.seed_round3_launch, lib.window_launch,
-               lib.sa_query_launch):
+    fns = [lib.seed_round1_launch, lib.seed_round2_launch,
+           lib.seed_round3_launch, lib.sa_query_launch]
+    if sharded:
+        lib.enable_peer_access.argtypes = [I, I]
+        fns.append(lib.enable_peer_access)
+    else:
+        lib.window_launch.argtypes = index + [P, P, I, P, P, P]
+        fns.append(lib.window_launch)
+    for fn in fns:
         fn.restype = I
+
+
+def _declare_sharded(lib) -> None:
+    _declare(lib, sharded=True)
+
+
+def _sharded(di: DeviceIndex, fn_name: str) -> bool:
+    return di.shards is not None and fn_name != "window_launch"
 
 
 def _entry(di: DeviceIndex, fn_name: str):
     """A launcher of the library of the variants of the index's mode and
-    root (ops/build.py)."""
+    root (ops/build.py), the sharded variants' library a mode over a
+    sharded index."""
+    if _sharded(di, fn_name):
+        return entry(f"seed_smem_sharded_m{di.mode}", fn_name,
+                     _declare_sharded)
     lib = f"seed_smem_m{di.mode}{'_kmer' if di.root == 'kmer' else ''}"
     return entry(lib, fn_name, _declare)
 
 
 def _variant(di: DeviceIndex, name: str) -> str:
-    return variant(name, di.mode, di.wide, di.root)
+    return variant(name, di.mode, di.wide, di.root,
+                   di.shards is not None and name != "prmi_window")
 
 
 def _ptr(x) -> int | None:
-    return None if x is None else x.data_ptr()
+    if x is None:
+        return None
+    return (x.table if isinstance(x, ShardedPlane) else x).data_ptr()
+
+
+def _peer_access(dev: torch.device, plane: ShardedPlane, lib: str) -> None:
+    """Lets ``dev`` read the blocks on other cards, once a pair; raises for
+    a pair of cards that cannot."""
+    for d in plane.devices:
+        if d == dev or (dev, d) in _peers:
+            continue
+        if not torch.cuda.can_device_access_peer(dev, d):
+            raise RuntimeError(f"the sharded index has a block on {d}, which "
+                               f"{dev} cannot read (no peer access between "
+                               "the two cards)")
+        err = entry(lib, "enable_peer_access", _declare_sharded)(
+            dev.index, d.index)
+        if err != 0:
+            raise RuntimeError(f"enabling peer access from {dev} to {d} "
+                               f"failed with CUDA error {err}")
+        _peers.add((dev, d))
+
+
+def _check_plane(di: DeviceIndex, x, name: str, dev: torch.device) -> None:
+    """A whole plane on ``dev``; a sharded one's table on ``dev`` and its
+    blocks on cards that ``dev`` reads."""
+    if not isinstance(x, ShardedPlane):
+        check(x, name, x.dtype, tuple(x.shape), dev)
+        return
+    check(x.table, f"{name} block table", torch.int64, (len(x.blocks),), dev)
+    for s, blk in enumerate(x.blocks):
+        if blk.device.type != dev.type:
+            raise ValueError(f"{name} block {s}: on {blk.device}, expected "
+                             f"a {dev.type} device")
+        check(blk, f"{name} block {s}", x.dtype, tuple(blk.shape),
+              blk.device)
+    _peer_access(dev, x, f"seed_smem_sharded_m{di.mode}")
+
+
+def _aligned(x, name: str, step: int | None = None) -> None:
+    """Raises unless the plane (each block of a sharded one) starts at a
+    multiple of ``step`` bytes, by default of its row (a key is one 8-byte
+    load)."""
+    for t in (x.blocks if isinstance(x, ShardedPlane) else (x,)):
+        if t.data_ptr() % (step or t.element_size() * (
+                2 if t.dim() == 2 else 1)):
+            raise ValueError(f"{name}: not aligned to its loads")
 
 
 def _index_args(di: DeviceIndex, dev: torch.device,
@@ -65,26 +141,28 @@ def _index_args(di: DeviceIndex, dev: torch.device,
     """The launchers' index arguments, every plane they read checked
     (DeviceIndex checked the planes' dtypes and shapes when it was made).
     ``leaves_only``: the kernel reads the root alone (the window), and the
-    rank-indexed planes go as null."""
+    rank-indexed planes go as null. Over a sharded index the per-suffix
+    planes go as their block tables, followed by the rows a block."""
     planes = di.planes
     if leaves_only:
         planes = {k: planes[k] for k in ("params", "params64", "kmer_table")
                   if k in planes}
     for name, x in planes.items():
-        check(x, name, x.dtype, tuple(x.shape), dev)
-    if "rk" in planes and not di.wide and di.rk.data_ptr() % 16:
-        raise ValueError("rk: rank rows must be 16-byte aligned")
+        _check_plane(di, x, name, dev)
+    if "rk" in planes and not di.wide:
+        _aligned(planes["rk"], "rk", 16)    # rank rows are one 16-byte load
     for name in ("ktext", "key2", "params64", "sa"):
-        x = planes.get(name)    # a key is one 8-byte load
-        if x is not None and x.data_ptr() % (
-                x.element_size() * (2 if x.dim() == 2 else 1)):
-            raise ValueError(f"{name}: not aligned to its loads")
+        if name in planes:
+            _aligned(planes[name], name)
     keys = planes.get("ktext", planes.get("key2"))
-    return (di.mode, int(di.wide), _ptr(planes.get("rk")),
+    args = (di.mode, int(di.wide), _ptr(planes.get("rk")),
             _ptr(planes.get("sa")), _ptr(keys), di.text32.data_ptr(),
             di.text32.numel(), di.params.data_ptr(),
             _ptr(planes.get("params64")), di.params.shape[0], di.bits,
             di.n_sa, _ptr(planes.get("kmer_table")), di.kmer_bits)
+    if leaves_only or di.shards is None:
+        return args
+    return args + (planes["rk" if di.mode == 4 else "sa"].block_rows,)
 
 
 def _query_args(qbuf, tables, lens, dev) -> tuple:

@@ -23,6 +23,13 @@ H100, against one thread a read, the three rounds take 0.3 of the card time
 at 4096 reads, the same at 32768, and 1.4 times as much at 65536, where one
 thread a read has enough loads in flight (PERF.md, section 6).
 
+Sharded (``shards=[devices]``, the counterpart of the JAX engine's
+``mesh=``): the index's per-suffix planes lie in rank blocks over the
+devices (index/device.py ShardedPlane), the rounds launch on the home
+device, the list's first, and read each rank's row from its block (the
+sharded kernel variants; on the CPU the plain versions' owned gather). Its
+SMEMs are the unsharded engine's.
+
 Produces the SMEM sets of ``HostSeedingEngine`` (the scalar contract), which
 stays the independent oracle and is never called from here. The read length
 is a runtime argument up to the learned path's 500 bp cap; none of the
@@ -59,7 +66,7 @@ MAX_READ_LEN = 512
 class DeviceSeedingEngine:
     def __init__(self, idx, opt, lanes: int = 1024, device="cuda",
                  mode: int | None = None, wide: bool | None = None,
-                 root: str = "prmi", ert_bits: int = 0):
+                 root: str = "prmi", ert_bits: int = 0, shards=None):
         """``lanes`` is the batch size the caller intends (the reference's
         fixed lane count; any batch size runs, see the module's docstring
         for the sizes the kernels are designed for). ``device`` is explicit:
@@ -69,19 +76,23 @@ class DeviceSeedingEngine:
         from 2^31 suffixes on (``DeviceIndex.from_host``). ``root``: "prmi"
         (the learned index, the -7 path) or "kmer" (the ERT backend, -Z),
         whose k-mer table has ``ert_bits`` bases, 0 for the size
-        index/ert.pick_ert_bits gives."""
+        index/ert.pick_ert_bits gives. ``shards``: a list of devices over
+        which the index's per-suffix planes are split in rank blocks (a
+        device may repeat); the engine then runs on the list's first, and
+        ``device`` is not read."""
         if root not in ("prmi", "kmer"):
             raise ValueError(f"root must be 'prmi' or 'kmer', not {root!r}")
         self.idx = idx
         self.opt = opt
         self.lanes = lanes
-        self.device = torch.device(device)
+        self.device = torch.device(shards[0] if shards else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not "
                                "available")
         self.di = DeviceIndex.from_host(
             idx, self.device, mode=mode, wide=wide,
-            ert_bits=ert_bits if root == "kmer" else None)
+            ert_bits=ert_bits if root == "kmer" else None,
+            shards=list(shards) if shards else None)
         self.max_smems = 96       # emission slots a read, rounds 1 and 3
         self.max_reseeds = 16     # emission slots a read, round 2
         self.pack_cap_per_read = 24

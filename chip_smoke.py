@@ -139,6 +139,20 @@ of which ends the run with a non-zero exit and no result line when it fails:
    -I 400,40 give the same SAM from the card (as one -p interleaved file,
    in modes 4 and 1), from a CPU run of the plain versions and from
    --engine host (the serial host rescue, which launches no sw_full).
+5e. scale-out: the index sharded by rank blocks (4 blocks, separate
+   allocations on the one card; the blocks' table addresses them as it
+   would address other cards' blocks through peer pointers). At 100 Mbp,
+   mode 4: the Aligner over the sharded engine on the main reads (counted
+   from 0), whose SAM must be phase 5's default mem's and whose SMEMs the
+   unsharded engine's; sa_query (through make_sharded_search) and the three
+   rounds' sharded variants against their plain versions (the owned
+   gather) on 2048 of the reads, timed alone and on the card beside the
+   unsharded variants on the same batch. On the 2 Mbp cut: wide mode 1 and
+   the k-mer root sharded, the same. A 2 x 2 data-parallel mesh (SE, PE),
+   two gloo processes sharing the card (parallel/multihost.py), each ==
+   one unsharded engine's SAM; mem --shards 2 exits 1 naming one visible
+   card, or with two cards or more runs across them (peer pointers) and
+   gives one card's SAM.
 
 6. ERT (-Z): beyond phases 4 and 4b, the stress reads on the coarse
    genome under its k-mer root; mem -Z on the main run's 8192 reads, whose
@@ -210,6 +224,12 @@ LAUNCH_PATH = {
     "fmi_sa_lookup": "one call, 2^16 ranks",
 }
 ERT_PATH = "mem -Z, 151 bp reads"
+# the sharded index's variants: the counterparts of the JAX package's owned
+# gathers, inside the search (sa_query) and the engine's programs (rounds)
+SHARDED_REPLACES = {"sa_query": "bwameme_tpu/parallel/sharded_index.py:137",
+                    "seed_round": "bwameme_tpu/ops/sa_search.py:495"}
+SHARDED_PATH = "Aligner over the 4-shard engine, 151 bp reads"
+SHARDED_SEARCH_PATH = "make_sharded_search over ShardedIndex, one call"
 
 
 def launch_path(name: str) -> str:
@@ -221,6 +241,15 @@ def launch_path(name: str) -> str:
     genome's (phase 4b)."""
     base, _, tag = name.partition("[")
     tags = tag.rstrip("]").split(",") if tag else []
+    if "shard" in tags:
+        mode = next((int(t[1:]) for t in tags if t.startswith("m")), 4)
+        root = "kmer" if "kmer" in tags else "prmi"
+        if (mode, "wide" in tags, root) == (4, False, "prmi"):
+            return (SHARDED_SEARCH_PATH if base == "sa_query" else
+                    SHARDED_PATH)
+        return (f"{layout_path(mode, 'wide' in tags, root)}, sharded, "
+                + ("one call" if base == "sa_query" else
+                   f"{LAYOUT_READS} reads of the {SIDE_MBP:g} Mbp genome"))
     if base in ("prmi_window", "kmer_window", "sa_query"):
         return LAUNCH_PATH["sa_query"]
     if "kmer" in tags:
@@ -315,6 +344,15 @@ FMI_SIDE_READS = 1024
 N_ALIGN1 = 64
 MIXED_LENGTHS = (151, 300, 500)
 N_MIXED = 16
+# phase 5e (scale-out): rank blocks of the sharded index (on one card, as
+# many separate allocations); reads and keys of the kernels' comparison at
+# GENOME_MBP; the layouts sharded on the SIDE_MBP cut besides mode 4; pairs
+# of the data-parallel run
+SCALE_SHARDS = 4
+SCALE_READS = 2048
+SCALE_KEYS = 1 << 12
+SCALE_LAYOUTS = ((1, True, "prmi"), (4, False, "kmer"))
+SCALE_PAIRS = 64
 
 
 class SmokeFailure(RuntimeError):
@@ -1125,7 +1163,8 @@ def seeding_row(err, kern, plain_ms, work, counts, chain_us: float,
 def variant_of(di, name: str) -> str:
     from bwameme_tpu_torch.ops.launch import variant
 
-    return variant(name, di.mode, di.wide, di.root)
+    return variant(name, di.mode, di.wide, di.root,
+                   di.shards is not None and name != "prmi_window")
 
 
 def window_fns(di):
@@ -3031,6 +3070,275 @@ def fmi_kernels(dev, chain_us: float, main_fq: str) -> dict:
     return report
 
 
+# --------------------------------------------------------- phase 5e: scale-out
+
+
+def fastq_reads(path: str):
+    """The records of a FASTQ file (io.fastq.Read)."""
+    from bwameme_tpu_torch.io.fastq import read_chunks
+
+    return [r for chunk in read_chunks(path, chunk_bp=1 << 30)
+            for r in chunk]
+
+
+def sam_of(blocks) -> list[str]:
+    """SAM records of an Aligner's blocks, one string a read or a list of
+    them a batch."""
+    text = "".join(b if isinstance(b, str) else "".join(b) for b in blocks)
+    return text.splitlines()
+
+
+def whole_engine(eng):
+    """A copy of a sharded engine over the same index with its per-suffix
+    planes whole again (concatenated on the card): the unsharded variants
+    on the same data."""
+    import copy
+    import dataclasses
+
+    from bwameme_tpu_torch.index.device import SHARDED
+
+    whole = copy.copy(eng)
+    whole.di = dataclasses.replace(eng.di, **{
+        k: getattr(eng.di, k).whole() for k in SHARDED
+        if getattr(eng.di, k) is not None})
+    return whole
+
+
+def beside_whole(report, eng, whole, reads, jobs, dev) -> None:
+    """The unsharded variants' times on the same batch and jobs beside each
+    sharded row of ``report``: unsharded_ms alone, unsharded_device_ms on
+    the card."""
+    from bwameme_tpu_torch.bench_util import Rounds, cuda_ms, queued_us
+    from bwameme_tpu_torch.ops import seed_smem_cuda
+
+    batch = Rounds(whole, reads, dev)
+    qbuf = batch.prep[0]
+    fns = {"sa_query": lambda: seed_smem_cuda.sa_query(whole.di, qbuf, *jobs)}
+    for k in range(3):
+        fns[f"seed_round{k + 1}"] = (
+            lambda k=k: batch.run(k, batch.kernels[k]))
+    for base, fn in fns.items():
+        row = report[variant_of(eng.di, base)]
+        row["unsharded_ms"] = cuda_ms(fn, 10)
+        row["unsharded_device_ms"] = queued_us(fn, 100) / 1e3
+
+
+def phase_scaleout(dev, chain_us: float, main_fq: str, main_sam: str):
+    """The index sharded by rank blocks (SCALE_SHARDS blocks, separate
+    allocations on ``dev``: one card holds them all, and the blocks' table
+    addresses them as it would address other cards' through peer pointers).
+    At GENOME_MBP, mode 4: the Aligner over the sharded engine on the main
+    reads, counted from 0 (the sharded rounds' path), whose SAM must be
+    ``main_sam`` (phase 5's default mem) and whose SMEMs the unsharded
+    engine's; each sharded kernel against its plain version (the owned
+    gather) on SCALE_READS of them, timed alone and on the card beside the
+    unsharded variant on the same batch. On the bench genome cut to
+    SIDE_MBP: wide mode 1 and the k-mer root sharded, the same. Then a 2 x 2
+    data-parallel mesh (SE and PE), two gloo processes on the card
+    (parallel/multihost.py) and mem --shards 2, each against the unsharded
+    run."""
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch import cli
+    from bwameme_tpu_torch.bench_util import CACHE, get_index
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.ops import seed_smem_cuda
+    from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.parallel import multihost
+    from bwameme_tpu_torch.parallel.dp import (DataParallelAligner,
+                                               make_dp_mesh)
+    from bwameme_tpu_torch.parallel.sharded_index import (ShardedIndex,
+                                                          make_sharded_search)
+    from bwameme_tpu_torch.pipeline import Aligner
+    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+    from bwameme_tpu_torch.utils.config import MEM_F_PE, MemOptions
+
+    shards = [dev] * SCALE_SHARDS
+    report, by_path = {}, {}
+    idx = load_index(get_index(GENOME_MBP))
+    opt = MemOptions()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = DeviceSeedingEngine(idx, opt, lanes=BATCH, device=dev,
+                              shards=shards)
+    torch.cuda.synchronize()
+    up = time.perf_counter() - t0
+    di = eng.di
+    rk = di.rk
+    check((di.mode, di.wide, len(rk.blocks)) == (4, False, SCALE_SHARDS),
+          f"the sharded index is mode {di.mode}, {len(rk.blocks)} blocks")
+    check(len({b.data_ptr() for b in rk.blocks}) == SCALE_SHARDS
+          and rk.table.tolist() == [b.data_ptr() for b in rk.blocks],
+          "the rank blocks are not separate allocations in the table")
+    whole = whole_engine(eng)
+
+    # the main path: the Aligner over the sharded engine, from 0
+    reads = fastq_reads(main_fq)
+    stats.reset()
+    t0 = time.perf_counter()
+    al = Aligner(idx, opt, seeding_engine=eng, device=dev)
+    got = sam_of(al.align_stream(reads[i: i + BATCH]
+                                 for i in range(0, len(reads), BATCH)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["sharded"] = {k: v for k, v in stats.launches.items() if v}
+    n_batches = -(-len(reads) // BATCH)
+    for k in (1, 2, 3):
+        name = variant_of(di, f"seed_round{k}")
+        check(by_path["sharded"].get(name) == n_batches, f"{name}: "
+              f"{by_path['sharded'].get(name)} launches for {n_batches} "
+              "batches")
+    check(got == sam_records(main_sam), "the Aligner over the sharded "
+          "engine gives another SAM than the default mem")
+    codes = fastq_codes(main_fq)
+    check(flat_smems(eng, codes, BATCH) == flat_smems(whole, codes, BATCH),
+          "the sharded engine's SMEMs differ from the unsharded engine's")
+    log(f"{SCALE_SHARDS}-shard index at {GENOME_MBP:g} Mbp, mode 4: "
+        f"{len(rk.blocks)} blocks of {rk.block_rows} rank rows "
+        f"({rk.blocks[0].numel() * 4 / 2**30:.3f} GiB each) on {dev}, "
+        f"built and uploaded in {up:.1f} s; the Aligner over it == the "
+        f"default mem's SAM on {len(reads)} reads ({wall:.2f} s), SMEMs == "
+        f"the unsharded engine's; launches {by_path['sharded']}")
+
+    # each sharded kernel against its plain version on a sample, timed
+    # beside the unsharded variant on the same batch and jobs
+    rng = np.random.default_rng(31)
+    _, kh, kl = window_keys(idx, rng, SCALE_KEYS)
+    sample = codes[:SCALE_READS]
+    rows, batch, jobs, qres, _ = check_layout(eng, sample, kh, kl, dev,
+                                              chain_us, rng)
+    rows.pop("prmi_window")     # the whole index's kernel (phase 4)
+    beside_whole(rows, eng, whole, sample, jobs, dev)
+    for k in (1, 2, 3):
+        name = variant_of(di, f"seed_round{k}")
+        rows[name]["launches"] = by_path["sharded"][name]
+    report.update(rows)
+    # sa_query's entry point: the sharded search over ShardedIndex, one call
+    search = make_sharded_search(ShardedIndex(di))
+    stats.reset()
+    mlen, lb, cnt = search(batch.prep[0], *jobs)
+    torch.cuda.synchronize()
+    name = variant_of(di, "sa_query")
+    report[name]["launches"] = stats.launches[name]
+    check(torch.equal(torch.stack([mlen, lb, cnt]), qres),
+          "make_sharded_search differs from the sharded sa_query")
+    log_rounds(report, di, len(sample))
+    log(f"{name} == plain on {jobs[0].shape[0]} jobs; "
+        + "; ".join(f"{n}: {r['ms']:.4f} ms alone, {r['device_ms']:.4f} on "
+                    f"the card (unsharded {r['unsharded_ms']:.4f}, "
+                    f"{r['unsharded_device_ms']:.4f})"
+                    for n, r in rows.items())
+        + f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del eng, whole, al, search, batch
+
+    # the other layouts sharded, on the cut
+    side = load_index(get_index(SIDE_MBP))
+    from bwameme_tpu_torch.bench_util import planted_repeats, simulated_reads
+
+    sreads = simulated_reads(side.text, side.l_pac, LAYOUT_READS, 151, rng,
+                             planted_repeats(SIDE_MBP))
+    _, kh, kl = window_keys(side, rng, SCALE_KEYS)
+    for mode, wide, root in SCALE_LAYOUTS:
+        t0 = time.perf_counter()
+        kw = dict(lanes=LAYOUT_READS, device=dev, mode=mode, wide=wide,
+                  root=root)
+        eng = DeviceSeedingEngine(side, opt, shards=shards, **kw)
+        path = layout_path(mode, wide, root) + ", sharded"
+        stats.reset()
+        flat = flat_smems(eng, sreads, LAYOUT_READS)
+        by_path[path] = {k: v for k, v in stats.launches.items() if v}
+        check(flat == flat_smems(DeviceSeedingEngine(side, opt, **kw), sreads,
+                                 LAYOUT_READS),
+              f"{path}: SMEMs differ from the unsharded engine's")
+        rows, batch, jobs, _, _ = check_layout(eng, sreads, kh, kl, dev,
+                                               chain_us, rng)
+        rows = {k: v for k, v in rows.items() if k.endswith("shard]")}
+        beside_whole(rows, eng, whole_engine(eng), sreads, jobs, dev)
+        stats.reset()
+        seed_smem_cuda.sa_query(eng.di, batch.prep[0], *jobs)
+        torch.cuda.synchronize()
+        for n in rows:
+            rows[n]["launches"] = (by_path[path].get(n, 0)
+                                   if n.startswith("seed_round")
+                                   else stats.launches[n])
+        report.update(rows)
+        log(f"{path} at {SIDE_MBP:g} Mbp: SMEMs of {LAYOUT_READS} reads == "
+            "the unsharded engine's, sa_query and the rounds == plain; ms "
+            "alone / on the card (unsharded): " + ", ".join(
+                f"{n} {r['ms']:.4f} / {r['device_ms']:.4f} "
+                f"({r['unsharded_ms']:.4f} / {r['unsharded_device_ms']:.4f})"
+                for n, r in rows.items())
+            + f"; {time.perf_counter() - t0:.1f} s")
+        del eng, batch
+
+    # data parallel, 2 rows of 2 shards, on the cut: SE and PE
+    work = os.path.join(CACHE, "chip_smoke")
+    se_fq, r1, r2 = (os.path.join(work, f"scale_{n}.fq")
+                     for n in ("se", "r1", "r2"))
+    write_reads(se_fq, side.text, side.l_pac, LAYOUT_READS, 151, rng)
+    write_pairs(r1, r2, side.text, side.l_pac, SCALE_PAIRS, 151, rng)
+    inter = os.path.join(work, "scale_pairs.fq")
+    interleave(r1, r2, inter, SCALE_PAIRS)
+    se, pairs = fastq_reads(se_fq), fastq_reads(inter)
+    opt_pe = MemOptions()
+    opt_pe.flag |= MEM_F_PE
+    t0 = time.perf_counter()
+    one = DeviceSeedingEngine(side, opt, lanes=LAYOUT_READS, device=dev)
+    want = (sam_of(Aligner(side, opt, seeding_engine=one,
+                           device=dev).align_batch(se)),
+            sam_of(Aligner(side, opt_pe, seeding_engine=one,
+                           device=dev).align_pairs(pairs)))
+    stats.reset()
+    dp = DataParallelAligner(side, opt, mesh=make_dp_mesh(2, 2, shards))
+    got_se = sam_of(dp.align_batch(se))
+    dp_pe = DataParallelAligner(side, opt_pe, mesh=make_dp_mesh(2, 2, shards))
+    got_pe = sam_of(dp_pe.align_pairs(pairs))
+    by_path["dp"] = {k: v for k, v in stats.launches.items() if v}
+    check(got_se == want[0], "dp 2 x 2 SE SAM differs from one engine's")
+    check(got_pe == want[1], "dp 2 x 2 PE SAM differs from one engine's")
+    log(f"dp 2 x 2 on {dev}: {len(se)} SE reads and {SCALE_PAIRS} pairs of "
+        f"the {SIDE_MBP:g} Mbp cut == one unsharded engine's SAM; launches "
+        f"{by_path['dp']}; {time.perf_counter() - t0:.1f} s")
+    del one, dp, dp_pe
+
+    # two processes over torch.distributed (gloo) sharing the card
+    t0 = time.perf_counter()
+    mh = multihost.run_multihost(2, "gloo", str(dev), shards=2, timeout=300)
+    check(mh == multihost.single_process(str(dev)), "two gloo processes "
+          "give another SAM than one")
+    log(f"multihost: 2 processes, gloo, engines of 2 shards on {dev}: SE + "
+        f"PE SAM ({mh[0].count(chr(10))} + {mh[1].count(chr(10))} records) "
+        f"== one process's; {time.perf_counter() - t0:.1f} s")
+
+    # the CLI: the shards take the first N visible cards
+    n_cards = torch.cuda.device_count()
+    prefix = get_index(SIDE_MBP)
+    out = os.path.join(work, "scale_shards.sam")
+    if n_cards < 2:
+        import contextlib
+        import io
+
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["mem", prefix, se_fq, "--shards", "2", "-o", out])
+        msg = f"--shards 2: only {n_cards} device(s) visible"
+        check(rc == 1 and msg in err.getvalue(), f"mem --shards 2 on one "
+              f"card: rc {rc}, {err.getvalue()[-300:]!r}")
+        log(f"CLI: mem --shards 2 on {n_cards} visible card exits 1 "
+            f"({msg!r}); the library repeats {dev} instead")
+    else:
+        run_mem(cli, prefix, se_fq, out, "cuda", ("--shards", "2"))
+        one_out = os.path.join(work, "scale_one.sam")
+        run_mem(cli, prefix, se_fq, one_out, "cuda")
+        check(sam_records(out) == sam_records(one_out), "mem --shards 2 "
+              "across cards gives another SAM than one card")
+        log(f"CLI: mem --shards 2 across cuda:0 and cuda:1 (peer pointers) "
+            f"== one card's SAM on {len(se)} reads")
+    return report, by_path
+
+
 def start_process(call: str) -> subprocess.Popen:
     """A Python statement run by a process of its own beside this one."""
     code = f"import sys; sys.path.insert(0, {ROOT!r}); {call}"
@@ -3067,6 +3375,29 @@ def finish_index_build(proc: subprocess.Popen,
     for line in out.splitlines():
         log(f"  {what}: {line}")
     check(proc.returncode == 0, f"the {what} exited {proc.returncode}")
+
+
+def library_log(build_log: str, lib: str) -> str:
+    """nvcc's output for one library of the build (ops/build.py writes a
+    "== name" line before each)."""
+    out, on = [], False
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            on = line[3:] == lib
+        elif on:
+            out.append(line)
+    return "\n".join(out)
+
+
+def variant_library(name: str) -> str:
+    """The library (ops/build.py LIBRARIES) that holds a seeding variant."""
+    base, _, tag = name.partition("[")
+    tags = tag.rstrip("]").split(",") if tag else []
+    mode = next((int(t[1:]) for t in tags if t.startswith("m")), 4)
+    if "shard" in tags:
+        return f"seed_smem_sharded_m{mode}"
+    kmer = "kmer" in tags or base == "kmer_window"
+    return f"seed_smem_m{mode}{'_kmer' if kmer else ''}"
 
 
 def mangled(name: str) -> str:
@@ -3140,6 +3471,11 @@ def main() -> int:
         by_path.update(timed("library", phase_library, dev, BATCH))
         by_path.update(timed("paired_end", phase_pairs, GENOME_MBP, N_PAIRS,
                              BATCH, N_CMP_PAIRS))
+        scale, scale_paths = timed(
+            "scaleout", phase_scaleout, dev, chain_us, main_fq,
+            os.path.join(os.path.dirname(main_fq), "short.gpu.sam"))
+        report.update(scale)
+        by_path.update(scale_paths)
         by_path.update(timed("ert", phase_ert, dev, main_fq))
         for k in (1, 2, 3):
             report[f"seed_round{k}[kmer]"]["launches"] = by_path["ert"][
@@ -3172,15 +3508,22 @@ def main() -> int:
         elif name == "prmi_window" or name not in SEEDING:
             names = variants(name) if name in SEEDING else [name]
         else:
-            names = variants(name) + variants(name, "kmer")
+            # the sharded variants the smoke runs (phase 5e)
+            names = variants(name) + variants(name, "kmer") + [
+                v for r in ("prmi", "kmer")
+                for v in variants(name, r, sharded=True) if v in report]
         for v in names:
             entry = dict(name=v, route="cuda", source=CSRC + src,
-                         replaces=repl, launch_path=launch_path(v),
-                         **report[v])
+                         replaces=(SHARDED_REPLACES[name.rstrip("123")]
+                                   if v.endswith("shard]") else repl),
+                         launch_path=launch_path(v), **report[v])
+            if name.startswith("fmi_"):
+                usage = ptxas_usage(build_log, f"{name}_kernel")
+            elif name in SEEDING or name == "kmer_window":
+                usage = ptxas_usage(library_log(build_log,
+                                                variant_library(v)),
+                                    mangled(v))
             if name in SEEDING or name.startswith(("kmer_", "fmi_")):
-                usage = ptxas_usage(build_log, f"{name}_kernel"
-                                    if name.startswith("fmi_")
-                                    else mangled(v))
                 entry.update(registers=usage["registers"],
                              spill_stores=usage["spill_stores"],
                              stack_frame=usage["stack_frame"])

@@ -107,6 +107,11 @@ static inline int __viaddmax_s32_relu(int a, int b, int c) {
 }
 static inline int __vimax3_s32(int a, int b, int c) { return max(max(a, b), c); }
 static inline int cudaGetLastError() { return 0; }
+// one device here: peer access is never needed
+enum { cudaErrorPeerAccessAlreadyEnabled = 704 };
+static inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+static inline int cudaSetDevice(int) { return 0; }
+static inline int cudaDeviceEnablePeerAccess(int, unsigned) { return 0; }
 // a launch here has run to its end when it returns, so stream order holds
 static inline int cudaMallocAsync(void** p, size_t n, cudaStream_t) {
     *p = malloc(n);
@@ -255,11 +260,13 @@ LAUNCH = re.compile(
     r"(\w+(?:<[\w ,]+>)?)<<<(.*?),\s*(\w+),\s*\w+,\s*\(cudaStream_t\)stream>>>\(",
     re.S)
 DYNAMIC_SHARED = re.compile(r"extern __shared__ int (\w+)\[\];")
-# name -> (launches in the source, extra g++ flags)
+# name -> (launches in the source, extra g++ flags); the sharded index's
+# seeding variants from seed_smem.cu built with SEED_SHARDED
 EMULATED = {"seed_smem": (5, ("-DEMU_FIBERS",)), "gather_bench": (2, ()),
             "fmi_search": (3, ("-DEMU_FIBERS",)),
             "banded_sw": (2, ("-DEMU_FIBERS",)),
-            "sw_full": (2, ("-DEMU_FIBERS",))}
+            "sw_full": (2, ("-DEMU_FIBERS",)),
+            "seed_smem_sharded": (5, ("-DEMU_FIBERS", "-DSEED_SHARDED"))}
 
 
 @pytest.fixture(scope="module")
@@ -270,7 +277,7 @@ def emulated_libs(tmp_path_factory):
     (out / "cuda_runtime.h").write_text(SHIM_HEADER)
     paths = {}
     for name, (n_launches, flags) in EMULATED.items():
-        with open(build.source_path(name)) as f:
+        with open(build.source_path(name.removesuffix("_sharded"))) as f:
             src, n = LAUNCH.subn(
                 lambda m: f"EMU_LAUNCH(({m[1]}), {m[2]}, {m[3]}, ", f.read())
         assert n == n_launches
@@ -287,6 +294,8 @@ def emulated_libs(tmp_path_factory):
     # holds all of them
     paths.update((f"seed_smem_m{m}{root}", paths["seed_smem"])
                  for m in (1, 2, 3, 4) for root in ("", "_kmer"))
+    paths.update((f"seed_smem_sharded_m{m}", paths["seed_smem_sharded"])
+                 for m in (1, 2, 3, 4))
     return paths
 
 
@@ -772,6 +781,78 @@ def test_kmer_root_variants_of_every_layout(world, on_emulation, monkeypatch,
         assert launch.stats.launches[launch.variant(name, mode, wide,
                                                     "kmer")] >= 1
         assert launch.stats.launches[launch.variant(name, mode, wide)] == 0
+
+
+SHARDED_LAYOUTS = [(4, False, "prmi", 3), (4, True, "prmi", 4),
+                   (1, False, "prmi", 8), (1, True, "prmi", 3),
+                   (2, False, "kmer", 4), (3, True, "kmer", 3),
+                   (3, False, "prmi", 8), (2, True, "prmi", 4),
+                   (4, False, "kmer", 4)]
+
+
+@pytest.mark.parametrize("mode,wide,root,n_shards", SHARDED_LAYOUTS,
+                         ids=[f"mode{m}{'_wide' if w else ''}_{r}_{s}shards"
+                              for m, w, r, s in SHARDED_LAYOUTS])
+def test_sharded_variants_at_the_block_edges(world, on_emulation, monkeypatch,
+                                             mode, wide, root, n_shards):
+    """The sharded index's variants (SEED_SHARDED): the per-suffix planes in
+    n_shards blocks, each a host buffer of its own, read through the block
+    table. sa_query on the suffixes at the first and last rank of every
+    block and of the array, and beside them, so that the searches probe
+    across the block edges (mode 3's keys by text position, the blocks of
+    positions), then the three rounds and the engine's whole path, each
+    against the plain version's owned gather; the launches counted under
+    the sharded variants' names."""
+    idx, opt = world["idx"], world["opt"]
+    eng = DeviceSeedingEngine(idx, opt, device="cpu", mode=mode, wide=wide,
+                              root=root, shards=["cpu"] * n_shards)
+    di = eng.di
+    planes = [di.planes[k] for k in ("rk", "sa", "ktext", "key2")
+              if k in di.planes]
+    B = planes[0].block_rows
+    assert all(len({b.data_ptr() for b in p.blocks}) == n_shards
+               for p in planes)
+    assert B * n_shards >= di.n_sa > B * (n_shards - 1)
+    edges = sorted({r for s in range(n_shards + 1) for r in
+                    (s * B - 2, s * B - 1, s * B, s * B + 1)
+                    if 0 <= r < di.n_sa} | {di.n_sa - 1})
+    reads = [idx.text[int(idx.sa[r]):][:60].copy() for r in edges]
+    reads = [c if len(c) else np.zeros(1, np.uint8) for c in reads]
+    w = dict(_prepared(idx, reads), eng=eng)
+    qbuf = w["prep"][0]
+    R = len(reads)
+    rows, pivs, vs, mis = [], [], [], []
+    for i, c in enumerate(reads):
+        for v, mi in ((len(c), 1), (len(c), 3), (min(len(c), 20), 1000),
+                      (len(c) - 1, 2)):
+            rows.append(i), pivs.append(0), vs.append(v), mis.append(mi)
+        rows.append(R + i), pivs.append(0), vs.append(len(c)), mis.append(1)
+    jobs = [torch.tensor(a, dtype=torch.int32) for a in (rows, pivs, vs, mis)]
+    got = seed_smem_cuda.sa_query(di, qbuf, *jobs)
+    assert torch.equal(got, seed_smem.sa_query_torch(di, qbuf, *jobs))
+    whole = DeviceSeedingEngine(idx, opt, device="cpu", mode=mode, wide=wide,
+                                root=root).di
+    assert torch.equal(got, seed_smem.sa_query_torch(whole, qbuf, *jobs))
+    # the full-length queries find their own suffix, whose rank is an edge
+    full = got[:, 0::5]
+    hit = (full[1] <= torch.tensor(edges)) & (
+        torch.tensor(edges) < full[1] + full[2])
+    assert bool(hit[torch.tensor([len(c) for c in reads]) == 60].all())
+
+    world_sharded = dict(world, eng=eng)
+    _three_rounds_equal(world_sharded)
+    monkeypatch.setattr(seed_smem, "_on_cuda", lambda x: True)
+    host = HostSeedingEngine(idx, opt)
+    want = [[(s.start, s.end, s.sa_lo, s.hitcount)
+             for s in host.sorted_smems(c)] for c in world["reads"]]
+    flat = eng.sorted_smems_batch_flat(world["reads"])
+    assert [[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
+            for lst in flat.to_lists()] == want
+    for name in ("sa_query", "seed_round1", "seed_round2", "seed_round3"):
+        assert launch.stats.launches[
+            launch.variant(name, mode, wide, root, sharded=True)] >= 1
+        assert launch.stats.launches[
+            launch.variant(name, mode, wide, root)] == 0
 
 
 @pytest.fixture(scope="module")

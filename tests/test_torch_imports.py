@@ -6,9 +6,10 @@ import hook there refuses every jax module and the top-level package
 ``bwameme_tpu``, then every module of the port (and chip_smoke.py) is
 imported, a toy index is built with the port's own index/build.py and a few
 reads and a pair whose second mate only a rescue places are aligned on the
-CPU with every seeding engine (host, learned, ERT, both FM-index engines;
-so the pairing, finalize and alt copies and the full SW run too), and one
-read through the library entry point align1; the host libraries it loaded
+CPU with every seeding engine (host, learned, ERT, the learned index
+sharded, both FM-index engines; so the pairing, finalize and alt copies and
+the full SW run too), the reads again through the data-parallel aligner
+(parallel/dp.py), and one read through the library entry point align1; the host libraries it loaded
 are the port's own, none from native/build/, which bwameme_tpu's loaders
 write. A source check
 backs the hook: no file of the port, nor chip_smoke.py, has an import
@@ -64,6 +65,8 @@ opt = MemOptions()
 engines = {"host": None,
            "device": DeviceSeedingEngine(idx, opt, device="cpu"),
            "ert": DeviceSeedingEngine(idx, opt, device="cpu", root="kmer"),
+           "sharded": DeviceSeedingEngine(idx, opt, device="cpu",
+                                          shards=["cpu"] * 3),
            "fmi": FmiDeviceEngine(idx, opt, device="cpu"),
            "fmi_host": FmiHostEngine(idx, opt)}
 for name, engine in engines.items():
@@ -88,6 +91,13 @@ for name, engine in engines.items():
     got = [ln.split("\t")[1:4] for ln in sam]
     assert got == [["99", "chrT", "3001"], ["147", "chrT", "3251"]], (name,
                                                                       got)
+# scale-out (parallel/): two data-parallel rows of two CPU shards each
+from bwameme_tpu_torch.parallel.dp import DataParallelAligner, make_dp_mesh
+
+dp = DataParallelAligner(idx, opt, mesh=make_dp_mesh(2, 2, ["cpu"] * 4))
+got = [ln.split("\t")[1:4] for ln in dp.align_batch(reads)]
+assert got == [["0", "chrT", "101"], ["0", "chrT", "5001"],
+               ["0", "chrT", "12001"], ["16", "chrT", "9850"]], got
 # the library entry point (align/extra.py)
 from bwameme_tpu_torch.align.extra import align1, reg2ovlp
 

@@ -276,9 +276,9 @@ def test_cli_default_engine_is_the_device_engine(golden_dir, tmp_path,
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--engine", "device", "-Z", "--dp-shards", "2"], "Queue 1 item 8"),
+    (["--backend", "fmi", "--dp-shards", "2"], "require the device engine"),
     (["--engine", "host", "-Z"], "requires the device engine"),
-    (["--engine", "host", "--shards", "2"], "Queue 1 item 8"),
+    (["--engine", "host", "--shards", "2"], "require the device engine"),
 ], ids=["dp_shards", "ert_host", "shards"])
 def test_cli_refuses_what_is_not_ported(golden_dir, capsys, flags, msg):
     reads = str(golden_dir / "reads_se.fq")
