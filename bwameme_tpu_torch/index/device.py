@@ -163,14 +163,15 @@ def device_bytes(device: torch.device) -> int:
 
 
 def choose_mode(n_sa: int, has_isa: bool, wide: bool, hbm: int,
-                shards: int = 1) -> int:
+                shards: int = 1, per_card: int = 1) -> int:
     """The JAX package's ladder (bwameme_tpu/ops/sa_search.py:192-214): the
     fastest layout whose planes fit three quarters of the device's memory,
     at 16 bytes a suffix for mode 4 (narrow only), 12 for modes 3 (with the
     ISA) and 2 (without), mode 1 otherwise; over ``shards`` blocks, the
-    suffixes of one block (:205)."""
+    suffixes of the ``per_card`` blocks on the fullest card (:205, where
+    every block has a device of its own)."""
     budget = int(hbm * 0.75)
-    n_sa //= max(shards, 1)
+    n_sa = n_sa * per_card // max(shards, 1)
     if has_isa and not wide and n_sa * 16 <= budget:
         return 4
     if has_isa and n_sa * 12 <= budget:
@@ -462,15 +463,17 @@ class DeviceIndex:
         index/ert.pick_ert_bits gives), as bwameme_tpu/ops/sa_search.py
         builds it. ``shards``: a list of devices, ``device`` its first,
         over which the per-suffix planes are split (``shard``); the ladder
-        then budgets a block a device."""
+        then budgets the blocks of the fullest card (a device may repeat)
+        against the smallest card."""
         device = torch.device(device)
         n = int(idx.n_sa)
         if wide is None:
             wide = n >= 2**31
         if mode is None:
+            cards = [_norm(d) for d in shards] if shards else [device]
             mode = choose_mode(n, idx.isa is not None, wide,
-                               device_bytes(device),
-                               len(shards) if shards else 1)
+                               min(device_bytes(d) for d in cards),
+                               len(cards), max(map(cards.count, cards)))
         if mode in (3, 4) and idx.isa is None:
             raise ValueError(
                 f"mode {mode} needs the inverse suffix array (the index was "

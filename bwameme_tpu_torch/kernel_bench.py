@@ -9,7 +9,7 @@ object a line.
                                                    [--root kmer]
     python3 bwameme_tpu_torch/kernel_bench.py sw_full
     python3 bwameme_tpu_torch/kernel_bench.py fmi
-    python3 bwameme_tpu_torch/kernel_bench.py shards [--mbp M]
+    python3 bwameme_tpu_torch/kernel_bench.py shards
 
 ``launch``: what one call of the flat row gather costs at the seeding
 batch's shape (16-byte rows, 4096 lanes, 64 KB a call) beside
@@ -73,7 +73,7 @@ run that tree's own copy of this file in the same call (before the
 warp-a-read design, ``fmi`` there times its thread-a-read kernel).
 
 ``shards``: the sharded index's seeding rounds (csrc/seed_smem.cu built with
-SEED_SHARDED) on the bench genome cut to ``--mbp`` (10 by default) and
+SEED_SHARDED) on the bench genome cut to SHARD_MBP (10 Mbp) and
 4096 reads of seed's kind, its rank rows in blocks placed three ways: the
 whole index (the unsharded variants), four blocks on cuda:0, and one block
 a visible card when there are two or more (peer pointers over NVLink). Each
@@ -254,11 +254,10 @@ def bench_seed(mode: int | None = None, wide: bool | None = None,
 
 
 SHARD_MBP = 10
-HBM_BPS = 3.35e12
 NVLINK_BPS = 450e9     # each way, to the other cards of an H100 SXM host
 
 
-def bench_shards(mbp: float = SHARD_MBP):
+def bench_shards():
     """Yields the rows of ``shards`` as they are measured."""
     import copy
     import os
@@ -278,12 +277,12 @@ def bench_shards(mbp: float = SHARD_MBP):
 
     dev = torch.device("cuda", 0)
     n_cards = torch.cuda.device_count()
-    prefix = bu.get_index(mbp)
+    prefix = bu.get_index(SHARD_MBP)
     idx = load_index(prefix)
     eng = DeviceSeedingEngine(idx, MemOptions(), lanes=BATCH, device=dev)
     rng = np.random.default_rng(17)
     reads = bu.simulated_reads(idx.text, idx.l_pac, BATCH, 151, rng,
-                               bu.planted_repeats(mbp))
+                               bu.planted_repeats(SHARD_MBP))
     whole = bu.Rounds(eng, reads, dev)
     names = ("seed_round1", "seed_round2", "seed_round3")
     want, sectors = [], []
@@ -304,7 +303,8 @@ def bench_shards(mbp: float = SHARD_MBP):
         batch = bu.Rounds(sharded, reads, dev)
         remote = (0.0 if devices is None else
                   sum(d != dev for d in devices) / len(devices))
-        row = dict(what=f"the rounds at {BATCH} reads, {mbp:g} Mbp: {what}",
+        row = dict(what=f"the rounds at {BATCH} reads, {SHARD_MBP:g} Mbp: "
+                   f"{what}",
                    remote_share=remote)
         for k, name in enumerate(names):
             got = batch.run(k, batch.kernels[k])
@@ -323,7 +323,7 @@ def bench_shards(mbp: float = SHARD_MBP):
                 alone_ms=bu.cuda_ms(fn, 10),
                 device_ms=bu.queued_us(fn, 100) / 1e3,
                 answer_sectors=sectors[k],
-                bound_ms=max(nbytes / HBM_BPS,
+                bound_ms=max(nbytes / bu.HBM_BPS,
                              remote * nbytes / NVLINK_BPS) * 1e3)
         yield row
         del batch, sharded
@@ -350,7 +350,7 @@ def bench_shards(mbp: float = SHARD_MBP):
         if sam != one:
             raise RuntimeError(f"mem {flags}: another SAM than one card's")
     yield dict(what=f"mem {', '.join(sams)} == one card's SAM on 1024 "
-               f"reads at {mbp:g} Mbp", records=len(one))
+               f"reads at {SHARD_MBP:g} Mbp", records=len(one))
     yield dict(what=f"dryrun_multichip({n_cards})",
                **dryrun_multichip(n_cards))
     got = multihost.run_multihost(n_cards, "nccl", timeout=600)
@@ -498,8 +498,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", choices=("launch", "k1", "seed", "sw_full",
                                      "fmi", "shards"))
-    ap.add_argument("--mbp", type=float, default=SHARD_MBP,
-                    help="shards: the bench genome cut to this size")
     ap.add_argument("--mode", type=int, choices=(1, 2, 3, 4), default=None,
                     help="seed: the index's memory mode (default: the "
                     "ladder's)")
@@ -523,7 +521,7 @@ def main() -> int:
         rows = {"k1": bench_k1,
                 "seed": lambda: bench_seed(args.mode, args.wide, args.root),
                 "sw_full": bench_sw_full, "fmi": bench_fmi,
-                "shards": lambda: bench_shards(args.mbp)}[args.what]()
+                "shards": bench_shards}[args.what]()
         for row in rows:
             print(json.dumps(row), flush=True)
     return 0

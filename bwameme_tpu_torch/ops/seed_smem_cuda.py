@@ -24,6 +24,7 @@ kernel's design, is the plain versions' ``work`` (ops.sa_search.Work).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -62,8 +63,7 @@ def _declare(lib, sharded: bool = False) -> None:
         fn.restype = I
 
 
-def _declare_sharded(lib) -> None:
-    _declare(lib, sharded=True)
+_declare_sharded = functools.partial(_declare, sharded=True)
 
 
 def _sharded(di: DeviceIndex, fn_name: str) -> bool:

@@ -49,6 +49,21 @@ def make_dp_mesh(n_dp: int, n_idx: int, devices=None) -> list[list]:
             for r in range(n_dp)]
 
 
+def slices(n: int, k: int, even: bool = False) -> list[tuple[int, int]]:
+    """Contiguous balanced slices of [0, n), k of them; ``even`` keeps the
+    boundaries on pair boundaries (interleaved pairs)."""
+    per = -(-n // k)
+    if even and per % 2:
+        per += 1
+    out = []
+    b = 0
+    for _ in range(k):
+        e = min(n, b + per)
+        out.append((b, e))
+        b = e
+    return out
+
+
 class DataParallelAligner:
     """An Aligner a row of the mesh, each over its own engine; a chunk is
     scattered as contiguous slices and the SAM gathered in order."""
@@ -81,24 +96,10 @@ class DataParallelAligner:
         self.n_dp = len(self.rows)
         self.n_processed = 0
 
-    def _slices(self, n: int, even: bool = False) -> list[tuple[int, int]]:
-        """Contiguous balanced slices of [0, n) across the rows; ``even``
-        keeps the boundaries on pair boundaries (interleaved pairs)."""
-        per = -(-n // self.n_dp)
-        if even and per % 2:
-            per += 1
-        out = []
-        b = 0
-        for _ in range(self.n_dp):
-            e = min(n, b + per)
-            out.append((b, e))
-            b = e
-        return out
-
     def align_batch(self, reads) -> list[str]:
         """A single-end chunk: every row's seeding is submitted first, then
         each row chains, extends and finalizes its slice in order."""
-        sl = self._slices(len(reads))
+        sl = slices(len(reads), self.n_dp)
         pend = []
         for (b, e), row in zip(sl, self.rows):
             recs = [row._encode(r) for r in reads[b:e]]
@@ -130,7 +131,7 @@ class DataParallelAligner:
         if len(reads) % 2:
             raise ValueError(f"{len(reads)} reads: paired-end reads come "
                              "in pairs")
-        sl = self._slices(len(reads), even=True)
+        sl = slices(len(reads), self.n_dp, even=True)
         parts = []
         for (b, e), row in zip(sl, self.rows):
             recs = [row._encode(r) for r in reads[b:e]]

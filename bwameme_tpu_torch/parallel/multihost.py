@@ -24,6 +24,8 @@ otherwise, where the collectives run on the host and each process's kernels
 still run on its ``device`` (two processes may share cuda:0).
 
     python -m bwameme_tpu_torch.parallel.multihost [n_procs] [backend] [device]
+
+(by default 2 processes, gloo, on the card; ``2 gloo cpu`` runs on the CPU).
 """
 
 from __future__ import annotations
@@ -104,7 +106,10 @@ def _process_device(backend: str, pid: int, n_procs: int,
         return torch.device("cuda", pid)
     if backend != "gloo":
         raise ValueError(f"backend must be 'nccl' or 'gloo', not {backend!r}")
-    return torch.device(device)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def worker_main(pid: int, n_procs: int, workdir: str, port: int,
@@ -168,23 +173,19 @@ def _write_fastq(path: str, reads) -> None:
 
 def _scatter(workdir: str, reads, tag: str, n_procs: int,
              even: bool) -> None:
-    """Contiguous slices, pair-aligned for interleaved pairs, one FASTQ file
-    and the slice's global offset a process."""
-    per = -(-len(reads) // n_procs)
-    if even and per % 2:
-        per += 1
-    b = 0
-    for pid in range(n_procs):
-        e = min(len(reads), b + per)
+    """One FASTQ file and the slice's global offset a process, over the
+    data-parallel rows' slices (pair-aligned for interleaved pairs)."""
+    from bwameme_tpu_torch.parallel.dp import slices
+
+    for pid, (b, e) in enumerate(slices(len(reads), n_procs, even)):
         _write_fastq(os.path.join(workdir, f"chunk_{tag}_{pid}.fq"),
                      reads[b:e])
         with open(os.path.join(workdir, f"base_{tag}_{pid}"), "w") as f:
             f.write(str(b))
-        b = e
 
 
 def run_multihost(n_procs: int = 2, backend: str = "gloo",
-                  device: str = "cpu", shards: int = 1,
+                  device: str = "cuda", shards: int = 1,
                   workdir: str | None = None,
                   timeout: float = 600.0) -> tuple[str, str]:
     """Launches n_procs worker processes on the shared workload, scatters
@@ -229,7 +230,7 @@ def run_multihost(n_procs: int = 2, backend: str = "gloo",
     return out[0], out[1]
 
 
-def single_process(device: str = "cpu") -> tuple[str, str]:
+def single_process(device: str = "cuda") -> tuple[str, str]:
     """The same workload aligned by one process with the device engine on
     ``device``: the SAM records (single-end, paired-end)."""
     from bwameme_tpu_torch.pipeline import Aligner
@@ -249,7 +250,7 @@ def single_process(device: str = "cpu") -> tuple[str, str]:
 def main(argv) -> int:
     n_procs = int(argv[0]) if argv else 2
     backend = argv[1] if len(argv) > 1 else "gloo"
-    device = argv[2] if len(argv) > 2 else "cpu"
+    device = argv[2] if len(argv) > 2 else "cuda"
     t0 = time.time()
     got = run_multihost(n_procs, backend, device)
     want = single_process(device if backend == "gloo" else "cuda:0")

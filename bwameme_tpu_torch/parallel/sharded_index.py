@@ -28,17 +28,16 @@ class ShardedIndex:
     di: DeviceIndex
 
     @staticmethod
-    def shard(idx, devices, mode: int | None = None,
-              wide: bool | None = None) -> "ShardedIndex":
+    def shard(idx, devices) -> "ShardedIndex":
         """``idx`` (a MemeIndex, with the inverse suffix array, as the JAX
-        package's ShardedIndex.shard asks) over ``devices``: by default the
-        layout the ladder picks for a block a device."""
+        package's ShardedIndex.shard asks) over ``devices``, in the layout
+        the ladder picks for the blocks of the fullest card."""
         if idx.isa is None:
             raise ValueError("sharded search requires the MODE-3 ISA "
                              "(build_index(with_isa=True))")
         devices = list(devices)
         return ShardedIndex(DeviceIndex.from_host(
-            idx, devices[0], mode=mode, wide=wide, shards=devices))
+            idx, devices[0], shards=devices))
 
     @property
     def n_shards(self) -> int:

@@ -146,8 +146,8 @@ of which ends the run with a non-zero exit and no result line when it fails:
    from 0), whose SAM must be phase 5's default mem's and whose SMEMs the
    unsharded engine's; sa_query (through make_sharded_search) and the three
    rounds' sharded variants against their plain versions (the owned
-   gather) on 2048 of the reads, timed alone and on the card beside the
-   unsharded variants on the same batch. On the 2 Mbp cut: wide mode 1 and
+   gather) on one batch of the reads (4096, the main path's launch), timed
+   alone and on the card beside the unsharded variants on the same batch. On the 2 Mbp cut: wide mode 1 and
    the k-mer root sharded, the same. A 2 x 2 data-parallel mesh (SE, PE),
    two gloo processes sharing the card (parallel/multihost.py), each ==
    one unsharded engine's SAM; mem --shards 2 exits 1 naming one visible
@@ -345,11 +345,10 @@ N_ALIGN1 = 64
 MIXED_LENGTHS = (151, 300, 500)
 N_MIXED = 16
 # phase 5e (scale-out): rank blocks of the sharded index (on one card, as
-# many separate allocations); reads and keys of the kernels' comparison at
-# GENOME_MBP; the layouts sharded on the SIDE_MBP cut besides mode 4; pairs
-# of the data-parallel run
+# many separate allocations); keys of the kernels' comparison at GENOME_MBP
+# (its reads are one main-path batch, BATCH); the layouts sharded on the
+# SIDE_MBP cut besides mode 4; pairs of the data-parallel run
 SCALE_SHARDS = 4
-SCALE_READS = 2048
 SCALE_KEYS = 1 << 12
 SCALE_LAYOUTS = ((1, True, "prmi"), (4, False, "kmer"))
 SCALE_PAIRS = 64
@@ -3131,8 +3130,9 @@ def phase_scaleout(dev, chain_us: float, main_fq: str, main_sam: str):
     reads, counted from 0 (the sharded rounds' path), whose SAM must be
     ``main_sam`` (phase 5's default mem) and whose SMEMs the unsharded
     engine's; each sharded kernel against its plain version (the owned
-    gather) on SCALE_READS of them, timed alone and on the card beside the
-    unsharded variant on the same batch. On the bench genome cut to
+    gather) on one batch of them, BATCH reads as the main path launches
+    them, timed alone and on the card beside the unsharded variant on the
+    same batch. On the bench genome cut to
     SIDE_MBP: wide mode 1 and the k-mer root sharded, the same. Then a 2 x 2
     data-parallel mesh (SE and PE), two gloo processes on the card
     (parallel/multihost.py) and mem --shards 2, each against the unsharded
@@ -3205,7 +3205,7 @@ def phase_scaleout(dev, chain_us: float, main_fq: str, main_sam: str):
     # beside the unsharded variant on the same batch and jobs
     rng = np.random.default_rng(31)
     _, kh, kl = window_keys(idx, rng, SCALE_KEYS)
-    sample = codes[:SCALE_READS]
+    sample = codes[:BATCH]
     rows, batch, jobs, qres, _ = check_layout(eng, sample, kh, kl, dev,
                                               chain_us, rng)
     rows.pop("prmi_window")     # the whole index's kernel (phase 4)

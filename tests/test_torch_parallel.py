@@ -132,6 +132,26 @@ def test_sharded_index_checks_and_mode_ladder(par_workload):
     assert choose_mode(n, True, False, 16 << 30, shards=4) == 4
 
 
+def test_mode_ladder_budgets_repeated_devices_per_card(par_workload,
+                                                      monkeypatch):
+    """Blocks that repeat a device share its memory: the ladder budgets the
+    fullest card's blocks, so four blocks on one device get the mode of the
+    whole index there, and two blocks a card over two cards that of half
+    of it."""
+    idx = par_workload[0]
+    n = int(idx.n_sa)
+    monkeypatch.setenv("BWAMEME_HBM_BYTES", str(n * 16))
+    whole = DeviceIndex.from_host(idx, "cpu")
+    assert whole.mode == 3
+    four = DeviceIndex.from_host(idx, "cpu", shards=_cpus(4))
+    assert (four.mode, four.shards) == (whole.mode, _cpus(4))
+    assert choose_mode(n, True, False, n * 16, shards=4) == 4
+    assert choose_mode(n, True, False, n * 16, shards=4, per_card=4) == 3
+    n = 2 * 10**9
+    assert choose_mode(n, True, False, 16 << 30, shards=4, per_card=4) == 1
+    assert choose_mode(n, True, False, 16 << 30, shards=4, per_card=2) == 3
+
+
 def test_sharded_sa_query_equals_jax_make_sharded_search(par_workload):
     """The port's sharded sa_query (plain version, 4 CPU shards) against the
     JAX package's make_sharded_search on a 4-device CPU mesh, on the same
