@@ -169,7 +169,10 @@ def choose_mode(n_sa: int, has_isa: bool, wide: bool, hbm: int,
     at 16 bytes a suffix for mode 4 (narrow only), 12 for modes 3 (with the
     ISA) and 2 (without), mode 1 otherwise; over ``shards`` blocks, the
     suffixes of the ``per_card`` blocks on the fullest card (:205, where
-    every block has a device of its own)."""
+    every block has a device of its own). ``hbm`` is one process's view
+    (device_bytes): processes that share a card (parallel/multihost.py
+    under gloo) each budget it as if alone, and none sees the others'
+    planes."""
     budget = int(hbm * 0.75)
     n_sa = n_sa * per_card // max(shards, 1)
     if has_isa and not wide and n_sa * 16 <= budget:

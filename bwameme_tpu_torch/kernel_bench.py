@@ -84,8 +84,13 @@ version's count) over 3.35 TB/s, and across cards the larger of that and
 the (n - 1)/n of them that lie on other cards over NVLink's 450 GB/s each
 way. With two cards or more, then: mem --shards N (one block a card)
 against mem on one card, SAM for SAM; the dry run over N cards
-(parallel/dryrun.dryrun_multichip); and N processes under nccl, a card
-each (parallel/multihost.py), against one process.
+(parallel/dryrun.dryrun_multichip); processes under nccl
+(parallel/multihost.py), 2 of N/2 cards each and N of one card, against
+one process, SE and PE SAM; and the wide jumbo index of chip_smoke.py's
+phase jumbo (2^31 + 2^27 suffixes, mode 1, built on cuda:0) whole and in 2
+and 4 rank blocks, one a card: sa_query on every rotation and the three
+rounds at 4096 reads equal the whole index's, each a call alone and the
+card's time a call, with the bytes each card holds.
 """
 
 from __future__ import annotations
@@ -95,6 +100,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # chip_smoke.py's shapes
@@ -307,14 +313,7 @@ def bench_shards():
                    f"{what}",
                    remote_share=remote)
         for k, name in enumerate(names):
-            got = batch.run(k, batch.kernels[k])
-            # the counts, the drops and the slots in use (the others are
-            # left as they were allocated)
-            used = (torch.arange(got[0].shape[2], device=dev)[None, :]
-                    < got[1][:, None])
-            if not (torch.equal(got[1], want[k][1])
-                    and torch.equal(got[2], want[k][2])
-                    and torch.equal(got[0][:, used], want[k][0][:, used])):
+            if not same_rounds(batch.run(k, batch.kernels[k]), want[k]):
                 raise RuntimeError(f"{name}, {what}: differs from the whole "
                                    "index's")
             fn = lambda: batch.run(k, batch.kernels[k])
@@ -353,11 +352,122 @@ def bench_shards():
                f"reads at {SHARD_MBP:g} Mbp", records=len(one))
     yield dict(what=f"dryrun_multichip({n_cards})",
                **dryrun_multichip(n_cards))
-    got = multihost.run_multihost(n_cards, "nccl", timeout=600)
-    if got != multihost.single_process("cuda:0"):
-        raise RuntimeError("nccl processes: another SAM than one process's")
-    yield dict(what=f"{n_cards} processes under nccl, a card each == one "
-               "process's SAM", records=[g.count("\n") for g in got])
+    del eng, whole
+    one = multihost.single_process("cuda:0")
+    for n_procs, k in dict.fromkeys(((2, n_cards // 2), (n_cards, 1))):
+        t0 = time.perf_counter()
+        got = multihost.run_multihost(n_procs, "nccl", shards=k, timeout=600)
+        if got != one:
+            raise RuntimeError(f"{n_procs} nccl processes x {k} cards: "
+                               "another SAM than one process's")
+        yield dict(what=f"{n_procs} processes under nccl, {k} card(s) each "
+                   "== one process's SAM", records=[g.count("\n") for g in
+                                                     got],
+                   seconds=time.perf_counter() - t0)
+    yield from bench_jumbo_shards(
+        [torch.device("cuda", i) for i in range(n_cards)])
+
+
+def same_rounds(got, want) -> bool:
+    """A round's results equal: the counts, the drops and the slots in use
+    (the others are left as they were allocated)."""
+    import torch
+
+    used = (torch.arange(got[0].shape[2], device=got[0].device)[None, :]
+            < got[1][:, None])
+    return (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+            and torch.equal(got[0][:, used], want[0][:, used]))
+
+
+def card_bytes(di) -> dict:
+    """The bytes of an index's planes (blocks and tables included) on each
+    device."""
+    from bwameme_tpu_torch.index.device import ShardedPlane
+
+    out = {}
+    for t in di.planes.values():
+        parts = [*t.blocks, t.table] if isinstance(t, ShardedPlane) else [t]
+        for x in parts:
+            out[str(x.device)] = (out.get(str(x.device), 0)
+                                  + x.numel() * x.element_size())
+    return out
+
+
+# chip_smoke.py's jumbo index: a JUMBO_P-base block tiled to 2^31 + 2^27
+# suffixes, mode 1 wide
+JUMBO_P, JUMBO_M = 4096, 16
+JUMBO_N = (2**31 + 2**27) // JUMBO_P * JUMBO_P
+JUMBO_L = 48
+
+
+def bench_jumbo_shards(devices):
+    """The wide jumbo index (bench_util.periodic_index, built on the first
+    of ``devices``) whole and in 2 and 4 rank blocks, one a device of the
+    list: sa_query on every rotation's first JUMBO_L bases (against the
+    closed form too) and the three rounds on BATCH reads cut from the text,
+    each placement's answers the whole index's; card ms a call, bytes a
+    card."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch import bench_util as bu
+    from bwameme_tpu_torch.index.packing import pack_words
+    from bwameme_tpu_torch.ops import seed_smem_cuda
+    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    dev = devices[0]
+    p, L = JUMBO_P, JUMBO_L
+    t0 = time.perf_counter()
+    di, block, rot = bu.periodic_index(JUMBO_N, p, JUMBO_M, seed=9,
+                                       device=dev)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    tile2 = np.tile(block, 2)
+    qbuf = np.full((p, L // 16 + 3), 0xFFFFFFFF, np.uint32)
+    qbuf[:, : L // 16] = np.stack([pack_words(tile2[r: r + L])
+                                   for r in rot])
+    qbuf = torch.from_numpy(qbuf.view(np.int32)).to(dev)
+    jobs = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        np.arange(p), np.zeros(p), np.full(p, L), np.ones(p))]
+    closed = np.array([bu.expected_hit(block, rot, JUMBO_N, p, JUMBO_M, k,
+                                       L) for k in range(p)]).T
+    reads = bu.periodic_reads(block, BATCH, 151, np.random.default_rng(31))
+    names = ("sa_query", "seed_round1", "seed_round2", "seed_round3")
+    want = None
+    for n in (1, 2, 4):
+        if n > len(devices):
+            break
+        sdi = di if n == 1 else di.shard(devices[:n])
+        eng = types.SimpleNamespace(
+            di=sdi, opt=MemOptions(), max_smems=96, max_reseeds=16,
+            _batch_matrix=DeviceSeedingEngine._batch_matrix)
+        batch = bu.Rounds(eng, reads, dev)
+        calls = [lambda: seed_smem_cuda.sa_query(sdi, qbuf, *jobs)] + [
+            lambda k=k: batch.run(k, batch.kernels[k]) for k in range(3)]
+        got = [fn() for fn in calls]
+        if want is None:
+            want = got
+            if not (got[0].cpu().numpy() == closed).all():
+                raise RuntimeError("sa_query on the jumbo index differs "
+                                   "from the closed form")
+        elif not (torch.equal(got[0], want[0]) and all(
+                same_rounds(g, w) for g, w in zip(got[1:], want[1:]))):
+            raise RuntimeError(f"the jumbo index in {n} blocks: another "
+                               "answer than the whole index's")
+        row = dict(what=f"the jumbo index ({JUMBO_N} suffixes, mode 1 "
+                   f"wide), {'whole' if n == 1 else f'{n} blocks, one a card'}"
+                   f": sa_query on {p} rotations and the rounds at {BATCH} "
+                   "reads == the whole index's",
+                   card_bytes=card_bytes(sdi), built_s=built)
+        for name, fn in zip(names, calls):
+            row[name] = dict(alone_ms=bu.cuda_ms(fn, 10),
+                             device_ms=bu.queued_us(fn, 100) / 1e3)
+        yield row
+        del sdi, eng, batch, calls, got
+        torch.cuda.empty_cache()
 
 
 SW_STEP_QLENS = (32, 64, 151, 256, 300)

@@ -2,13 +2,16 @@
 processes.
 
 Port of bwameme_tpu/parallel/multihost.py. Each process holds the whole
-index (its per-suffix planes in rank blocks over ``shards`` copies of its
-device where asked) and aligns one contiguous slice of every chunk. The
-launcher scatters the chunk as one FASTQ file a process and gathers the SAM
-blocks in process order.
+index, its per-suffix planes in rank blocks over its own ``shards`` cards
+(the JAX package's local ("idx",) mesh of _LOCAL_DEVICES devices a
+process), and aligns one contiguous slice of every chunk. The launcher
+scatters the chunk as one FASTQ file a process and gathers the SAM blocks
+in process order.
 
 ``init_process_group`` forms the group on a free local port; one global
-``all_reduce`` of ones proves the collectives work. Alignment itself needs
+``all_reduce`` of each process's card count proves the collectives work and
+that the processes hold n_procs * shards cards in all (the JAX package's
+``device_count() == n_procs * _LOCAL_DEVICES``). Alignment itself needs
 none, reads being independent, with one exception: paired-end insert-size
 statistics are chunk-wide (the reference's mem_pestat over the whole chunk,
 src/bwamem_pair.cpp:81-149). Each process takes its local observations
@@ -18,14 +21,22 @@ computation. Each process's reads take their global offset in the chunk
 (the tie-breaking hash and the pair ids), so the gathered SAM equals a
 single-process run byte for byte.
 
-The backend is explicit: ``nccl`` when each process has a card of its own
-(process p on cuda:p; fewer cards than processes raises), ``gloo``
-otherwise, where the collectives run on the host and each process's kernels
-still run on its ``device`` (two processes may share cuda:0).
+The backend is explicit (``process_cards``):
+- ``nccl``: process p holds cards [p * shards, (p + 1) * shards), the dp
+  rows of parallel/dp.make_dp_mesh, one block a card; its kernels and
+  collectives run on the first of them. Fewer visible cards than
+  n_procs * shards raises; nothing falls back to gloo or the CPU.
+- ``gloo``: the collectives run on the host and each process's blocks are
+  ``shards`` copies of its ``device`` (processes may share cuda:0). Each
+  process's mode ladder budgets the card's memory as if it were alone
+  (index/device.choose_mode): two processes on one card do not see each
+  other's planes.
 
-    python -m bwameme_tpu_torch.parallel.multihost [n_procs] [backend] [device]
+    python -m bwameme_tpu_torch.parallel.multihost [n_procs] [backend] \
+        [device] [shards]
 
-(by default 2 processes, gloo, on the card; ``2 gloo cpu`` runs on the CPU).
+(by default 2 processes, gloo, on the card, 1 block; ``2 gloo cpu 2`` runs
+on the CPU, ``2 nccl cuda 2`` needs four cards).
 """
 
 from __future__ import annotations
@@ -97,19 +108,26 @@ def _gathered_pestat(opt, l_pac, deduped, comm: torch.device):
     return pairing.pestat_from_isize(merged)
 
 
-def _process_device(backend: str, pid: int, n_procs: int,
-                    device: str) -> torch.device:
+def process_cards(backend: str, pid: int, n_procs: int, device: str,
+                  shards: int) -> list[torch.device]:
+    """The devices that hold process ``pid``'s rank blocks, one a block:
+    under nccl its row of make_dp_mesh(n_procs, shards) over the visible
+    cards, under gloo ``shards`` copies of ``device``."""
     if backend == "nccl":
-        if torch.cuda.device_count() < n_procs:
-            raise RuntimeError(f"nccl: {n_procs} processes need a card each, "
-                               f"{torch.cuda.device_count()} visible")
-        return torch.device("cuda", pid)
+        from bwameme_tpu_torch.parallel.dp import make_dp_mesh
+
+        need, have = n_procs * shards, torch.cuda.device_count()
+        if have < need:
+            raise RuntimeError(f"nccl: {n_procs} processes of {shards} "
+                               f"card(s) each need {need} cards, {have} "
+                               "visible")
+        return make_dp_mesh(n_procs, shards)[pid]
     if backend != "gloo":
         raise ValueError(f"backend must be 'nccl' or 'gloo', not {backend!r}")
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+    return [dev] * shards
 
 
 def worker_main(pid: int, n_procs: int, workdir: str, port: int,
@@ -121,7 +139,8 @@ def worker_main(pid: int, n_procs: int, workdir: str, port: int,
     from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
     from bwameme_tpu_torch.utils.config import MemOptions
 
-    dev = _process_device(backend, pid, n_procs, device)
+    cards = process_cards(backend, pid, n_procs, device, shards)
+    dev = cards[0]
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     else:
@@ -131,16 +150,18 @@ def worker_main(pid: int, n_procs: int, workdir: str, port: int,
                             world_size=n_procs, rank=pid)
     try:
         comm = dev if backend == "nccl" else torch.device("cpu")
-        ones = torch.ones(8, device=comm)
-        dist.all_reduce(ones)
-        if not bool((ones == n_procs).all()):
-            raise RuntimeError(f"all_reduce of ones gave {ones.tolist()}")
+        total = torch.tensor([len(cards)], dtype=torch.int64, device=comm)
+        dist.all_reduce(total)
+        if int(total) != n_procs * shards:
+            raise RuntimeError(f"the processes hold {int(total)} cards, not "
+                               f"{n_procs} x {shards}")
+        with open(os.path.join(workdir, f"cards_{pid}"), "w") as f:
+            f.write(f"{int(total)} {' '.join(map(str, cards))}")
 
         idx, _, _ = _workload()     # each process builds its own copy
         opt = MemOptions()
         eng = DeviceSeedingEngine(idx, opt, lanes=128, device=dev,
-                                  shards=[dev] * shards if shards > 1
-                                  else None)
+                                  shards=cards if shards > 1 else None)
 
         def run(tag, opt):
             reads = list(_iter_records(os.path.join(
@@ -190,10 +211,11 @@ def run_multihost(n_procs: int = 2, backend: str = "gloo",
                   timeout: float = 600.0) -> tuple[str, str]:
     """Launches n_procs worker processes on the shared workload, scatters
     its single-end reads and pairs, and returns the gathered SAM records
-    (single-end, paired-end), each one string in process order."""
-    if backend == "nccl" and torch.cuda.device_count() < n_procs:
-        raise RuntimeError(f"nccl: {n_procs} processes need a card each, "
-                           f"{torch.cuda.device_count()} visible")
+    (single-end, paired-end), each one string in process order. Each worker
+    writes ``cards_{pid}`` into ``workdir``: the all-reduced card count and
+    its own devices."""
+    if backend == "nccl":
+        process_cards(backend, 0, n_procs, device, shards)
     own_dir = workdir is None
     workdir = workdir or tempfile.mkdtemp(prefix="bwameme_mh_")
     _, se_reads, pe_reads = _workload()
@@ -251,15 +273,17 @@ def main(argv) -> int:
     n_procs = int(argv[0]) if argv else 2
     backend = argv[1] if len(argv) > 1 else "gloo"
     device = argv[2] if len(argv) > 2 else "cuda"
+    shards = int(argv[3]) if len(argv) > 3 else 1
     t0 = time.time()
-    got = run_multihost(n_procs, backend, device)
+    got = run_multihost(n_procs, backend, device, shards)
     want = single_process(device if backend == "gloo" else "cuda:0")
     for what, g, w in zip(("single-end", "paired-end"), got, want):
         if g != w:
             print(f"[multihost] {what} SAM differs from one process's",
                   file=sys.stderr)
             return 1
-    where = "a card each" if backend == "nccl" else device
+    where = (f"{shards} card(s) each" if backend == "nccl"
+             else f"{shards} block(s) on {device}")
     print(f"[multihost] OK: {n_procs} processes ({backend}, {where}), "
           f"{got[0].count(chr(10))} SE + {got[1].count(chr(10))} PE records "
           f"byte-identical in {time.time() - t0:.0f} s", file=sys.stderr)

@@ -1008,6 +1008,12 @@ def phase_gather(dev):
         f"launch (index_select {flat['library_host_us']:.2f}); card "
         f"{flat['device_us']:.2f} us a call when queued (index_select "
         f"{flat['library_device_us']:.2f})")
+    kern, _, lib, _ = cases["gather_window"]
+    window = report["gather_window"]
+    window.update(device_us=queued_us(kern), library_device_us=queued_us(lib))
+    log(f"gather_window, {win} rows of {4 * width} B x {lanes} lanes: card "
+        f"{window['device_us']:.2f} us a call when queued (index_select of "
+        f"the same rows {window['library_device_us']:.2f})")
     # and where the card is measured, not the host: 32 MB each way, the
     # calls queued so that no launch waits for the host
     src, idx, _, width, lanes = next(
@@ -3134,9 +3140,10 @@ def phase_scaleout(dev, chain_us: float, main_fq: str, main_sam: str):
     them, timed alone and on the card beside the unsharded variant on the
     same batch. On the bench genome cut to
     SIDE_MBP: wide mode 1 and the k-mer root sharded, the same. Then a 2 x 2
-    data-parallel mesh (SE and PE), two gloo processes on the card
-    (parallel/multihost.py) and mem --shards 2, each against the unsharded
-    run."""
+    data-parallel mesh (SE and PE), two gloo processes of 2 blocks each on
+    the card (parallel/multihost.py), with four cards or more two nccl
+    processes of 2 cards each, and mem --shards 2, each against the
+    unsharded run."""
     import numpy as np
     import torch
 
@@ -3303,17 +3310,30 @@ def phase_scaleout(dev, chain_us: float, main_fq: str, main_sam: str):
         f"{by_path['dp']}; {time.perf_counter() - t0:.1f} s")
     del one, dp, dp_pe
 
-    # two processes over torch.distributed (gloo) sharing the card
+    # two processes over torch.distributed (gloo) sharing the card, each
+    # its index in 2 rank blocks on it (multihost.process_cards); with four
+    # cards or more also 2 nccl processes of 2 cards each, one block a card
+    n_cards = torch.cuda.device_count()
     t0 = time.perf_counter()
     mh = multihost.run_multihost(2, "gloo", str(dev), shards=2, timeout=300)
-    check(mh == multihost.single_process(str(dev)), "two gloo processes "
-          "give another SAM than one")
+    single = multihost.single_process(str(dev))
+    check(mh == single, "two gloo processes give another SAM than one")
     log(f"multihost: 2 processes, gloo, engines of 2 shards on {dev}: SE + "
         f"PE SAM ({mh[0].count(chr(10))} + {mh[1].count(chr(10))} records) "
         f"== one process's; {time.perf_counter() - t0:.1f} s")
+    if n_cards >= 4:
+        t0 = time.perf_counter()
+        check(multihost.run_multihost(2, "nccl", shards=2, timeout=300)
+              == single, "2 nccl processes x 2 cards give another SAM than "
+              "one")
+        log(f"multihost: 2 processes, nccl, 2 cards each (cuda:0-1, "
+            f"cuda:2-3) of {n_cards} visible: SE + PE SAM == one process's; "
+            f"{time.perf_counter() - t0:.1f} s")
+    else:
+        log(f"multihost: 2 nccl processes x 2 cards need 4 cards, "
+            f"{n_cards} visible: not run")
 
     # the CLI: the shards take the first N visible cards
-    n_cards = torch.cuda.device_count()
     prefix = get_index(SIDE_MBP)
     out = os.path.join(work, "scale_shards.sam")
     if n_cards < 2:

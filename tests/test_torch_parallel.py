@@ -263,12 +263,15 @@ def test_data_parallel_2x2(par_workload, par_oracle, paired):
 
 def test_two_gloo_processes(par_oracle, tmp_path):
     """Two worker processes over torch.distributed (gloo), each an engine of
-    two CPU shards: FASTQ scattered, SAM gathered, PE statistics
-    all-gathered; the union's SAM is the single-device oracle's."""
+    two CPU shards: the card counts all-reduced to 2 x 2, FASTQ scattered,
+    SAM gathered, PE statistics all-gathered; the union's SAM is the
+    single-device oracle's."""
     sam_se, sam_pe, _, _ = par_oracle
     got_se, got_pe = multihost.run_multihost(2, "gloo", "cpu", shards=2,
                                              workdir=str(tmp_path),
                                              timeout=240)
+    for pid in range(2):
+        assert (tmp_path / f"cards_{pid}").read_text() == "4 cpu cpu"
     assert got_se == "".join(sam_se)
     assert got_pe == "".join(sam_pe)
 
@@ -276,8 +279,45 @@ def test_two_gloo_processes(par_oracle, tmp_path):
 def test_nccl_needs_a_card_a_process():
     if torch.cuda.device_count() >= 2:
         pytest.skip("two cards are visible")
-    with pytest.raises(RuntimeError, match="need a card each"):
+    with pytest.raises(RuntimeError,
+                       match=r"2 processes of 1 card\(s\) each need 2 "
+                             r"cards, [01] visible"):
         multihost.run_multihost(2, "nccl")
+
+
+def _cuda(*ids):
+    return [torch.device("cuda", i) for i in ids]
+
+
+CARD_MAPS = [
+    ("nccl", 2, 2, 4, "cuda", [_cuda(0, 1), _cuda(2, 3)]),
+    ("nccl", 4, 1, 4, "cuda", [_cuda(0), _cuda(1), _cuda(2), _cuda(3)]),
+    ("nccl", 2, 2, 3, "cuda", "need 4 cards, 3 visible"),
+    ("gloo", 2, 3, 4, "cpu", [_cpus(3), _cpus(3)]),
+    ("gloo", 2, 2, 4, "cuda:1", [_cuda(1, 1), _cuda(1, 1)]),
+]
+
+
+@pytest.mark.parametrize("backend,n_procs,k,visible,device,want", CARD_MAPS,
+                         ids=["nccl_2x2", "nccl_4x1", "nccl_3_of_4",
+                              "gloo_cpu", "gloo_card"])
+def test_process_cards(monkeypatch, backend, n_procs, k, visible, device,
+                       want):
+    """Under nccl process p takes cards [p k, (p + 1) k), the dp rows'
+    split, and each process's ladder then counts one block a card; fewer
+    visible cards than n_procs x k raise naming both counts; under gloo
+    every process's blocks are k copies of its device."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
+    if isinstance(want, str):
+        with pytest.raises(RuntimeError, match=want):
+            multihost.process_cards(backend, 0, n_procs, "cuda", k)
+        return
+    got = [multihost.process_cards(backend, p, n_procs, device, k)
+           for p in range(n_procs)]
+    assert got == want
+    if backend == "nccl":
+        assert got == make_dp_mesh(n_procs, k)
+        assert all(max(map(c.count, c)) == 1 for c in got)
 
 
 # ------------------------------------------------------------------ CLI
