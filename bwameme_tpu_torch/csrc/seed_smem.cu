@@ -71,13 +71,18 @@
 // index's variants keep their code): the index's per-suffix planes (rank
 // rows, positions, keys) lie in equal blocks of block_rows rows, and a rank
 // r (or, for mode 3's keys, a position) is row r - b * block_rows of block
-// b = r / block_rows, whose base address a table on the card holds. It is
-// the counterpart of the JAX package's sharded gathers
-// (bwameme_tpu/ops/sa_search.py:495-506 _owned,
+// b = r / block_rows. It is the counterpart of the JAX package's sharded
+// gathers (bwameme_tpu/ops/sa_search.py:495-506 _owned,
 // bwameme_tpu/parallel/sharded_index.py:137-146 owned), which psum every
 // shard's masked row: here the block that owns the row answers alone,
 // through an ordinary pointer where it shares the card, a peer pointer over
-// NVLink where it does not. Only load_head differs; one division a probe.
+// NVLink where it does not. Only load_head differs, and what it adds to a
+// probe's chain of dependent loads is kept off global memory: each thread
+// block first copies the blocks' starts and base addresses into shared
+// memory (at most MAX_BLOCKS blocks), and a probe finds b with no division,
+// as the high word of r times a reciprocal the host computed, corrected by
+// one compare against the next block's start (owner; index/device.py
+// block_of does the same in integers).
 //
 // Packed words compare as unsigned (uint32_t). The one float step, the P-RMI
 // prediction, rounds its multiply and its add separately (__fmul_rn,
@@ -129,11 +134,21 @@ template <typename RT> struct Index {
     int sectors;
     int steps;
 #ifdef SEED_SHARDED
-    // the blocks' base addresses of the rank-indexed plane (rk, or sa) and
-    // of the keys (ktext or key2), and the rows a block
+    // the tables of the blocks' base addresses of the rank-indexed plane
+    // (rk, or sa) and of the keys (ktext or key2), on the launch's card;
+    // the rows a block, and floor(2^32 / block_rows) (narrow) or
+    // floor(2^64 / block_rows) (wide), at most 2^32 - 1 or 2^64 - 1
     const long long* rank_blocks;
     const long long* key_blocks;
     RT block_rows;
+    unsigned long long recip;
+    int n_blocks;
+    // bit b: block b lies on another card than the launch's. Counting, a
+    // lane's last probe: bit 0 its row's block was remote, bit 1 (mode 3)
+    // its key's; the warp's dependent steps that waited on a remote block
+    uint32_t remote;
+    uint32_t far;
+    int remote_steps;
 #endif
 };
 
@@ -306,42 +321,89 @@ __device__ __forceinline__ long long load_head(const Index<RT>& ix,
         return pos;
     }
 }
+template <typename RT>
+__device__ __forceinline__ void load_blocks(const Index<RT>&) {}
 #else
-// The block that owns row r of a plane (a rank, or a text position) and the
-// row's place in it; the arithmetic of a wide variant is 64-bit.
-template <typename T, typename RT>
-__device__ __forceinline__ const T* owner(const Index<RT>& ix,
-                                          const long long* blocks,
-                                          long long r, long long& row) {
-    const RT b = (RT)r / ix.block_rows;
-    row = r - (long long)b * ix.block_rows;
-    return reinterpret_cast<const T*>(__ldg(blocks + b));
+// the most blocks a sharded plane may have (index/device.py MAX_BLOCKS)
+constexpr int MAX_BLOCKS = 32;
+// the thread block's copy of the blocks' first rows and base addresses
+// (rank plane, keys); entry n_blocks is the end of the last block
+__shared__ long long s_start[MAX_BLOCKS + 1];
+__shared__ const char* s_rank[MAX_BLOCKS + 1];
+__shared__ const char* s_key[MAX_BLOCKS + 1];
+
+// every thread of the block calls it before its warp's first probe
+template <typename RT>
+__device__ __forceinline__ void load_blocks(const Index<RT>& ix) {
+    for (int b = threadIdx.x; b <= ix.n_blocks; b += blockDim.x) {
+        const bool in = b < ix.n_blocks;
+        s_start[b] = (long long)b * ix.block_rows;
+        s_rank[b] = in ? (const char*)__ldg(ix.rank_blocks + b) : nullptr;
+        s_key[b] = in && ix.key_blocks
+                       ? (const char*)__ldg(ix.key_blocks + b) : nullptr;
+    }
+    __syncthreads();
+}
+
+// The block b that owns row r (a rank, or a text position; r < n_sa) of a
+// plane, and the row's place in it: q = hi(r * recip) is r / block_rows or
+// one less (recip undershoots 2^k / block_rows by less than one, and
+// r < 2^k), which the compare against block q + 1's start settles. The
+// starts and both candidates' bases are loaded together from shared
+// memory: between r and the row's own load there is no division and no
+// global load.
+template <typename T, bool KEY, typename RT>
+__device__ __forceinline__ const T* owner(const Index<RT>& ix, long long r,
+                                          long long& row, int& b) {
+    if constexpr (sizeof(RT) == 4)
+        b = (int)__umulhi((uint32_t)r, (uint32_t)ix.recip);
+    else
+        b = (int)__umul64hi((unsigned long long)r, ix.recip);
+    const char* const* base = KEY ? s_key : s_rank;
+    const long long s0 = s_start[b], s1 = s_start[b + 1];
+    const char* p0 = base[b];
+    const char* p1 = base[b + 1];
+    const bool up = r >= s1;
+    row = r - (up ? s1 : s0);
+    b += up;
+    return reinterpret_cast<const T*>(up ? p1 : p0);
 }
 
 template <int MODE, typename RT>
-__device__ __forceinline__ long long load_head(const Index<RT>& ix,
-                                               long long r, uint32_t* h) {
+__device__ __forceinline__ long long load_head(Index<RT>& ix, long long r,
+                                               uint32_t* h) {
     long long o;
+    int b;
     if constexpr (MODE == 4 && sizeof(RT) == 4) {
-        const uint4 row = __ldg(owner<uint4>(ix, ix.rank_blocks, r, o) + o);
+        const uint4 row = __ldg(owner<uint4, false>(ix, r, o, b) + o);
+        ix.far = (ix.remote >> b) & 1u;
         h[0] = row.y;
         h[1] = row.z;
         h[2] = row.w;
         return row.x;
     } else if constexpr (MODE == 4) {
-        const uint32_t* w =
-            owner<uint32_t>(ix, ix.rank_blocks, r, o) + 5 * o;
+        const uint32_t* w = owner<uint32_t, false>(ix, r, o, b) + 5 * o;
+        ix.far = (ix.remote >> b) & 1u;
         const uint32_t lo = __ldg(w), hi = __ldg(w + 1);
         h[0] = __ldg(w + 2);
         h[1] = __ldg(w + 3);
         h[2] = __ldg(w + 4);
         return (long long)(((unsigned long long)hi << 32) | lo);
     } else {
-        const long long pos =
-            (long long)__ldg(owner<RT>(ix, ix.rank_blocks, r, o) + o);
-        if constexpr (MODE != 1) {
-            const uint2 k = __ldg(
-                owner<uint2>(ix, ix.key_blocks, MODE == 3 ? pos : r, o) + o);
+        const RT* sa = owner<RT, false>(ix, r, o, b);
+        ix.far = (ix.remote >> b) & 1u;
+        if constexpr (MODE == 2) {
+            // key2 is by rank: the same block and row, in the same step
+            long long ok;
+            int bk;
+            const uint2 k = __ldg(owner<uint2, true>(ix, r, ok, bk) + ok);
+            h[0] = k.x;
+            h[1] = k.y;
+        }
+        const long long pos = (long long)__ldg(sa + o);
+        if constexpr (MODE == 3) {
+            const uint2 k = __ldg(owner<uint2, true>(ix, pos, o, b) + o);
+            ix.far |= ((ix.remote >> b) & 1u) << 1;
             h[0] = k.x;
             h[1] = k.y;
         }
@@ -455,6 +517,13 @@ __device__ __forceinline__ void probe(Index<RT>& ix, const Pat& p, int v,
         }
         ix.steps += (rows != 0u) * (MODE == 3 ? 2 : 1) +
                     __reduce_max_sync(FULL, deep);
+#ifdef SEED_SHARDED
+        // a step waits on a remote block if any lane's row (or key) is in
+        // one; the text and the leaves are on every card
+        ix.remote_steps += __ballot_sync(FULL, row && (ix.far & 1u)) != 0u;
+        if constexpr (MODE == 3)
+            ix.remote_steps += __ballot_sync(FULL, row && (ix.far & 2u)) != 0u;
+#endif
     }
 }
 
@@ -705,7 +774,9 @@ __device__ __forceinline__ void emit(Slots<RT>& s, int start, int end, RT lb,
 
 // The warp's read (or job) and the lane's place in it; false past the end of
 // the batch, where the whole warp leaves. counts, where given, is (2, n):
-// the sectors and the dependent steps the warp counted of itself.
+// the sectors and the dependent steps the warp counted of itself; in a
+// sharded variant (3, n), the third row the steps that waited on a block on
+// another card.
 template <typename RT>
 __device__ __forceinline__ bool warp_job(Index<RT>& ix, int n,
                                          const int32_t* counts, int& i) {
@@ -714,6 +785,10 @@ __device__ __forceinline__ bool warp_job(Index<RT>& ix, int n,
     ix.lane = t % WARP;
     ix.counting = counts != nullptr;
     ix.sectors = ix.steps = 0;
+#ifdef SEED_SHARDED
+    ix.remote_steps = 0;
+    ix.far = 0u;
+#endif
     return i < n;
 }
 
@@ -734,6 +809,9 @@ __device__ __forceinline__ void write_counts(const Index<RT>& ix,
     if (ix.lane == 0) {
         counts[i] = sectors;
         counts[n + i] = ix.steps;
+#ifdef SEED_SHARDED
+        counts[2 * n + i] = ix.remote_steps;
+#endif
     }
 }
 
@@ -765,6 +843,7 @@ seed_round1_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
                    const int32_t* lens, int R, int minseed, int M, RT* slots,
                    int32_t* nsm, int32_t* dropped, int32_t* counts) {
     Index<RT> ix = ixp;
+    load_blocks(ix);
     int i;
     if (!warp_job(ix, R, counts, i)) return;
     const int l = lens[i];
@@ -821,6 +900,7 @@ seed_round2_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
                    int split_width, int minseed, int M, RT* slots,
                    int32_t* nsm, int32_t* dropped, int32_t* counts) {
     Index<RT> ix = ixp;
+    load_blocks(ix);
     int i;
     if (!warp_job(ix, R, counts, i)) return;
     const int l = lens[i];
@@ -880,6 +960,7 @@ seed_round3_kernel(Index<RT> ixp, const uint32_t* qbuf, int W, Tables tb,
                    int M, RT* slots, int32_t* nsm, int32_t* dropped,
                    int32_t* counts) {
     Index<RT> ix = ixp;
+    load_blocks(ix);
     int i;
     if (!warp_job(ix, R, counts, i)) return;
     const int lim = lens[i] - min_seed + 1;
@@ -942,6 +1023,7 @@ sa_query_kernel(Index<RT> ixp, const uint32_t* qbuf, int W,
                 const int32_t* row, const int32_t* pivot, const int32_t* v,
                 const int32_t* min_intv, int n, RT* out, int32_t* counts) {
     Index<RT> ix = ixp;
+    load_blocks(ix);
     int i;
     if (!warp_job(ix, n, counts, i)) return;
     int mlen;
@@ -976,7 +1058,12 @@ struct IndexArgs {
     const void* kmer_table;
     int kmer_bits;
 #ifdef SEED_SHARDED
-    long long block_rows;   // rk, sa and keys: the block tables
+    // rk, sa and keys are the block tables; the rows a block, its
+    // reciprocal (Index::recip), the blocks, the remote ones' bits
+    long long block_rows;
+    unsigned long long recip;
+    int n_blocks;
+    unsigned remote;
 #endif
 };
 
@@ -997,7 +1084,8 @@ template <typename RT> static Index<RT> make_index(const IndexArgs& a) {
                      (RT)a.n_sa, (const RT*)a.kmer_table, a.kmer_bits, 0,
                      false, 0, 0,
                      (const long long*)(a.rk ? a.rk : a.sa),
-                     (const long long*)a.keys, (RT)a.block_rows};
+                     (const long long*)a.keys, (RT)a.block_rows, a.recip,
+                     a.n_blocks, a.remote, 0u, 0};
 }
 #endif
 
@@ -1136,10 +1224,19 @@ static int query(const IndexArgs& ia, const void* qbuf, int W,
     int mode, int wide, const void *rk, const void *sa, const void *keys,  \
         const void *text32, long long n_text_words, const void *params,    \
         const void *params64, int n_leaf, int bits, long long n_sa,        \
-        const void *kmer_table, int kmer_bits, long long block_rows
+        const void *kmer_table, int kmer_bits, long long block_rows,       \
+        unsigned long long recip, int n_blocks, unsigned remote
 #define INDEX_ARGS                                                          \
     IndexArgs { rk, sa, keys, text32, n_text_words, params, params64,      \
-                n_leaf, bits, n_sa, kmer_table, kmer_bits, block_rows }
+                n_leaf, bits, n_sa, kmer_table, kmer_bits, block_rows,     \
+                recip, n_blocks, remote }
+// the block list the shared-memory copy holds
+#define CHECK_BLOCKS                                                        \
+    if (n_blocks < 1 || n_blocks > MAX_BLOCKS || block_rows < 1)           \
+        return (int)cudaErrorInvalidValue;
+#endif
+#ifndef SEED_SHARDED
+#define CHECK_BLOCKS
 #endif
 
 extern "C" {
@@ -1150,6 +1247,7 @@ int seed_round1_launch(INDEX_PARAMS, const void* qbuf, int W, const void* nf,
                        void* slots, void* nsm, void* dropped, void* counts,
                        void* stream) {
     if (R == 0) return 0;
+    CHECK_BLOCKS
     const Tables tb{(const int32_t*)nf, (const int32_t*)nr,
                     (const int32_t*)nvf, Lp};
     VARIANT(round1, INDEX_ARGS, qbuf, W, tb, lens, R, minseed, M, slots, nsm,
@@ -1163,6 +1261,7 @@ int seed_round2_launch(INDEX_PARAMS, const void* qbuf, int W, const void* nf,
                        void* slots, void* nsm, void* dropped, void* counts,
                        void* stream) {
     if (R == 0) return 0;
+    CHECK_BLOCKS
     const Tables tb{(const int32_t*)nf, (const int32_t*)nr, nullptr, Lp};
     VARIANT(round2, INDEX_ARGS, qbuf, W, tb, lens, R, slots1, nsm1, M1,
             split_len, split_width, minseed, M, slots, nsm, dropped, counts,
@@ -1174,6 +1273,7 @@ int seed_round3_launch(INDEX_PARAMS, const void* qbuf, int W, const void* nf,
                        int min_seed, int M, void* slots, void* nsm,
                        void* dropped, void* counts, void* stream) {
     if (R == 0) return 0;
+    CHECK_BLOCKS
     const Tables tb{(const int32_t*)nf, nullptr, nullptr, Lp};
     VARIANT(round3, INDEX_ARGS, qbuf, W, tb, lens, R, min_intv, min_seed, M,
             slots, nsm, dropped, counts, stream)
@@ -1209,6 +1309,7 @@ int sa_query_launch(INDEX_PARAMS, const void* qbuf, int W, const void* row,
                     const void* pivot, const void* v, const void* min_intv,
                     int n, void* out, void* counts, void* stream) {
     if (n == 0) return 0;
+    CHECK_BLOCKS
     VARIANT(query, INDEX_ARGS, qbuf, W, row, pivot, v, min_intv, n, out,
             counts, stream)
 }

@@ -45,10 +45,15 @@ package's ``mesh=``, bwameme_tpu/ops/sa_search.py:88-279): the per-suffix
 planes ``rk``, ``sa`` and ``key2`` are split by rank and ``ktext`` by text
 position into equal blocks (``ShardedPlane``), one a device of the list,
 which may repeat a device; the text, the leaf records, ``params64`` and the
-k-mer table stay whole on the home device, the list's first. The sharded
-seeding kernels read a rank's row from its block through a table of the
-blocks' base addresses; the plain versions take it with
-``ops.sa_search.owned``.
+k-mer table are copied whole to every distinct device of the list, as the
+JAX package replicates them on every shard
+(bwameme_tpu/parallel/sharded_index.py:9-12). The index is a view from one
+device (``on``): its replicated planes and the blocks' tables on that
+device, the blocks shared by every view. The home view is the list's first
+device's. The sharded seeding kernels read a rank's row from its block
+through the table of the blocks' base addresses, at most MAX_BLOCKS blocks
+(the kernels hold the table in shared memory); the plain versions take it
+with ``ops.sa_search.owned``.
 """
 
 from __future__ import annotations
@@ -71,6 +76,27 @@ PLANES = ("rk", "sa", "ktext", "key2", "params64")
 # the per-suffix planes a sharded index splits in blocks (by rank; ktext by
 # text position)
 SHARDED = ("rk", "sa", "ktext", "key2")
+# the most blocks a sharded plane may have: the sharded seeding kernels copy
+# the blocks' starts and bases into shared memory (csrc/seed_smem.cu)
+MAX_BLOCKS = 32
+
+
+def block_reciprocal(block_rows: int, wide: bool) -> int:
+    """floor(2^k / block_rows), at most 2^k - 1, k = 64 wide and 32
+    narrow: the multiplier by which the sharded seeding kernels find a
+    row's block with no division (``block_of``)."""
+    k = 64 if wide else 32
+    return min((1 << k) // block_rows, (1 << k) - 1)
+
+
+def block_of(r: int, block_rows: int, wide: bool) -> int:
+    """The block of row r (0 <= r < 2^31 narrow, < 2^63 wide) as the
+    sharded kernels find it (csrc/seed_smem.cu ``owner``): the high word
+    of r times the reciprocal, which is r // block_rows or one less, then
+    one compare against the next block's start."""
+    k = 64 if wide else 32
+    q = (r * block_reciprocal(block_rows, wide)) >> k
+    return q + (r >= (q + 1) * block_rows)
 
 
 def words_u32(x: torch.Tensor) -> torch.Tensor:
@@ -204,10 +230,11 @@ class ShardedPlane:
     ceil(rows / shards): block s holds rows s * block_rows onwards on its
     own device, the last padded with zeros as the JAX package's put_shard
     pads (no read reaches the padding: ranks and positions stay below
-    n_sa). ``table``: the blocks' base addresses, int64, on the first
-    block's device, which the sharded seeding kernels read (csrc/
-    seed_smem.cu built with SEED_SHARDED); on the card, a block on another
-    card than the table's is read through a peer pointer."""
+    n_sa). ``table``: the blocks' base addresses, int64, on the device
+    that reads them (``on``; at first the first block's), which the
+    sharded seeding kernels read (csrc/seed_smem.cu built with
+    SEED_SHARDED); on the card, a block on another card than the launch's
+    is read through a peer pointer."""
 
     blocks: tuple
     rows: int
@@ -228,6 +255,12 @@ class ShardedPlane:
         table = torch.tensor([b.data_ptr() for b in blocks],
                              dtype=torch.int64, device=blocks[0].device)
         return cls(tuple(blocks), n, table)
+
+    def on(self, device) -> "ShardedPlane":
+        """The same blocks, the table on ``device``."""
+        if self.table.device == device:
+            return self
+        return dataclasses.replace(self, table=self.table.to(device))
 
     @property
     def block_rows(self) -> int:
@@ -261,7 +294,6 @@ def _check(x, name: str, dtype, shape: tuple) -> None:
         for s, blk in enumerate(x.blocks):
             _check(blk, f"{name} block {s}", dtype, (B, *shape[1:]))
         if x.table.dtype != torch.int64 or x.table.shape != (S,) or \
-                x.table.device != x.blocks[0].device or \
                 x.table.tolist() != [b.data_ptr() for b in x.blocks]:
             raise ValueError(f"{name}: the block table does not hold the "
                              "blocks' base addresses")
@@ -289,6 +321,10 @@ class DeviceIndex:
     params64: torch.Tensor | None = None  # wide: int64[L + 1]
     kmer_table: torch.Tensor | None = None  # ERT root: [4^kb + 1] ranks
     kmer_bits: int = 0
+    # a sharded index: its view from each distinct device (``on``), shared
+    # by all the views
+    views: dict | None = dataclasses.field(default=None, compare=False,
+                                           repr=False)
 
     def __post_init__(self) -> None:
         """The planes of exactly one layout, in the dtypes and shapes the
@@ -337,10 +373,11 @@ class DeviceIndex:
         if split and (len(split) != sum(getattr(self, k) is not None
                                         for k in SHARDED)
                       or any(p.devices != split[0].devices for p in split)
-                      or split[0].devices[0] != self.text32.device):
+                      or any(p.table.device != self.text32.device
+                             for p in split)):
             raise ValueError("a sharded index splits every per-suffix plane "
-                             "over the same devices, the first of which "
-                             "holds the text")
+                             "over the same devices, and its block tables "
+                             "lie beside its text")
 
     @property
     def planes(self) -> dict:
@@ -396,24 +433,59 @@ class DeviceIndex:
     def shard(self, devices) -> "DeviceIndex":
         """This index (whole planes, on any one device) with its per-suffix
         planes split in len(devices) blocks, one a device of the list (a
-        device may repeat), and the other planes moved to the list's first
-        device. Checks every card's free memory first."""
+        device may repeat, at most MAX_BLOCKS blocks), and the other planes
+        and the blocks' tables copied to every distinct device of the list.
+        Returns the view from the list's first device (``on`` gives the
+        others). Checks every card's free memory first."""
         if self.shards is not None:
             raise ValueError("the index is sharded already")
         devices = [_norm(d) for d in devices]
         if not devices:
             raise ValueError("shards: no device")
-        need = dict.fromkeys(devices, 0)
-        for k, t in self.planes.items():
-            if k in SHARDED:
-                for d in devices:
-                    need[d] += plane_bytes(t) // len(devices)
-            else:
-                need[devices[0]] += plane_bytes(t)
-        self._check_fits(need)
-        return dataclasses.replace(self, **{
+        if len(devices) > MAX_BLOCKS:
+            raise ValueError(f"{len(devices)} blocks: the sharded seeding "
+                             f"kernels take at most {MAX_BLOCKS}")
+        cards = list(dict.fromkeys(devices))
+        self._check_fits(self.shard_bytes(devices))
+        views: dict = {}
+        home = dataclasses.replace(self, views=views, **{
             k: ShardedPlane.split(t, devices) if k in SHARDED
             else t.to(devices[0]) for k, t in self.planes.items()})
+        views[cards[0]] = home
+        for d in cards[1:]:
+            views[d] = dataclasses.replace(home, **{
+                k: t.on(d) if k in SHARDED else t.to(d)
+                for k, t in home.planes.items()})
+        return home
+
+    def shard_bytes(self, devices) -> dict:
+        """The bytes ``shard(devices)`` puts on each distinct device: its
+        blocks of the per-suffix planes, and a copy of every other plane and
+        of the block tables."""
+        cards = list(dict.fromkeys(devices))
+        need = dict.fromkeys(cards, 0)
+        for k, t in self.planes.items():
+            for d in devices if k in SHARDED else cards:
+                need[d] += plane_bytes(t) // (
+                    len(devices) if k in SHARDED else 1)
+        for d in cards:
+            need[d] += 8 * len(devices) * sum(
+                self.planes.get(k) is not None for k in SHARDED)
+        return need
+
+    def on(self, device) -> "DeviceIndex":
+        """The view of a sharded index from ``device``, one of its blocks'
+        devices: its text, leaves, k-mer table and block tables there. A
+        whole index is its own view from its device."""
+        device = _norm(device)
+        if self.views is None or self.shards is None:
+            if device != self.device:
+                raise ValueError(f"the index lives on {self.device}, not "
+                                 f"{device}")
+            return self
+        if device not in self.views:
+            raise ValueError(f"the sharded index has no block on {device}")
+        return self.views[device]
 
     def _check_fits(self, need: dict) -> None:
         """Raises unless each card's ``need`` bytes and HEADROOM_BYTES fit

@@ -37,9 +37,9 @@ def _on_cuda(x: torch.Tensor) -> bool:
     return False
 
 
-def _check_args(src, idx) -> None:
+def _check_args(src, idx, device=None) -> None:
     check(src, "src", torch.int32, (None, None), src.device)
-    check(idx, "idx", torch.int32, (None,), src.device)
+    check(idx, "idx", torch.int32, (None,), device or src.device)
     if src.shape[0] == 0 or src.numel() >= 2**40:
         raise ValueError("src must have rows, and fewer than 2^40 words")
 
@@ -83,14 +83,18 @@ def _gather_rows_cuda(name: str, src, idx, rows: int, flat: bool = False):
     return out
 
 
-def gather_chain_cuda(src, idx, rounds: int):
-    _check_args(src, idx)
+def gather_chain_cuda(src, idx, rounds: int, device=None):
+    """K4 launched on ``device`` (by default src's card), where idx lies and
+    the result is made; a src on another card is read through a peer
+    pointer (the caller enables peer access)."""
+    device = device or src.device
+    _check_args(src, idx, device)
     L = idx.shape[0]
-    out = src.new_empty((L,))
+    out = torch.empty((L,), dtype=torch.int32, device=device)
     if L:
         launch("gather_chain",
                entry("gather_bench", "gather_chain_launch", _declare),
-               src.device, src.data_ptr(), idx.data_ptr(), out.data_ptr(), L,
+               device, src.data_ptr(), idx.data_ptr(), out.data_ptr(), L,
                src.shape[0], src.shape[1], rounds)
     return out
 

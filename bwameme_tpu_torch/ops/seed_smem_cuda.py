@@ -8,10 +8,12 @@ root, whose launches are counted under the variant's own name
 Over a sharded index (``DeviceIndex.shards``) the rounds and sa_query
 launch the sharded variants (csrc/seed_smem.cu built with SEED_SHARDED, a
 library a mode), which read each rank's row through the planes' block
-tables; their launches count under ``...[shard]``. Blocks on another card
-than the launch's are read through peer pointers: the first launch enables
-peer access once a pair, and a pair of cards without it raises. The window
-reads no per-suffix plane and launches the whole index's variant.
+tables; their launches count under ``...[shard]``. A launch takes the
+index's view from its own card (``DeviceIndex.on``): the text, the leaves
+and the block tables there. Blocks on another card than the launch's are
+read through peer pointers: the first launch enables peer access once a
+pair, and a pair of cards without it raises. The window reads no
+per-suffix plane and launches the whole index's variant.
 
 Checks, launch and launch counts are those of ops/launch.py. The plain
 PyTorch versions live in ops/seed_smem.py and ops/sa_search.py;
@@ -28,7 +30,8 @@ import functools
 
 import torch
 
-from bwameme_tpu_torch.index.device import DeviceIndex, ShardedPlane
+from bwameme_tpu_torch.index.device import (DeviceIndex, ShardedPlane,
+                                            block_reciprocal)
 from bwameme_tpu_torch.ops.launch import (check, cuda_device, entry, launch,
                                           variant)
 
@@ -41,9 +44,10 @@ def _declare(lib, sharded: bool = False) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # mode, wide, rk, sa, keys, text32, n_text_words, params, params64,
     # n_leaf, bits, n_sa, kmer_table, kmer_bits; sharded: rk, sa and keys
-    # are block tables, then block_rows
+    # are block tables, then block_rows, its reciprocal, the blocks and the
+    # bits of those on another card than the launch's
     index = [I, I, P, P, P, P, LL, P, P, I, I, LL, P, I] + (
-        [LL] if sharded else [])
+        [LL, ctypes.c_ulonglong, I, ctypes.c_uint] if sharded else [])
     lib.seed_round1_launch.argtypes = index + [
         P, I, P, P, P, I, P, I, I, I, P, P, P, P, P]
     lib.seed_round2_launch.argtypes = index + [
@@ -92,18 +96,19 @@ def _ptr(x) -> int | None:
     return (x.table if isinstance(x, ShardedPlane) else x).data_ptr()
 
 
-def _peer_access(dev: torch.device, plane: ShardedPlane, lib: str) -> None:
-    """Lets ``dev`` read the blocks on other cards, once a pair; raises for
-    a pair of cards that cannot."""
-    for d in plane.devices:
+def peer_access(dev: torch.device, devices, mode: int = 4) -> None:
+    """Lets card ``dev`` read the memory of the cards ``devices``, once a
+    pair (through the sharded library of ``mode``); raises for a pair of
+    cards that cannot."""
+    for d in devices:
         if d == dev or (dev, d) in _peers:
             continue
         if not torch.cuda.can_device_access_peer(dev, d):
             raise RuntimeError(f"the sharded index has a block on {d}, which "
                                f"{dev} cannot read (no peer access between "
                                "the two cards)")
-        err = entry(lib, "enable_peer_access", _declare_sharded)(
-            dev.index, d.index)
+        err = entry(f"seed_smem_sharded_m{mode}", "enable_peer_access",
+                    _declare_sharded)(dev.index, d.index)
         if err != 0:
             raise RuntimeError(f"enabling peer access from {dev} to {d} "
                                f"failed with CUDA error {err}")
@@ -123,7 +128,7 @@ def _check_plane(di: DeviceIndex, x, name: str, dev: torch.device) -> None:
                              f"a {dev.type} device")
         check(blk, f"{name} block {s}", x.dtype, tuple(blk.shape),
               blk.device)
-    _peer_access(dev, x, f"seed_smem_sharded_m{di.mode}")
+    peer_access(dev, x.devices, di.mode)
 
 
 def _aligned(x, name: str, step: int | None = None) -> None:
@@ -162,7 +167,16 @@ def _index_args(di: DeviceIndex, dev: torch.device,
             di.n_sa, _ptr(planes.get("kmer_table")), di.kmer_bits)
     if leaves_only or di.shards is None:
         return args
-    return args + (planes["rk" if di.mode == 4 else "sa"].block_rows,)
+    plane = planes["rk" if di.mode == 4 else "sa"]
+    return args + (plane.block_rows, block_reciprocal(plane.block_rows,
+                                                      di.wide),
+                   len(plane.blocks), remote_blocks(plane, dev))
+
+
+def remote_blocks(plane: ShardedPlane, dev: torch.device) -> int:
+    """Bit s set where block s lies on another card than ``dev``: what the
+    sharded kernels' counts take as a remote step."""
+    return sum(1 << s for s, d in enumerate(plane.devices) if d != dev)
 
 
 def _query_args(qbuf, tables, lens, dev) -> tuple:
@@ -183,15 +197,22 @@ def _outputs(di: DeviceIndex, R: int, M: int, dev):
             torch.empty((R,), dtype=torch.int32, device=dev))
 
 
-def _counts_ptr(counts, n: int, dev):
-    """``counts``, where given, is a (2, n) int32 tensor that each warp fills
-    with what it counted of itself: the 32-byte sectors of rank rows and
-    packed text it brought in (the design's traffic; the work the data needs
-    is the plain versions' ``work``), and its dependent steps (a leaf
-    record, a probe of rank rows, 128 bases of text)."""
+def count_rows(di: DeviceIndex) -> int:
+    """The rows of a kernel's ``counts``: 3 over a sharded index, else 2."""
+    return 2 if di.shards is None else 3
+
+
+def _counts_ptr(di: DeviceIndex, counts, n: int, dev):
+    """``counts``, where given, is a (count_rows(di), n) int32 tensor that
+    each warp fills with what it counted of itself: the 32-byte sectors of
+    rank rows and packed text it brought in (the design's traffic; the work
+    the data needs is the plain versions' ``work``), its dependent steps (a
+    leaf record, a probe of rank rows, 128 bases of text), and over a
+    sharded index those of its steps that waited on a block on another card
+    than the launch's (``remote_blocks``)."""
     if counts is None:
         return None
-    check(counts, "counts", torch.int32, (2, n), dev)
+    check(counts, "counts", torch.int32, (count_rows(di), n), dev)
     return counts.data_ptr()
 
 
@@ -201,7 +222,7 @@ def seed_round1(di: DeviceIndex, qbuf, nf, nr, nvf, lens, minseed: int,
     dev = cuda_device(qbuf, _WHAT)
     R, W, Lp = _query_args(qbuf, (nf, nr, nvf), lens, dev)
     slots, nsm, dropped = _outputs(di, R, M, dev)
-    cnt = _counts_ptr(counts, R, dev)
+    cnt = _counts_ptr(di, counts, R, dev)
     if R:
         launch(_variant(di, "seed_round1"),
                _entry(di, "seed_round1_launch"), dev,
@@ -221,7 +242,7 @@ def seed_round2(di: DeviceIndex, qbuf, nf, nr, lens, slots1, nsm1,
     check(slots1, "slots1", di.rank_dtype, (4, R, None), dev)
     check(nsm1, "nsm1", torch.int32, (R,), dev)
     slots, nsm, dropped = _outputs(di, R, M, dev)
-    cnt = _counts_ptr(counts, R, dev)
+    cnt = _counts_ptr(di, counts, R, dev)
     if R:
         launch(_variant(di, "seed_round2"),
                _entry(di, "seed_round2_launch"), dev,
@@ -239,7 +260,7 @@ def seed_round3(di: DeviceIndex, qbuf, nf, lens, min_intv: int,
     dev = cuda_device(qbuf, _WHAT)
     R, W, Lp = _query_args(qbuf, (nf,), lens, dev)
     slots, nsm, dropped = _outputs(di, R, M, dev)
-    cnt = _counts_ptr(counts, R, dev)
+    cnt = _counts_ptr(di, counts, R, dev)
     if R:
         launch(_variant(di, "seed_round3"),
                _entry(di, "seed_round3_launch"), dev,
@@ -292,7 +313,7 @@ def sa_query(di: DeviceIndex, qbuf, row, pivot, v, min_intv, counts=None):
     for name, x in (("pivot", pivot), ("v", v), ("min_intv", min_intv)):
         check(x, name, torch.int32, (n,), dev)
     out = torch.empty((3, n), dtype=di.rank_dtype, device=dev)
-    cnt = _counts_ptr(counts, n, dev)
+    cnt = _counts_ptr(di, counts, n, dev)
     if n:
         launch(_variant(di, "sa_query"), _entry(di, "sa_query_launch"), dev,
                *_index_args(di, dev), qbuf.data_ptr(), qbuf.shape[1],

@@ -4,8 +4,9 @@ Port of bwameme_tpu/parallel/dp.py. The distributed design has two axes:
 
 * ``idx``, the index axis: each row's engine holds the whole index with its
   per-suffix planes in rank blocks over the row's devices (index/device.py
-  ShardedPlane; seeding/engine.py ``shards=``). A row with one device holds
-  the whole index on it.
+  ShardedPlane; seeding/engine.py ``shards=``), and cuts each batch it
+  seeds into a slice a card of the row. A row with one device holds the
+  whole index on it.
 * ``dp``, the data axis: a chunk of reads is split into one contiguous
   slice a row. No row waits for another while it aligns: reads are
   independent, as the reference scales with threads (kt_for 512-read

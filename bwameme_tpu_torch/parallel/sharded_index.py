@@ -23,7 +23,8 @@ from bwameme_tpu_torch.index.device import DeviceIndex
 @dataclasses.dataclass(frozen=True)
 class ShardedIndex:
     """The device index with its per-suffix planes in rank blocks (ktext in
-    text-position blocks), the rest on the first device."""
+    text-position blocks), the rest copied to every distinct device (the
+    view of the first device's, DeviceIndex.on)."""
 
     di: DeviceIndex
 

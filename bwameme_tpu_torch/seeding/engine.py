@@ -25,10 +25,15 @@ thread a read has enough loads in flight (PERF.md, section 6).
 
 Sharded (``shards=[devices]``, the counterpart of the JAX engine's
 ``mesh=``): the index's per-suffix planes lie in rank blocks over the
-devices (index/device.py ShardedPlane), the rounds launch on the home
-device, the list's first, and read each rank's row from its block (the
-sharded kernel variants; on the CPU the plain versions' owned gather). Its
-SMEMs are the unsharded engine's.
+devices (index/device.py ShardedPlane), every distinct device holds the
+text, the leaves and the root, and each rank's row is read from its block
+(the sharded kernel variants; on the CPU the plain versions' owned
+gather). A batch is cut into contiguous slices, one a distinct device of
+the list (``cut_batch``): each device prepares, seeds and packs its slice
+on its own stream, reading its own block locally and the others through
+peer pointers, and the slices' results are merged in read order. A list
+that repeats one device is one slice, one launch a round. Its SMEMs are the
+unsharded engine's.
 
 Produces the SMEM sets of ``HostSeedingEngine`` (the scalar contract), which
 stays the independent oracle and is never called from here. The read length
@@ -63,6 +68,18 @@ from bwameme_tpu_torch.utils.timer import tstage
 MAX_READ_LEN = 512
 
 
+def cut_batch(n: int, devices) -> list[tuple]:
+    """A batch of n reads as contiguous slices, (device, start, end), one a
+    device of the list (parallel/dp.slices), the empty ones left out; a
+    batch of no read is one empty slice on the first device."""
+    from bwameme_tpu_torch.parallel.dp import slices
+
+    devices = list(devices)
+    cut = [(d, b, e) for d, (b, e) in zip(devices, slices(n, len(devices)))
+           if e > b]
+    return cut or [(devices[0], 0, n)]
+
+
 class DeviceSeedingEngine:
     def __init__(self, idx, opt, lanes: int = 1024, device="cuda",
                  mode: int | None = None, wide: bool | None = None,
@@ -79,7 +96,8 @@ class DeviceSeedingEngine:
         index/ert.pick_ert_bits gives. ``shards``: a list of devices over
         which the index's per-suffix planes are split in rank blocks (a
         device may repeat); the engine then runs on the list's first, and
-        ``device`` is not read."""
+        ``device`` is not read; a batch is cut into a slice a distinct
+        device of the list (``cards``)."""
         if root not in ("prmi", "kmer"):
             raise ValueError(f"root must be 'prmi' or 'kmer', not {root!r}")
         self.idx = idx
@@ -93,10 +111,24 @@ class DeviceSeedingEngine:
             idx, self.device, mode=mode, wide=wide,
             ert_bits=ert_bits if root == "kmer" else None,
             shards=list(shards) if shards else None)
+        cards = self.cards
+        if len(cards) > 1 and cards[0].type == "cuda":
+            from bwameme_tpu_torch.ops.seed_smem_cuda import peer_access
+
+            # every card of the row reads every other's block: each
+            # ordered pair, or raise
+            for d in cards:
+                peer_access(d, cards, self.di.mode)
         self.max_smems = 96       # emission slots a read, rounds 1 and 3
         self.max_reseeds = 16     # emission slots a read, round 2
         self.pack_cap_per_read = 24
         self.dropped_smems = 0    # emissions that found no slot
+
+    @property
+    def cards(self) -> list:
+        """The distinct devices of the index's blocks (its device when
+        whole): a batch is cut into a slice each."""
+        return list(dict.fromkeys(self.di.shards or [self.di.device]))
 
     # chaining reads positions from here; the device planes hold them for
     # the device, the host index for the host
@@ -118,11 +150,26 @@ class DeviceSeedingEngine:
                 np.minimum(flat, 4)
         return mat, lens, maxlen
 
-    def submit_batch(self, codes_list):
+    def submit_batch(self, codes_list, devices=None):
         """Enqueue prep, the three rounds and the pack for a batch and return
         a token without waiting for the device. Pair with finish_batch_flat
-        or finish_batch."""
-        opt, dev, di = self.opt, self.device, self.di
+        or finish_batch. The batch is cut into a slice a device of
+        ``devices`` (by default ``cards``; a device may repeat), each slice
+        submitted on its device; the token of one slice is that slice's,
+        of more the list of (first read, slice token)."""
+        cut = cut_batch(len(codes_list), devices or self.cards)
+        if len(cut) == 1:
+            return self._submit(codes_list, cut[0][0])
+        return [(b, self._submit(codes_list[b:e], dev)) for dev, b, e in cut]
+
+    def _submit(self, codes_list, dev):
+        """One slice on ``dev`` (current stream), with the index's view from
+        there."""
+        dev = torch.device(dev)
+        if dev.type == "cuda" and torch.cuda.current_device() != dev.index:
+            with torch.cuda.device(dev):
+                return self._submit(codes_list, dev)
+        opt, di = self.opt, self.di.on(dev)
         with tstage("seed.prep"):
             mat, lens_np, maxlen = self._batch_matrix(codes_list)
             if maxlen > MAX_READ_LEN:
@@ -164,15 +211,35 @@ class DeviceSeedingEngine:
     def finish_batch_flat(self, token):
         """Fetch a submit_batch token as the flat SMEM struct native chaining
         consumes: per-read runs sorted by (start, end), ties in emission
-        order. None when the batch holds more entries than the packed buffer
-        (the caller then uses finish_batch)."""
+        order. None when a batch of one slice holds more entries than the
+        packed buffer (the caller then uses finish_batch); a slice of more
+        that does is fetched as its whole slot planes instead."""
+        if not isinstance(token, list):
+            flat, n_dropped = self._flat(token)
+            if flat is not None:
+                self._note_dropped(n_dropped)
+            return flat
+        parts, n_dropped = [], 0
+        for _, tok in token:
+            flat, d = self._flat(tok)
+            if flat is None:
+                lists, d = self._lists(tok)
+                flat = _flat_of(lists)
+            parts.append(flat)
+            n_dropped += d
+        self._note_dropped(n_dropped)
+        return _merge_flat(parts)
+
+    @staticmethod
+    def _flat(token):
+        """A slice's packed result as FlatSmems, and the SMEMs it dropped;
+        (None, 0) when it overflowed the packed buffer."""
         R, _rounds, packed, cap = token
         flat = packed.cpu().numpy()
         counts = flat[1: 1 + R]
         total = int(counts.sum())
         if total > cap:
-            return None
-        self._note_dropped(int(flat[0]))
+            return None, 0
         sten, lb, cn = (flat[1 + R + k * cap: 1 + R + k * cap + total]
                         for k in range(3))
         start = (sten >> 10).astype(np.int32)
@@ -185,11 +252,24 @@ class DeviceSeedingEngine:
         order = np.lexsort((end, start, read_ids))
         return FlatSmems(smem_off, start[order], end[order],
                          lb[order].astype(np.int64),
-                         cn[order].astype(np.int64))
+                         cn[order].astype(np.int64)), int(flat[0])
 
     def finish_batch(self, token) -> list[list[Smem]]:
         """Fetch a submit_batch token as per-read SMEM lists in emission
         order (round 1, round 2, round 3), from the whole slot planes."""
+        toks = token if isinstance(token, list) else [(0, token)]
+        smems, n_dropped = [], 0
+        for _, tok in toks:
+            lists, d = self._lists(tok)
+            smems += lists
+            n_dropped += d
+        self._note_dropped(n_dropped)
+        return smems
+
+    @staticmethod
+    def _lists(token):
+        """A slice's per-read SMEM lists from its slot planes, and the SMEMs
+        it dropped."""
         R, rounds, _packed, _cap = token
         smems: list[list[Smem]] = [[] for _ in range(R)]
         n_dropped = 0
@@ -200,8 +280,7 @@ class DeviceSeedingEngine:
                 smems[i].extend(
                     Smem(int(s[0, i, k]), int(s[1, i, k]), int(s[2, i, k]),
                          int(s[3, i, k])) for k in range(int(n[i])))
-        self._note_dropped(n_dropped)
-        return smems
+        return smems, n_dropped
 
     # ----------------------------------------------------------- interface
     def collect_smems_batch(self, codes_list) -> list[list[Smem]]:
@@ -216,3 +295,27 @@ class DeviceSeedingEngine:
 
     def sorted_smems(self, codes: np.ndarray) -> list[Smem]:
         return self.sorted_smems_batch([codes])[0]
+
+
+def _flat_of(lists) -> FlatSmems:
+    """Per-read SMEM lists in emission order as FlatSmems, each read's run
+    sorted by (start, end), ties in emission order."""
+    runs = [sorted(sm, key=lambda s: (s.start, s.end)) for sm in lists]
+    off = np.zeros(len(runs) + 1, np.int32)
+    np.cumsum([len(r) for r in runs], out=off[1:])
+    flat = [s for r in runs for s in r]
+    return FlatSmems(off, *(np.array([getattr(s, f) for s in flat], dt)
+                            for f, dt in (("start", np.int32),
+                                          ("end", np.int32),
+                                          ("sa_lo", np.int64),
+                                          ("hitcount", np.int64))))
+
+
+def _merge_flat(parts) -> FlatSmems:
+    """Consecutive slices' FlatSmems as one, in read order."""
+    off = [parts[0].off]
+    for p in parts[1:]:
+        off.append(p.off[1:] + off[-1][-1])
+    return FlatSmems(np.concatenate(off).astype(np.int32),
+                     *(np.concatenate([getattr(p, f) for p in parts])
+                       for f in ("start", "end", "sa_lo", "hitcount")))

@@ -1103,13 +1103,16 @@ def compare_rounds(batch, dev, count_work: bool):
     (bench_util.Rounds), all values equal. Yields (k, the kernel's result,
     max abs err, the plain version's wall ms, the work it counted on that
     run (ops.sa_search.Work; None unless asked: the wall ms then includes
-    the counting), the kernel's own counts (2, R))."""
+    the counting), the kernel's own counts (2, R), (3, R) over a sharded
+    index)."""
     import torch
 
     from bwameme_tpu_torch.ops.sa_search import Work
+    from bwameme_tpu_torch.ops.seed_smem_cuda import count_rows
 
     for k in range(3):
-        counts = torch.zeros((2, batch.R), dtype=torch.int32, device=dev)
+        counts = torch.zeros((count_rows(batch.eng.di), batch.R),
+                             dtype=torch.int32, device=dev)
         res = batch.run(k, batch.kernels[k], counts=counts)
         work = Work(batch.R, dev) if count_work else None
         torch.cuda.synchronize()
@@ -1143,12 +1146,16 @@ def seeding_row(err, kern, plain_ms, work, counts, chain_us: float,
     be faster than. ``di``: an index of the same planes under the other root
     than the one ``work`` was counted under (the same answers, counted once
     a layout): the bound takes its root's records, and the scalar searches'
-    sectors, which were those of the other root, are not given."""
+    sectors, which were those of the other root, are not given. Over a
+    sharded index the counts' third row is the steps that waited on a block
+    on another card (remote_steps, the slowest warp's)."""
     own = di is None
     n_answer = work.answer_sectors(root=di)
     n_work = int(work.probes.sum()) if own else None
     n_rows_text = work.answer_sectors(leaves=False)
     n_kernel, steps = int(counts[0].sum()), int(counts[1].max())
+    remote = (int(counts[2, int(counts[1].argmax())])
+              if counts.shape[0] > 2 else None)
     check(n_kernel >= n_rows_text, "the kernel read fewer sectors than its "
           "answers stand on: the bound is no floor")
     from bwameme_tpu_torch.bench_util import cuda_ms, queued_us
@@ -1162,7 +1169,8 @@ def seeding_row(err, kern, plain_ms, work, counts, chain_us: float,
         kernel_sectors=n_kernel,
         kernel_sectors_ratio=n_kernel / max(n_work, 1) if own else None,
         kernel_to_answer_ratio=n_kernel / max(n_rows_text, 1),
-        latency_steps=steps, latency_bound_ms=steps * chain_us / 1e3)
+        latency_steps=steps, remote_steps=remote,
+        latency_bound_ms=steps * chain_us / 1e3)
 
 
 def variant_of(di, name: str) -> str:
@@ -1274,7 +1282,8 @@ def check_layout(eng, reads, kh, kl, dev, chain_us: float, rng,
     else:
         (jobs, works), other = counted, di
     n = jobs[0].shape[0]
-    counts = torch.zeros((2, n), dtype=torch.int32, device=dev)
+    counts = torch.zeros((seed_smem_cuda.count_rows(di), n),
+                         dtype=torch.int32, device=dev)
     work = Work(n, dev) if other is None else None
     got = seed_smem_cuda.sa_query(di, qbuf, *jobs, counts=counts)
     torch.cuda.synchronize()
@@ -3128,6 +3137,25 @@ def beside_whole(report, eng, whole, reads, jobs, dev) -> None:
         row["unsharded_device_ms"] = queued_us(fn, 100) / 1e3
 
 
+def batch_cut(eng, reads, devices):
+    """The engine's SMEMs of one batch cut over ``devices`` (None: its own
+    cards) as tuples, checking that each slice launched each round once."""
+    from bwameme_tpu_torch.ops.launch import stats
+
+    names = [variant_of(eng.di, f"seed_round{k}") for k in (1, 2, 3)]
+    before = [stats.launches[n] for n in names]
+    tok = eng.submit_batch(reads, devices)
+    flat = eng.finish_batch_flat(tok)
+    check(flat is not None, "the packed SMEM buffer overflowed")
+    n = len(tok) if isinstance(tok, list) else 1
+    want = len(devices or eng.cards)
+    check(n == want and all(stats.launches[m] - b == n
+                            for m, b in zip(names, before)),
+          f"the batch cut launched {n} slices, {want} devices")
+    return [[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
+            for lst in flat.to_lists()]
+
+
 def phase_scaleout(dev, chain_us: float, main_fq: str, main_sam: str):
     """The index sharded by rank blocks (SCALE_SHARDS blocks, separate
     allocations on ``dev``: one card holds them all, and the blocks' table
@@ -3138,7 +3166,9 @@ def phase_scaleout(dev, chain_us: float, main_fq: str, main_sam: str):
     engine's; each sharded kernel against its plain version (the owned
     gather) on one batch of them, BATCH reads as the main path launches
     them, timed alone and on the card beside the unsharded variant on the
-    same batch. On the bench genome cut to
+    same batch. The engine's batch cut: two slices on ``dev``, and with two
+    cards or more a slice a card, each against one launch's SMEMs. On the
+    bench genome cut to
     SIDE_MBP: wide mode 1 and the k-mer root sharded, the same. Then a 2 x 2
     data-parallel mesh (SE and PE), two gloo processes of 2 blocks each on
     the card (parallel/multihost.py), with four cards or more two nccl
@@ -3207,6 +3237,29 @@ def phase_scaleout(dev, chain_us: float, main_fq: str, main_sam: str):
         f"built and uploaded in {up:.1f} s; the Aligner over it == the "
         f"default mem's SAM on {len(reads)} reads ({wall:.2f} s), SMEMs == "
         f"the unsharded engine's; launches {by_path['sharded']}")
+
+    # the batch cut: two slices on dev, each launched on its own, then one
+    # slice a card where two cards or more are visible, against one launch
+    n_cards = torch.cuda.device_count()
+    one = flat_smems(whole, codes[:BATCH], BATCH)
+    cut = batch_cut(eng, codes[:BATCH], [dev, dev])
+    check(cut == one, f"the batch cut on [{dev}, {dev}] gives other SMEMs "
+          "than one launch")
+    msg = (f"the batch cut on [{dev}, {dev}]: 2 slices of {BATCH // 2} reads"
+           ", 2 launches a round, SMEMs == one launch's")
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        across = DeviceSeedingEngine(idx, opt, lanes=BATCH, device=dev,
+                                     shards=cards, mode=4)
+        check(batch_cut(across, codes[:BATCH], None) == one,
+              f"the batch cut over {n_cards} cards gives other SMEMs than "
+              "one launch")
+        msg += (f"; over {n_cards} cards: {n_cards} launches a round, "
+                "SMEMs == one launch's")
+        del across
+    else:
+        msg += f"; over cards: {n_cards} card visible, not run"
+    log(msg)
 
     # each sharded kernel against its plain version on a sample, timed
     # beside the unsharded variant on the same batch and jobs
@@ -3313,7 +3366,6 @@ def phase_scaleout(dev, chain_us: float, main_fq: str, main_sam: str):
     # two processes over torch.distributed (gloo) sharing the card, each
     # its index in 2 rank blocks on it (multihost.process_cards); with four
     # cards or more also 2 nccl processes of 2 cards each, one block a card
-    n_cards = torch.cuda.device_count()
     t0 = time.perf_counter()
     mh = multihost.run_multihost(2, "gloo", str(dev), shards=2, timeout=300)
     single = multihost.single_process(str(dev))

@@ -106,6 +106,13 @@ static inline int __viaddmax_s32_relu(int a, int b, int c) {
     return max(max(a + b, c), 0);
 }
 static inline int __vimax3_s32(int a, int b, int c) { return max(max(a, b), c); }
+static inline unsigned __umulhi(unsigned a, unsigned b) {
+    return (unsigned)(((unsigned long long)a * b) >> 32);
+}
+static inline unsigned long long __umul64hi(unsigned long long a,
+                                            unsigned long long b) {
+    return (unsigned long long)(((unsigned __int128)a * b) >> 64);
+}
 static inline int cudaGetLastError() { return 0; }
 // one device here: peer access is never needed
 enum { cudaErrorPeerAccessAlreadyEnabled = 704 };
@@ -853,6 +860,65 @@ def test_sharded_variants_at_the_block_edges(world, on_emulation, monkeypatch,
             launch.variant(name, mode, wide, root, sharded=True)] >= 1
         assert launch.stats.launches[
             launch.variant(name, mode, wide, root)] == 0
+
+
+@pytest.mark.parametrize("mode,wide", [(4, False), (3, True), (1, True)],
+                         ids=["mode4", "mode3_wide", "mode1_wide"])
+def test_sharded_counts_remote_steps(world, on_emulation, monkeypatch, mode,
+                                     wide):
+    """The sharded variants' counts have a third row, the dependent steps
+    that waited on a block on another card than the launch's: none when
+    every block is local, some when blocks are remote (here marked so:
+    the CPU has one device), never more than the steps, more the more
+    blocks are remote, and mode 3's key by position a step of its own;
+    the answers do not change."""
+    eng = DeviceSeedingEngine(world["idx"], world["opt"], device="cpu",
+                              mode=mode, wide=wide, shards=["cpu"] * 4)
+    w = dict(world, eng=eng)
+    R = w["lens"].shape[0]
+    with pytest.raises(ValueError, match=r"shape \(2, %d\)" % R):
+        seed_smem_cuda.seed_round3(eng.di, w["prep"][0], w["prep"][1],
+                                   w["lens"], 500, 20, 96,
+                                   counts=torch.zeros((2, R),
+                                                      dtype=torch.int32))
+    plain = _three_rounds(w, PLAIN_ROUNDS)
+    remote = {}
+    for mask in (0, 0b0101, 0b1111):
+        monkeypatch.setattr(seed_smem_cuda, "remote_blocks",
+                            lambda plane, dev, m=mask: m)
+        counts = [torch.zeros((3, R), dtype=torch.int32) for _ in range(3)]
+        got = _three_rounds(w, KERNEL_ROUNDS,
+                            extra=[{"counts": c} for c in counts])
+        for g, p in zip(got, plain):
+            _same_round(g, p)
+        for c in counts:
+            assert bool((c[2] <= c[1]).all())
+        remote[mask] = torch.stack([c[2] for c in counts])
+    assert int(remote[0].sum()) == 0
+    assert bool((remote[0b0101] <= remote[0b1111]).all())
+    assert 0 < int(remote[0b0101].sum()) < int(remote[0b1111].sum())
+
+
+def test_batch_cut_over_the_sharded_kernels(world, on_emulation,
+                                            monkeypatch):
+    """The engine over the sharded kernels with its batch cut in three
+    slices, each launched on its own: the one-launch batch's SMEMs, three
+    launches a round."""
+    monkeypatch.setattr(seed_smem, "_on_cuda", lambda x: True)
+    eng = DeviceSeedingEngine(world["idx"], world["opt"], device="cpu",
+                              shards=["cpu"] * 3)
+    reads = world["reads"]
+    want = eng.finish_batch_flat(eng.submit_batch(reads))
+    name = launch.variant("seed_round1", eng.di.mode, eng.di.wide,
+                          sharded=True)
+    before = launch.stats.launches[name]
+    got = eng.finish_batch_flat(eng.submit_batch(reads,
+                                                 devices=["cpu"] * 3))
+    assert launch.stats.launches[name] - before == 3
+    assert [[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
+            for lst in got.to_lists()] == [
+        [(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
+        for lst in want.to_lists()]
 
 
 @pytest.fixture(scope="module")

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from bwameme_tpu_torch import cli
-from bwameme_tpu_torch.index.device import (DeviceIndex, ShardedPlane,
+from bwameme_tpu_torch.index.device import (MAX_BLOCKS, DeviceIndex,
+                                            ShardedPlane, block_of,
                                             choose_mode)
 from bwameme_tpu_torch.ops import sa_search as ss
 from bwameme_tpu_torch.ops import seed_smem
@@ -27,7 +28,8 @@ from bwameme_tpu_torch.parallel.dp import DataParallelAligner, make_dp_mesh
 from bwameme_tpu_torch.parallel.sharded_index import (ShardedIndex,
                                                       make_sharded_search)
 from bwameme_tpu_torch.pipeline import Aligner
-from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+from bwameme_tpu_torch.seeding.engine import (DeviceSeedingEngine,
+                                              cut_batch)
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -240,6 +242,161 @@ def test_smems_of_every_layout_sharded(par_workload, par_oracle, codes, mode,
     eng = DeviceSeedingEngine(idx, opt, shards=_cpus(3), **kw)
     assert (eng.di.mode, eng.di.wide, eng.di.root) == (mode, wide, root)
     assert eng.collect_smems_batch(codes) == want
+
+
+# ---------------------------------------------------- the batch cut
+
+
+def test_cut_batch_slices():
+    """One contiguous slice a device of the list, in order, the empty ones
+    left out; no read is one empty slice on the first device."""
+    cpu = torch.device("cpu")
+    assert cut_batch(10, _cpus(3)) == [(cpu, 0, 4), (cpu, 4, 8),
+                                      (cpu, 8, 10)]
+    assert cut_batch(2, _cpus(4)) == [(cpu, 0, 1), (cpu, 1, 2)]
+    assert cut_batch(5, _cpus(1)) == [(cpu, 0, 5)]
+    assert cut_batch(0, _cpus(2)) == [(cpu, 0, 0)]
+
+
+def _flat_tuples(flat):
+    return [[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
+            for lst in flat.to_lists()]
+
+
+def _list_tuples(lists):
+    return [[(s.start, s.end, s.sa_lo, s.hitcount) for s in lst]
+            for lst in lists]
+
+
+@pytest.mark.parametrize("n_slices", [2, 3])
+def test_batch_cut_equals_one_launch(par_workload, par_oracle, codes,
+                                     n_slices):
+    """The batch cut over n_slices devices (CPU ones here) gives the
+    one-launch batch's flat SMEMs and per-read lists, entry for entry, and
+    drops as many SMEMs (one emission slot a read in rounds 1 and 3)."""
+    import copy
+
+    idx, opt = par_workload[0], par_oracle[2]
+    eng = DeviceSeedingEngine(idx, opt, device="cpu", shards=_cpus(3))
+    assert eng.cards == _cpus(1)
+    tight = copy.copy(eng)
+    tight.max_smems = 1
+    for e in (eng, tight):
+        e.dropped_smems = 0
+        one = e.submit_batch(codes)
+        assert not isinstance(one, list)
+        want_flat = _flat_tuples(e.finish_batch_flat(one))
+        want_lists = _list_tuples(e.finish_batch(one))
+        dropped = e.dropped_smems
+        assert dropped > 0 if e is tight else dropped == 0
+        e.dropped_smems = 0
+        tok = e.submit_batch(codes, devices=_cpus(n_slices))
+        assert [b for b, _ in tok] == [b for _, b, _ in
+                                       cut_batch(len(codes),
+                                                 _cpus(n_slices))]
+        assert _flat_tuples(e.finish_batch_flat(tok)) == want_flat
+        assert _list_tuples(e.finish_batch(tok)) == want_lists
+        assert e.dropped_smems == dropped
+
+
+def test_batch_cut_with_an_overflowing_slice(par_workload, par_oracle,
+                                             codes):
+    """A slice whose packed entries outgrow its buffer is fetched as its
+    slot planes; the merged result is still the one-launch batch's, whose
+    own buffer (twice the slice's) holds them."""
+    idx, opt = par_workload[0], par_oracle[2]
+    eng = DeviceSeedingEngine(idx, opt, device="cpu")
+    # reads with SMEMs, then as many shorter than a seed, which have none
+    batch = codes[:32] + [np.zeros(10, np.uint8)] * 32
+    want = _list_tuples(eng.finish_batch(eng.submit_batch(batch)))
+    total = sum(map(len, want))
+    eng.pack_cap_per_read = total // 32 - 1
+    assert total > 32 * eng.pack_cap_per_read and total <= len(batch) * (
+        eng.pack_cap_per_read)
+    one = eng.finish_batch_flat(eng.submit_batch(batch))
+    assert _flat_tuples(one) == [sorted(w, key=lambda s: (s[0], s[1]))
+                                 for w in want]
+    tok = eng.submit_batch(batch, devices=_cpus(2))
+    assert [t[0] for _, t in tok] == [32, 32]
+    assert eng._flat(tok[0][1])[0] is None
+    assert _flat_tuples(eng.finish_batch_flat(tok)) == _flat_tuples(one)
+    assert _list_tuples(eng.finish_batch(tok)) == want
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["se", "pe"])
+def test_aligner_over_the_batch_cut(par_workload, par_oracle, paired):
+    """The Aligner over a sharded engine whose batches are cut in three
+    slices: the JAX package's host-engine SAM, and the unsharded port's."""
+    import functools
+
+    idx, se_reads, pe_reads = par_workload
+    sam_se, sam_pe, opt, opt_pe = par_oracle
+    o = opt_pe if paired else opt
+    eng = DeviceSeedingEngine(idx, o, lanes=256, device="cpu",
+                              shards=_cpus(2))
+    eng.submit_batch = functools.partial(eng.submit_batch,
+                                         devices=_cpus(3))
+    whole = Aligner(idx, o, seeding_engine=DeviceSeedingEngine(
+        idx, o, lanes=256, device="cpu"), device="cpu")
+    al = Aligner(idx, o, seeding_engine=eng, device="cpu")
+    if paired:
+        assert al.align_pairs(pe_reads) == sam_pe == whole.align_pairs(
+            pe_reads)
+    else:
+        assert al.align_batch(se_reads) == sam_se == whole.align_batch(
+            se_reads)
+
+
+def test_shard_views_and_bytes_a_card(par_workload):
+    """shard() returns the view from the first device; every distinct
+    device of the list has a view whose text, leaves, root and block tables
+    lie on it, over the same blocks. Each card is budgeted its blocks and a
+    copy of the replicated planes and tables; more than MAX_BLOCKS blocks
+    raise, naming both counts."""
+    idx = par_workload[0]
+    whole = DeviceIndex.from_host(idx, "cpu", mode=2, wide=True, ert_bits=0)
+    di = whole.shard(_cpus(3))
+    cpu = torch.device("cpu")
+    assert di.on("cpu") is di and di.views == {cpu: di}
+    assert whole.on("cpu") is whole
+    with pytest.raises(ValueError, match="no block on cuda:1"):
+        di.on(torch.device("cuda", 1))
+    blocks = {k: di.planes[k].blocks for k in ("sa", "key2")}
+    rep = {k: t.numel() * t.element_size() for k, t in whole.planes.items()
+           if k not in ("sa", "key2")}
+    assert set(rep) == {"text32", "params", "params64", "kmer_table"}
+    cards = [torch.device("cuda", i) for i in (0, 1, 0, 2)]
+    need = whole.shard_bytes(cards)
+    blk = {k: b[0].numel() * b[0].element_size() for k, b in blocks.items()}
+    assert list(need) == [cards[0], cards[1], cards[3]]
+    for d, n in need.items():
+        per = sum(whole.planes[k].numel() * whole.planes[k].element_size()
+                  // 4 for k in ("sa", "key2"))
+        assert n == cards.count(d) * per + sum(rep.values()) + 2 * 8 * 4
+    assert sum(blk.values()) * 3 >= sum(
+        whole.planes[k].numel() * whole.planes[k].element_size()
+        for k in ("sa", "key2"))
+    with pytest.raises(ValueError, match="33 blocks: .* at most 32"):
+        whole.shard(_cpus(MAX_BLOCKS + 1))
+
+
+@pytest.mark.parametrize("n_blocks", [2, 3, 4])
+@pytest.mark.parametrize("n", [2281701376, 2**31 - 1, 60000],
+                         ids=["jumbo", "narrow_max", "small"])
+def test_block_of_without_a_division(n, n_blocks):
+    """The kernels' owner lookup (a multiply-high by the host's reciprocal
+    and one compare) is r // block_rows at every block's first and last
+    row, at n_sa - 1 and at random ranks: wide over the jumbo index's
+    2281701376 suffixes, narrow and wide below 2^31, without the planes."""
+    B = -(-n // n_blocks)
+    rng = np.random.default_rng(n_blocks)
+    ranks = {0, n - 1, *rng.integers(0, n, 2000).tolist()}
+    for b in range(n_blocks):
+        ranks |= {r for r in (b * B - 1, b * B, b * B + 1, (b + 1) * B - 1)
+                  if 0 <= r < n}
+    for wide in ([True] if n >= 2**31 else [False, True]):
+        for r in sorted(ranks):
+            assert block_of(r, B, wide) == r // B, (r, B, wide)
 
 
 # ---------------------------------------------- data parallel, processes
