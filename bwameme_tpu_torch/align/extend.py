@@ -31,6 +31,7 @@ import torch
 from bwameme_tpu_torch.align import native
 from bwameme_tpu_torch.align.chain import Chain, cal_max_gap, clamp_to_contig
 from bwameme_tpu_torch.ops import banded_sw as bsw
+from bwameme_tpu_torch.utils.timer import tstage
 
 MAX_BAND_TRY = 2
 H0_SENTINEL = -99  # reference: src/macro.h:44 H0_
@@ -99,7 +100,9 @@ def _run_round(pairs: list[_Pair], opt, w: int, end_bonus: int, device):
         qlen, tlen, h0, ws,
         torch.from_numpy(opt.mat.astype(np.int32)).to(device),
         opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, end_bonus, opt.zdrop)
-    res = torch.stack([out[k] for k in bsw.SW_RESULT_ORDER]).cpu().numpy()
+    res = torch.stack([out[k] for k in bsw.SW_RESULT_ORDER])
+    with tstage("extend.fetch"):
+        res = res.cpu().numpy()
     return [dict(zip(bsw.SW_RESULT_ORDER, map(int, res[:, b])))
             for b in range(B)]
 
@@ -341,7 +344,8 @@ def extend_flat_submit(opt, bns, queries, chain_raw, text):
 
 def _fetch(left, right, nl: int, nr: int):
     """One device->host copy of both sides' results, as dicts of rows."""
-    cat = torch.cat([left, right], 1).cpu().numpy()
+    with tstage("extend.fetch"):
+        cat = torch.cat([left, right], 1).cpu().numpy()
     return ({k: cat[i, :nl].copy() for i, k in enumerate(bsw.EXT_ROUND_ORDER)},
             {k: cat[i, nl:].copy() for i, k in enumerate(bsw.EXT_ROUND_ORDER)})
 

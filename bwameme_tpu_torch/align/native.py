@@ -6,10 +6,12 @@ align/sw_scalar.py when no C++ toolchain is available."""
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import numpy as np
 
 from bwameme_tpu_torch.ops import build
+from bwameme_tpu_torch.utils.timer import tstage
 
 # -ffp-contract=off: the P-RMI trainer's f32 residual pass must round
 # multiply and add separately, exactly like the numpy reference (fma
@@ -17,12 +19,12 @@ from bwameme_tpu_torch.ops import build
 GXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-pthread")
 
 _lib = None
-_failed = False
+_error = None   # why the library did not load, once it did not
 
 
 def _load():
-    global _lib, _failed
-    if _lib is not None or _failed:
+    global _lib, _error
+    if _lib is not None or _error is not None:
         return _lib
     try:
         lib = ctypes.CDLL(build.host_library("hostkernels", GXX_FLAGS))
@@ -105,16 +107,21 @@ def _load():
         lib.train_prmi_c.restype = None
         _lib = lib
     except (OSError, RuntimeError, AttributeError) as e:
-        from bwameme_tpu_torch.utils import fallbacks
-
-        fallbacks.note("native.hostkernels_load", e)
-        _failed = True
+        print(f"[native] the host library did not load: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+        _error = e
         _lib = None
     return _lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def load_error() -> BaseException | None:
+    """The exception that kept the host library from loading, or None."""
+    _load()
+    return _error
 
 
 def sw_global_native(query, target, mat, o_del, e_del, o_ins, e_ins, w):
@@ -249,24 +256,25 @@ def extend_prepare_native(opt, bns, lq, chain_off, chain_rid,
     }
     nl = ctypes.c_int64(0)
     nr = ctypes.c_int64(0)
-    n = lib.extend_prepare_c(
-        R, p32(lq),
-        p64(chain_off), p32(chain_rid),
-        chain_frac_rep.ctypes.data_as(f64p),
-        p64(seed_off), p64(seed_rbeg), p32(seed_qbeg), p32(seed_len),
-        bns.l_pac, len(bns.contigs), p64(ctg_off),
-        opt.a, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w,
-        p32(o["reg_read"]), p32(o["reg_qb"]), p64(o["reg_rb"]),
-        p32(o["reg_qe"]), p64(o["reg_re"]), p32(o["reg_score"]),
-        p32(o["reg_truesc"]), p32(o["reg_w"]), p32(o["reg_seedlen0"]),
-        p32(o["reg_rid"]), o["reg_frac_rep"].ctypes.data_as(f64p),
-        p32(o["reg_h0seed"]), p32(o["reg_seedcov"]), p32(o["reg_chain"]),
-        p32(o["l_reg"]), p32(o["l_row"]), p32(o["l_qlen"]),
-        p64(o["l_tstart"]), p32(o["l_tlen"]), ctypes.byref(nl),
-        p32(o["r_reg"]), p32(o["r_row"]), p32(o["r_qstart"]),
-        p32(o["r_qlen"]), p64(o["r_tstart"]), p32(o["r_tlen"]),
-        ctypes.byref(nr),
-    )
+    with tstage("extend.native"):
+        n = lib.extend_prepare_c(
+            R, p32(lq),
+            p64(chain_off), p32(chain_rid),
+            chain_frac_rep.ctypes.data_as(f64p),
+            p64(seed_off), p64(seed_rbeg), p32(seed_qbeg), p32(seed_len),
+            bns.l_pac, len(bns.contigs), p64(ctg_off),
+            opt.a, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w,
+            p32(o["reg_read"]), p32(o["reg_qb"]), p64(o["reg_rb"]),
+            p32(o["reg_qe"]), p64(o["reg_re"]), p32(o["reg_score"]),
+            p32(o["reg_truesc"]), p32(o["reg_w"]), p32(o["reg_seedlen0"]),
+            p32(o["reg_rid"]), o["reg_frac_rep"].ctypes.data_as(f64p),
+            p32(o["reg_h0seed"]), p32(o["reg_seedcov"]), p32(o["reg_chain"]),
+            p32(o["l_reg"]), p32(o["l_row"]), p32(o["l_qlen"]),
+            p64(o["l_tstart"]), p32(o["l_tlen"]), ctypes.byref(nl),
+            p32(o["r_reg"]), p32(o["r_row"]), p32(o["r_qstart"]),
+            p32(o["r_qlen"]), p64(o["r_tstart"]), p32(o["r_tlen"]),
+            ctypes.byref(nr),
+        )
     o["n_regs"] = int(n)
     o["n_left"] = int(nl.value)
     o["n_right"] = int(nr.value)
@@ -295,22 +303,23 @@ def extend_finalize_native(opt, lq, read_reg_off, prep, chain_off, seed_off,
               ("score", "qle", "tle", "gtle", "gscore", "w_used")]
     r_arrs = [c32(right[k][:nr]) for k in
               ("score", "qle", "tle", "gtle", "gscore", "w_used")]
-    lib.extend_finalize_c(
-        len(lq), p32(lq), p32(read_reg_off), p32(prep["reg_read"]),
-        p64(chain_off), p64(seed_off), p64(seed_rbeg), p32(seed_qbeg),
-        p32(seed_len),
-        opt.a, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w,
-        opt.pen_clip5, opt.pen_clip3,
-        prep["n_regs"], p32(prep["reg_qb"]), p64(prep["reg_rb"]),
-        p32(prep["reg_qe"]), p64(prep["reg_re"]), p32(prep["reg_score"]),
-        p32(prep["reg_truesc"]), p32(prep["reg_w"]),
-        p32(prep["reg_seedlen0"]), p32(prep["reg_seedcov"]),
-        p32(prep["reg_chain"]), p32(prep["reg_h0seed"]),
-        nl, p32(prep["l_reg"]), p32(l_arrs[0]), p32(l_arrs[1]),
-        p32(l_arrs[2]), p32(l_arrs[3]), p32(l_arrs[4]), p32(l_arrs[5]),
-        nr, p32(prep["r_reg"]), p32(r_arrs[0]), p32(r_arrs[1]),
-        p32(r_arrs[2]), p32(r_arrs[3]), p32(r_arrs[4]), p32(r_arrs[5]),
-    )
+    with tstage("extend.native"):
+        lib.extend_finalize_c(
+            len(lq), p32(lq), p32(read_reg_off), p32(prep["reg_read"]),
+            p64(chain_off), p64(seed_off), p64(seed_rbeg), p32(seed_qbeg),
+            p32(seed_len),
+            opt.a, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w,
+            opt.pen_clip5, opt.pen_clip3,
+            prep["n_regs"], p32(prep["reg_qb"]), p64(prep["reg_rb"]),
+            p32(prep["reg_qe"]), p64(prep["reg_re"]), p32(prep["reg_score"]),
+            p32(prep["reg_truesc"]), p32(prep["reg_w"]),
+            p32(prep["reg_seedlen0"]), p32(prep["reg_seedcov"]),
+            p32(prep["reg_chain"]), p32(prep["reg_h0seed"]),
+            nl, p32(prep["l_reg"]), p32(l_arrs[0]), p32(l_arrs[1]),
+            p32(l_arrs[2]), p32(l_arrs[3]), p32(l_arrs[4]), p32(l_arrs[5]),
+            nr, p32(prep["r_reg"]), p32(r_arrs[0]), p32(r_arrs[1]),
+            p32(r_arrs[2]), p32(r_arrs[3]), p32(r_arrs[4]), p32(r_arrs[5]),
+        )
 
 
 def sw_extend_native(query, target, mat, o_del, e_del, o_ins, e_ins, w,
@@ -463,36 +472,38 @@ def finalize_se_native(opt, bns, text, recs, regs_per_read, rg_id,
     cap = int(sum((len(rec.codes) * 2 + 300) * (len(regs) + 1)
                   for rec, regs in zip(recs, regs_per_read)) + 4096)
     out_off = np.zeros(R + 1, np.int64)
-    for _ in range(2):
-        buf = ctypes.create_string_buffer(cap)
-        total = lib.finalize_se_c(
-            R, _p(f["reg_off"], ctypes.c_int32),
-            _p(f["rb"], ctypes.c_int64), _p(f["re"], ctypes.c_int64),
-            _p(f["qb"], ctypes.c_int32), _p(f["qe"], ctypes.c_int32),
-            _p(f["rid"], ctypes.c_int32), _p(f["score"], ctypes.c_int32),
-            _p(f["truesc"], ctypes.c_int32), _p(f["sub"], ctypes.c_int32),
-            _p(f["csub"], ctypes.c_int32), _p(f["w"], ctypes.c_int32),
-            _p(f["seedcov"], ctypes.c_int32),
-            _p(f["frac_rep"], ctypes.c_double),
-            _p(f["is_alt"], ctypes.c_uint8),
-            _p(f["qcodes"], ctypes.c_uint8), _p(f["qoff"], ctypes.c_int64),
-            f["names"], _p(f["name_off"], ctypes.c_int64),
-            f["quals"], _p(f["qual_off"], ctypes.c_int64),
-            f["comms"], _p(f["comm_off"], ctypes.c_int64),
-            _p(text, ctypes.c_uint8), int(bns.l_pac),
-            len(bns.contigs), _p(ctg_off, ctypes.c_int64),
-            ctg_names, _p(ctg_name_off, ctypes.c_int64),
-            _p(ctg_is_alt, ctypes.c_uint8),
-            _p(mat, ctypes.c_int8), _p(iopt, ctypes.c_int64),
-            _p(dopt, ctypes.c_double),
-            rg, len(rg), buf, cap, _p(out_off, ctypes.c_int64),
-        )
-        if total >= 0:
-            raw = buf.raw[:total]
-            return [raw[out_off[i]: out_off[i + 1]].decode()
-                    for i in range(R)]
-        cap = int(-total) + 1
-    return None
+    with tstage("finalize.native"):
+        for _ in range(2):
+            buf = ctypes.create_string_buffer(cap)
+            total = lib.finalize_se_c(
+                R, _p(f["reg_off"], ctypes.c_int32),
+                _p(f["rb"], ctypes.c_int64), _p(f["re"], ctypes.c_int64),
+                _p(f["qb"], ctypes.c_int32), _p(f["qe"], ctypes.c_int32),
+                _p(f["rid"], ctypes.c_int32), _p(f["score"], ctypes.c_int32),
+                _p(f["truesc"], ctypes.c_int32), _p(f["sub"], ctypes.c_int32),
+                _p(f["csub"], ctypes.c_int32), _p(f["w"], ctypes.c_int32),
+                _p(f["seedcov"], ctypes.c_int32),
+                _p(f["frac_rep"], ctypes.c_double),
+                _p(f["is_alt"], ctypes.c_uint8),
+                _p(f["qcodes"], ctypes.c_uint8), _p(f["qoff"], ctypes.c_int64),
+                f["names"], _p(f["name_off"], ctypes.c_int64),
+                f["quals"], _p(f["qual_off"], ctypes.c_int64),
+                f["comms"], _p(f["comm_off"], ctypes.c_int64),
+                _p(text, ctypes.c_uint8), int(bns.l_pac),
+                len(bns.contigs), _p(ctg_off, ctypes.c_int64),
+                ctg_names, _p(ctg_name_off, ctypes.c_int64),
+                _p(ctg_is_alt, ctypes.c_uint8),
+                _p(mat, ctypes.c_int8), _p(iopt, ctypes.c_int64),
+                _p(dopt, ctypes.c_double),
+                rg, len(rg), buf, cap, _p(out_off, ctypes.c_int64),
+            )
+            if total >= 0:
+                break
+            cap = int(-total) + 1
+    if total < 0:
+        return None
+    raw = buf.raw[:total]
+    return [raw[out_off[i]: out_off[i + 1]].decode() for i in range(R)]
 
 def _flatten_finalize_inputs(recs, regs_per_read):
     """Shared flat-array construction for finalize_{se,pe}_c."""
@@ -601,37 +612,39 @@ def finalize_pe_native(opt, bns, text, pes, pair_id0, recs, regs_per_read,
     cap = int(sum((len(rec.codes) * 2 + 300) * (len(regs) + 1)
                   for rec, regs in zip(recs, regs_per_read)) + 4096)
     out_off = np.zeros(R + 1, np.int64)
-    for _ in range(2):
-        buf = ctypes.create_string_buffer(cap)
-        total = lib.finalize_pe_c(
-            R // 2, _p(f["reg_off"], ctypes.c_int32),
-            _p(f["rb"], ctypes.c_int64), _p(f["re"], ctypes.c_int64),
-            _p(f["qb"], ctypes.c_int32), _p(f["qe"], ctypes.c_int32),
-            _p(f["rid"], ctypes.c_int32), _p(f["score"], ctypes.c_int32),
-            _p(f["truesc"], ctypes.c_int32), _p(f["sub"], ctypes.c_int32),
-            _p(f["csub"], ctypes.c_int32), _p(f["w"], ctypes.c_int32),
-            _p(f["seedcov"], ctypes.c_int32),
-            _p(f["frac_rep"], ctypes.c_double),
-            _p(f["is_alt"], ctypes.c_uint8),
-            _p(f["qcodes"], ctypes.c_uint8), _p(f["qoff"], ctypes.c_int64),
-            f["names"], _p(f["name_off"], ctypes.c_int64),
-            f["quals"], _p(f["qual_off"], ctypes.c_int64),
-            f["comms"], _p(f["comm_off"], ctypes.c_int64),
-            _p(text, ctypes.c_uint8), int(bns.l_pac),
-            len(bns.contigs), _p(ctg_off, ctypes.c_int64),
-            ctg_names, _p(ctg_name_off, ctypes.c_int64),
-            _p(ctg_is_alt, ctypes.c_uint8),
-            _p(mat, ctypes.c_int8), _p(iopt, ctypes.c_int64),
-            _p(dopt, ctypes.c_double),
-            _p(pe_stats, ctypes.c_double),
-            rg, len(rg), buf, cap, _p(out_off, ctypes.c_int64),
-        )
-        if total >= 0:
-            raw = buf.raw[:total]
-            return [raw[out_off[i]: out_off[i + 1]].decode()
-                    for i in range(R)]
-        cap = int(-total) + 1
-    return None
+    with tstage("finalize.native"):
+        for _ in range(2):
+            buf = ctypes.create_string_buffer(cap)
+            total = lib.finalize_pe_c(
+                R // 2, _p(f["reg_off"], ctypes.c_int32),
+                _p(f["rb"], ctypes.c_int64), _p(f["re"], ctypes.c_int64),
+                _p(f["qb"], ctypes.c_int32), _p(f["qe"], ctypes.c_int32),
+                _p(f["rid"], ctypes.c_int32), _p(f["score"], ctypes.c_int32),
+                _p(f["truesc"], ctypes.c_int32), _p(f["sub"], ctypes.c_int32),
+                _p(f["csub"], ctypes.c_int32), _p(f["w"], ctypes.c_int32),
+                _p(f["seedcov"], ctypes.c_int32),
+                _p(f["frac_rep"], ctypes.c_double),
+                _p(f["is_alt"], ctypes.c_uint8),
+                _p(f["qcodes"], ctypes.c_uint8), _p(f["qoff"], ctypes.c_int64),
+                f["names"], _p(f["name_off"], ctypes.c_int64),
+                f["quals"], _p(f["qual_off"], ctypes.c_int64),
+                f["comms"], _p(f["comm_off"], ctypes.c_int64),
+                _p(text, ctypes.c_uint8), int(bns.l_pac),
+                len(bns.contigs), _p(ctg_off, ctypes.c_int64),
+                ctg_names, _p(ctg_name_off, ctypes.c_int64),
+                _p(ctg_is_alt, ctypes.c_uint8),
+                _p(mat, ctypes.c_int8), _p(iopt, ctypes.c_int64),
+                _p(dopt, ctypes.c_double),
+                _p(pe_stats, ctypes.c_double),
+                rg, len(rg), buf, cap, _p(out_off, ctypes.c_int64),
+            )
+            if total >= 0:
+                break
+            cap = int(-total) + 1
+    if total < 0:
+        return None
+    raw = buf.raw[:total]
+    return [raw[out_off[i]: out_off[i + 1]].decode() for i in range(R)]
 
 
 def dedup_batch_native(opt, bns, text, recs, regs_per_read):
@@ -699,21 +712,24 @@ def dedup_batch_native(opt, bns, text, recs, regs_per_read):
 
     out_idx = np.empty(max(G, 1), np.int32)
     out_off = np.zeros(R + 1, np.int32)
-    lib.dedup_patch_batch_c(
-        R, _p(reg_off, ctypes.c_int32),
-        _p(fields["rb"], ctypes.c_int64), _p(fields["re"], ctypes.c_int64),
-        _p(fields["qb"], ctypes.c_int32), _p(fields["qe"], ctypes.c_int32),
-        _p(fields["rid"], ctypes.c_int32),
-        _p(fields["score"], ctypes.c_int32),
-        _p(fields["truesc"], ctypes.c_int32),
-        _p(fields["sub"], ctypes.c_int32), _p(fields["csub"], ctypes.c_int32),
-        _p(fields["w"], ctypes.c_int32), _p(fields["seedcov"], ctypes.c_int32),
-        _p(n_comp, ctypes.c_int32),
-        _p(qcodes, ctypes.c_uint8), _p(qoff, ctypes.c_int64),
-        _p(text, ctypes.c_uint8), int(bns.l_pac),
-        _p(mat, ctypes.c_int8), _p(iopt, ctypes.c_int64),
-        _p(dopt, ctypes.c_double),
-        _p(out_idx, ctypes.c_int32), _p(out_off, ctypes.c_int32))
+    with tstage("pair.native"):
+        lib.dedup_patch_batch_c(
+            R, _p(reg_off, ctypes.c_int32),
+            _p(fields["rb"], ctypes.c_int64), _p(fields["re"], ctypes.c_int64),
+            _p(fields["qb"], ctypes.c_int32), _p(fields["qe"], ctypes.c_int32),
+            _p(fields["rid"], ctypes.c_int32),
+            _p(fields["score"], ctypes.c_int32),
+            _p(fields["truesc"], ctypes.c_int32),
+            _p(fields["sub"], ctypes.c_int32),
+            _p(fields["csub"], ctypes.c_int32),
+            _p(fields["w"], ctypes.c_int32),
+            _p(fields["seedcov"], ctypes.c_int32),
+            _p(n_comp, ctypes.c_int32),
+            _p(qcodes, ctypes.c_uint8), _p(qoff, ctypes.c_int64),
+            _p(text, ctypes.c_uint8), int(bns.l_pac),
+            _p(mat, ctypes.c_int8), _p(iopt, ctypes.c_int64),
+            _p(dopt, ctypes.c_double),
+            _p(out_idx, ctypes.c_int32), _p(out_off, ctypes.c_int32))
 
     out = []
     for li in range(R):

@@ -12,6 +12,8 @@ import dataclasses
 import gzip
 from typing import Iterator
 
+from bwameme_tpu_torch.utils.timer import tstage
+
 
 @dataclasses.dataclass
 class Read:
@@ -86,7 +88,21 @@ def read_chunks(
     smaller). With a second file, records are interleaved 1:1 (paired-end),
     and the chunk boundary always falls on an even record count — matching the
     reference's deterministic chunking contract for ``-K``. keep_pairs keeps
-    chunk boundaries even for a single interleaved file (smart pairing -p)."""
+    chunk boundaries even for a single interleaved file (smart pairing -p).
+
+    Each chunk's parse is the stage ``io.parse``: from the generator's
+    resumption to its yield, so the consumer's time between chunks is not
+    in it."""
+    chunks = _chunks(path1, path2, chunk_bp, keep_pairs)
+    while True:
+        with tstage("io.parse"):
+            batch = next(chunks, None)
+        if batch is None:
+            return
+        yield batch
+
+
+def _chunks(path1, path2, chunk_bp, keep_pairs) -> Iterator[list[Read]]:
     it1 = _iter_records(path1)
     it2 = _iter_records(path2) if path2 else None
     batch: list[Read] = []

@@ -33,6 +33,7 @@ import torch
 from bwameme_tpu_torch.ops import sw_full_cuda
 from bwameme_tpu_torch.ops.banded_sw import decode_text
 from bwameme_tpu_torch.ops.sw_full_cuda import RESULT_ORDER
+from bwameme_tpu_torch.utils.timer import tstage
 
 NEG_BIG = -(1 << 28)
 
@@ -189,7 +190,8 @@ def sw_full_coord(text32, q_codes, jobs, mat, min_sc, o_del: int, e_del: int,
 
 
 def _as_dicts(out) -> list[dict]:
-    rows = out.cpu().numpy()
+    with tstage("pair.fetch"):
+        rows = out.cpu().numpy()
     return [dict(zip(RESULT_ORDER, map(int, col))) for col in rows.T]
 
 

@@ -59,7 +59,8 @@ class Aligner:
         if not native.available():
             raise RuntimeError(
                 "bwameme_tpu_torch needs the native host library "
-                "(native/hostkernels.cpp, built with g++ at first use)")
+                "(native/hostkernels.cpp, built with g++ at first use)"
+            ) from native.load_error()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not "
@@ -92,6 +93,10 @@ class Aligner:
         codes = NT4_TABLE[np.frombuffer(read.seq.encode(), dtype=np.uint8)]
         comment = read.comment if self.copy_comment else None
         return ReadRec(read.name, codes, read.qual, comment)
+
+    def _encode_batch(self, reads: list[Read]) -> list[ReadRec]:
+        with tstage("encode"):
+            return [self._encode(r) for r in reads]
 
     def collect_smems(self, recs: list[ReadRec]):
         """Kernel-1 seeding for a batch. A device engine returns the flat
@@ -164,7 +169,7 @@ class Aligner:
     def align_batch(self, reads: list[Read]) -> list[str]:
         """Align a batch of single-end reads; returns SAM line blocks (one
         string per read, possibly multi-line)."""
-        recs = [self._encode(r) for r in reads]
+        recs = self._encode_batch(reads)
         smems = self.collect_smems(recs)
         with tstage("extend.submit"):
             token = self._kernel2_submit(recs, smems)
@@ -187,7 +192,7 @@ class Aligner:
             return
         pending = None
         for reads in batches:
-            recs = [self._encode(r) for r in reads]
+            recs = self._encode_batch(reads)
             if pending is None:
                 pending = (recs, self._submit_seed(recs))
                 continue
@@ -211,7 +216,7 @@ class Aligner:
     def _align_stream_host_seeding(self, batches):
         pending = None
         for reads in batches:
-            recs = [self._encode(r) for r in reads]
+            recs = self._encode_batch(reads)
             smems = self.collect_smems(recs)
             if pending is not None:
                 yield self._finish(*pending)
@@ -226,7 +231,7 @@ class Aligner:
         if len(reads) % 2:
             raise ValueError(f"{len(reads)} reads: paired-end reads come "
                              "in pairs")
-        recs = [self._encode(r) for r in reads]
+        recs = self._encode_batch(reads)
         deduped = self._pe_kernels(recs)
         with tstage("pe.pestat"):
             pes = (self.pes0 if self.pes0 is not None
@@ -256,13 +261,13 @@ class Aligner:
             with tstage("pe.dedup"):
                 dd = native.dedup_batch_native(opt, idx.bns, idx.text, part,
                                                regs_per_read)
-            if dd is None:
-                raise RuntimeError("native finalization unavailable")
-            for regs in dd:
-                for r in regs:
-                    if r.rid >= 0 and idx.bns.contigs[r.rid].is_alt:
-                        r.is_alt = True
-                deduped.append(regs)
+                if dd is None:
+                    raise RuntimeError("native finalization unavailable")
+                for regs in dd:
+                    for r in regs:
+                        if r.rid >= 0 and idx.bns.contigs[r.rid].is_alt:
+                            r.is_alt = True
+                    deduped.append(regs)
         return deduped
 
     def _pe_finalize(self, recs: list[ReadRec], deduped, pes) -> list[str]:

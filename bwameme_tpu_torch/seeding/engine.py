@@ -235,7 +235,8 @@ class DeviceSeedingEngine:
         """A slice's packed result as FlatSmems, and the SMEMs it dropped;
         (None, 0) when it overflowed the packed buffer."""
         R, _rounds, packed, cap = token
-        flat = packed.cpu().numpy()
+        with tstage("seed.fetch"):
+            flat = packed.cpu().numpy()
         counts = flat[1: 1 + R]
         total = int(counts.sum())
         if total > cap:
@@ -274,8 +275,9 @@ class DeviceSeedingEngine:
         smems: list[list[Smem]] = [[] for _ in range(R)]
         n_dropped = 0
         for slots, nsm, dropped in rounds:
-            n_dropped += int(dropped.sum())
-            s, n = slots.cpu().numpy(), nsm.cpu().numpy()
+            with tstage("seed.fetch"):
+                n_dropped += int(dropped.sum())
+                s, n = slots.cpu().numpy(), nsm.cpu().numpy()
             for i in range(R):
                 smems[i].extend(
                     Smem(int(s[0, i, k]), int(s[1, i, k]), int(s[2, i, k]),

@@ -2163,6 +2163,8 @@ def check_trace(path: str, launches: dict, stage_counts: dict) -> dict:
               f"record_function ranges in the trace for {n} launches")
     check(n_ranges["align"] >= 1, "the trace has no align range")
     for name, n in stage_counts.items():
+        if name == "gc":    # collections are timed, not ranges
+            continue
         check(n_ranges.get(name, 0) == n, f"stage {name}: "
               f"{n_ranges.get(name, 0)} ranges in the trace, {n} in TPROF")
 
