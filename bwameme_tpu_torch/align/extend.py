@@ -8,10 +8,12 @@ src/bwamem.cpp:2573-3489) with two paths that run the same kernel:
   flat chain arrays; each round is one left and one right launch of
   ``banded_sw_coord`` against the packed text on the device, the right side
   reading its h0 from the scores the left launch wrote; band retries
-  (MAX_BAND_TRY=2) rerun only the jobs whose retry predicate fires;
+  (MAX_BAND_TRY=2) rerun only the jobs whose retry predicate fires; the
+  regions come back as a RegTable of arrays, which the single-end finalize
+  reads as it is;
 * the dataclass path (extend_chains_batch), for batches whose seeds need
   SW re-scoring (rescore_is_noop false): pairs of code arrays through
-  ``banded_sw_pairs``.
+  ``banded_sw_pairs``; the regions come back as AlnReg lists.
 
 The kernel takes its lengths at runtime, so none of the JAX package's
 recompile ladders (lane, Q and T buckets, tile classes) is carried over;
@@ -359,17 +361,60 @@ def _dispatch_retry_round(opt, prep, aux, h0_reg, l_idx, l_ws, r_idx, r_ws):
     return _fetch(la, ra, len(l_idx), len(r_idx))
 
 
-def extend_flat_finish(token) -> list[list[AlnReg]]:
+@dataclasses.dataclass
+class RegTable:
+    """A batch's regions as the flat path's C++ fold left them, one row a
+    region: read r's rows are ``off[r]:off[r+1]``, in the order extension
+    made them, purged regions (qb == qe == -1) included. The columns are
+    views of the extension's own arrays, in the dtypes finalize_se_c takes
+    (rb, re int64; frac_rep float64; is_alt uint8; the rest int32). It has
+    no sub or csub: both are 0 here, AlnReg's defaults."""
+
+    COLUMNS = ("rb", "re", "qb", "qe", "rid", "score", "truesc", "w",
+               "seedcov", "seedlen0", "frac_rep")
+
+    off: np.ndarray
+    rb: np.ndarray
+    re: np.ndarray
+    qb: np.ndarray
+    qe: np.ndarray
+    rid: np.ndarray
+    score: np.ndarray
+    truesc: np.ndarray
+    w: np.ndarray
+    seedcov: np.ndarray
+    seedlen0: np.ndarray
+    frac_rep: np.ndarray
+    is_alt: np.ndarray
+
+    def to_lists(self) -> list[list[AlnReg]]:
+        """One AlnReg a region, per read: what pairing and the paired-end
+        dedup read. Timed as ``extend.objects``."""
+        with tstage("extend.objects"):
+            cols = [getattr(self, k).tolist() for k in self.COLUMNS]
+            flat = [AlnReg(rb=rb, re=re, qb=qb, qe=qe, rid=rid, score=sc,
+                           truesc=tsc, w=w, seedcov=cov, seedlen0=sl0,
+                           frac_rep=frep, is_alt=ia, chain=None)
+                    for (rb, re, qb, qe, rid, sc, tsc, w, cov, sl0, frep), ia
+                    in zip(zip(*cols), (self.is_alt != 0).tolist())]
+            off = self.off.tolist()
+            return [flat[a:b] for a, b in zip(off, off[1:])]
+
+
+def extend_flat_finish(token) -> RegTable:
     """Wait for round 1, run the band-retry ladder (reference:
     src/bwamem.cpp:2968-3022, MAX_BAND_TRY=2: rerun a side at the doubled
     band iff the score changed and max_off crossed the band threshold; a
     rerun left also reruns its dependent right with the new h0), then the
-    native fold + seedcov + purge, and build the AlnRegs."""
+    native fold + seedcov + purge. Returns the regions as a RegTable: no
+    Python object a region (RegTable.to_lists builds the AlnRegs)."""
     (opt, queries, lq, chain_raw, prep, left, right, aux) = token
     (chain_off, _pos, _rid, chain_is_alt, _w, _kept, _frep,
      seed_off, seed_rbeg, seed_qbeg, seed_len, _n) = chain_raw
     R = len(queries)
     G = prep["n_regs"]
+    read_reg_off = np.searchsorted(
+        prep["reg_read"][:G], np.arange(R + 1)).astype(np.int32)
     if G:
         nl, nr = prep["n_left"], prep["n_right"]
         L, Rt = _fetch(left, right, nl, nr)
@@ -410,26 +455,14 @@ def extend_flat_finish(token) -> list[list[AlnReg]]:
                     np.full(len(a_idx), 2 * w0, np.int32))
                 for k in bsw.EXT_ROUND_ORDER:
                     Rt[k][a_idx] = R3[k]
-        read_reg_off = np.searchsorted(
-            prep["reg_read"][:G], np.arange(R + 1)).astype(np.int32)
         native.extend_finalize_native(
             opt, lq, read_reg_off, prep, chain_off, seed_off, seed_rbeg,
             seed_qbeg, seed_len, L, Rt)
-    regs_per_read: list[list[AlnReg]] = [[] for _ in queries]
-    alt_of_chain = np.asarray(chain_is_alt) != 0
-    cols = [prep[k][:G].tolist() for k in (
-        "reg_read", "reg_rb", "reg_re", "reg_qb", "reg_qe", "reg_rid",
-        "reg_score", "reg_truesc", "reg_w", "reg_seedcov", "reg_seedlen0",
-        "reg_frac_rep")]
-    alt = alt_of_chain[prep["reg_chain"][:G]].tolist()
-    for (r, rb, re, qb, qe, rid, sc, tsc, w, cov, sl0, frep), ia in zip(
-            zip(*cols), alt):
-        regs_per_read[r].append(AlnReg(
-            rb=rb, re=re, qb=qb, qe=qe, rid=rid, score=sc, truesc=tsc,
-            w=w, seedcov=cov, seedlen0=sl0, frac_rep=frep, is_alt=ia,
-            chain=None,
-        ))
-    return regs_per_read
+    is_alt = np.asarray(chain_is_alt)[prep["reg_chain"][:G]] != 0
+    return RegTable(
+        off=read_reg_off,
+        **{k: prep[f"reg_{k}"][:G] for k in RegTable.COLUMNS},
+        is_alt=is_alt.astype(np.uint8))
 
 
 def _purge_contained(opt, queries, chains_per_read, regs_per_read,

@@ -433,18 +433,19 @@ def _fin_blobs(bns):
     return b
 
 
-def finalize_se_native(opt, bns, text, recs, regs_per_read, rg_id,
-                       n_processed):
+def finalize_se_native(opt, bns, text, recs, regs, rg_id, n_processed):
     """Whole-batch single-end finalization in C++ (finalize_se_c):
     sort_dedup_patch + mark_primary + XA + reg2aln + aln2sam for every
     read, returning finished SAM blocks (byte-identical to the Python
-    contract in align/finalize.py — differentially tested). None when the
-    native library is unavailable."""
+    contract in align/finalize.py — differentially tested). ``regs`` is the
+    flat path's RegTable, whose arrays go to C++ as they are, or AlnReg
+    lists per read, flattened here. None when the native library is
+    unavailable."""
     lib = _load()
     if lib is None:
         return None
     R = len(recs)
-    f = _flatten_finalize_inputs(recs, regs_per_read)
+    f = _flatten_finalize_inputs(recs, regs)
     ctg_names, ctg_name_off, ctg_off, ctg_is_alt = _fin_blobs(bns)
     text = np.ascontiguousarray(text, dtype=np.uint8)
     mat = np.ascontiguousarray(opt.mat, dtype=np.int8)
@@ -469,8 +470,7 @@ def finalize_se_native(opt, bns, text, recs, regs_per_read, rg_id,
         lib.finalize_se_c.restype = ctypes.c_int64
         lib._fin_sig = True
 
-    cap = int(sum((len(rec.codes) * 2 + 300) * (len(regs) + 1)
-                  for rec, regs in zip(recs, regs_per_read)) + 4096)
+    cap = _sam_cap(f)
     out_off = np.zeros(R + 1, np.int64)
     with tstage("finalize.native"):
         for _ in range(2):
@@ -505,37 +505,13 @@ def finalize_se_native(opt, bns, text, recs, regs_per_read, rg_id,
     raw = buf.raw[:total]
     return [raw[out_off[i]: out_off[i + 1]].decode() for i in range(R)]
 
-def _flatten_finalize_inputs(recs, regs_per_read):
-    """Shared flat-array construction for finalize_{se,pe}_c."""
+
+def _flatten_finalize_inputs(recs, regs):
+    """Shared flat-array construction for finalize_{se,pe}_c: the region
+    columns (_reg_columns) and the reads' codes, names, qualities and
+    comments."""
     R = len(recs)
-    G = sum(len(r) for r in regs_per_read)
-    f = {}
-    f["reg_off"] = np.zeros(R + 1, np.int32)
-    np.cumsum([len(r) for r in regs_per_read], out=f["reg_off"][1:])
-    for k, dt in (("rb", np.int64), ("re", np.int64), ("qb", np.int32),
-                  ("qe", np.int32), ("rid", np.int32), ("score", np.int32),
-                  ("truesc", np.int32), ("sub", np.int32),
-                  ("csub", np.int32), ("w", np.int32),
-                  ("seedcov", np.int32), ("frac_rep", np.float64),
-                  ("is_alt", np.uint8)):
-        f[k] = np.empty(G, dt)
-    g = 0
-    for regs in regs_per_read:
-        for r in regs:
-            f["rb"][g] = r.rb
-            f["re"][g] = r.re
-            f["qb"][g] = r.qb
-            f["qe"][g] = r.qe
-            f["rid"][g] = r.rid
-            f["score"][g] = r.score
-            f["truesc"][g] = r.truesc
-            f["sub"][g] = r.sub
-            f["csub"][g] = r.csub
-            f["w"][g] = r.w
-            f["seedcov"][g] = r.seedcov
-            f["frac_rep"][g] = r.frac_rep
-            f["is_alt"][g] = 1 if r.is_alt else 0
-            g += 1
+    f = _reg_columns(regs)
     f["qoff"] = np.zeros(R + 1, np.int64)
     np.cumsum([len(rec.codes) for rec in recs], out=f["qoff"][1:])
     f["qcodes"] = (np.concatenate([rec.codes for rec in recs]).astype(
@@ -553,6 +529,60 @@ def _flatten_finalize_inputs(recs, regs_per_read):
     np.cumsum([len((rec.comment or "").encode()) for rec in recs],
               out=f["comm_off"][1:])
     return f
+
+
+# finalize_*_c's region columns, in the order and dtypes it takes them
+_REG_DTYPES = (("rb", np.int64), ("re", np.int64), ("qb", np.int32),
+               ("qe", np.int32), ("rid", np.int32), ("score", np.int32),
+               ("truesc", np.int32), ("sub", np.int32), ("csub", np.int32),
+               ("w", np.int32), ("seedcov", np.int32),
+               ("frac_rep", np.float64), ("is_alt", np.uint8))
+
+
+def _reg_columns(regs):
+    """finalize_*_c's region columns and per-read offsets. A RegTable
+    (align/extend.py) hands over its own arrays (copied only if one is not
+    contiguous in its dtype), with sub and csub 0; AlnReg lists per read are
+    written into new arrays, a region at a time."""
+    if not isinstance(regs, list):
+        f = {k: np.ascontiguousarray(getattr(regs, k), dt)
+             for k, dt in _REG_DTYPES if k not in ("sub", "csub")}
+        f["sub"] = f["csub"] = np.zeros(len(f["rb"]), np.int32)
+        f["reg_off"] = np.ascontiguousarray(regs.off, np.int32)
+        return f
+    R = len(regs)
+    G = sum(len(r) for r in regs)
+    f = {}
+    f["reg_off"] = np.zeros(R + 1, np.int32)
+    np.cumsum([len(r) for r in regs], out=f["reg_off"][1:])
+    for k, dt in _REG_DTYPES:
+        f[k] = np.empty(G, dt)
+    g = 0
+    for regs_i in regs:
+        for r in regs_i:
+            f["rb"][g] = r.rb
+            f["re"][g] = r.re
+            f["qb"][g] = r.qb
+            f["qe"][g] = r.qe
+            f["rid"][g] = r.rid
+            f["score"][g] = r.score
+            f["truesc"][g] = r.truesc
+            f["sub"][g] = r.sub
+            f["csub"][g] = r.csub
+            f["w"][g] = r.w
+            f["seedcov"][g] = r.seedcov
+            f["frac_rep"][g] = r.frac_rep
+            f["is_alt"][g] = 1 if r.is_alt else 0
+            g += 1
+    return f
+
+
+def _sam_cap(f) -> int:
+    """The first guess at a batch's SAM bytes: 2 bytes a base and 300 more,
+    for each region of the read and one more record."""
+    lens = np.diff(f["qoff"])
+    n_regs = np.diff(f["reg_off"]).astype(np.int64)
+    return int(((lens * 2 + 300) * (n_regs + 1)).sum()) + 4096
 
 
 def _fin_opts(opt, extra14, extra15):
@@ -609,8 +639,7 @@ def finalize_pe_native(opt, bns, text, pes, pair_id0, recs, regs_per_read,
         lib.finalize_pe_c.restype = ctypes.c_int64
         lib._finpe_sig = True
 
-    cap = int(sum((len(rec.codes) * 2 + 300) * (len(regs) + 1)
-                  for rec, regs in zip(recs, regs_per_read)) + 4096)
+    cap = _sam_cap(f)
     out_off = np.zeros(R + 1, np.int64)
     with tstage("finalize.native"):
         for _ in range(2):

@@ -19,7 +19,10 @@ pairing.sam_pe of the reference, its rescue SW on the host.
 With a device seeding engine the index's packed text is on the device once:
 extension reads the engine's ``di.text32``. Kernel 2 goes through the flat
 path whenever seed re-scoring is a no-op (short reads) and through the
-dataclass path otherwise. Finalization needs the native host library;
+dataclass path otherwise. The flat path hands its regions on as arrays
+(extend.RegTable), which the single-end finalize reads as they are; the
+paired-end path builds AlnReg objects from them (RegTable.to_lists) for the
+dedup, pairing and rescue. Finalization needs the native host library;
 without it the Aligner raises rather than take a slower path, and a kernel
 that fails to build or launch is an error, never a reason to change tier.
 """
@@ -149,12 +152,13 @@ class Aligner:
             self.opt, self.idx.bns, self.idx.text, queries, chains_per_read,
             self.device)
 
-    def _finalize_se(self, recs, regs_per_read) -> list[str]:
+    def _finalize_se(self, recs, regs) -> list[str]:
         """Kernel 3 in C++ (native.finalize_se_c): dedup, primary marking,
-        XA, SAM."""
+        XA, SAM. ``regs``: the flat path's RegTable or AlnReg lists per
+        read (the dataclass path's)."""
         with tstage("finalize"):
             out = native.finalize_se_native(
-                self.opt, self.idx.bns, self.idx.text, recs, regs_per_read,
+                self.opt, self.idx.bns, self.idx.text, recs, regs,
                 self.rg_id, self.n_processed)
         if out is None:
             raise RuntimeError("native finalization unavailable")
@@ -163,8 +167,8 @@ class Aligner:
 
     def _finish(self, recs, token) -> list[str]:
         with tstage("extend.finish"):
-            regs_per_read = self._kernel2_finish(token)
-        return self._finalize_se(recs, regs_per_read)
+            regs = self._kernel2_finish(token)
+        return self._finalize_se(recs, regs)
 
     def align_batch(self, reads: list[Read]) -> list[str]:
         """Align a batch of single-end reads; returns SAM line blocks (one
@@ -258,6 +262,8 @@ class Aligner:
                 token = self._submit_seed(parts[k + 1])
             with tstage("extend.finish"):
                 regs_per_read = self._kernel2_finish(k2)
+                if isinstance(regs_per_read, extend_mod.RegTable):
+                    regs_per_read = regs_per_read.to_lists()
             with tstage("pe.dedup"):
                 dd = native.dedup_batch_native(opt, idx.bns, idx.text, part,
                                                regs_per_read)

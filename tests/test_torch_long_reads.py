@@ -24,6 +24,7 @@ from bwameme_tpu.io.fastq import Read as JaxRead
 from bwameme_tpu.pipeline import Aligner as JaxAligner
 from bwameme_tpu.seeding.host_engine import HostSeedingEngine as JaxHost
 from bwameme_tpu.utils.config import MemOptions as JaxMemOptions
+from bwameme_tpu_torch.align import extend as extend_mod
 from bwameme_tpu_torch.index import bntseq
 from bwameme_tpu_torch.index.build import build_index
 from bwameme_tpu_torch.io.fastq import Read
@@ -31,6 +32,7 @@ from bwameme_tpu_torch.pipeline import Aligner
 from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
 from bwameme_tpu_torch.seeding.host_engine import HostSeedingEngine
 from bwameme_tpu_torch.utils.config import MemOptions
+from bwameme_tpu_torch.utils.timer import TPROF
 
 N = 60000
 
@@ -119,3 +121,30 @@ def test_aligner_end_to_end_mixed_lengths(setup):
         jax_reads)
     for s in sam_dev:
         assert s.split("\t")[2] == "c"  # mapped to the contig
+
+
+def test_dataclass_path_hands_over_lists(setup):
+    """Reads of 800 bp need their seeds re-scored, so the host engine's
+    Aligner takes the dataclass path: extension hands AlnReg lists to the
+    single-end finalize, builds no region table (no ``extend.objects``), and
+    the SAM is the JAX package's."""
+    _, _, idx, jidx, rng = setup
+    reads = [Read(name=f"X{i}", seq="".join("ACGT"[x] for x in c),
+                  qual="I" * len(c), comment=None)
+             for i, c in enumerate(_sample(idx, rng, 800, k=4))]
+    opt = MemOptions()
+    al = Aligner(idx, opt, device="cpu")
+    recs = al._encode_batch(reads)
+    assert not extend_mod.rescore_is_noop(opt, [r.codes for r in recs])
+    regs = al._kernel2_finish(al._kernel2_submit(recs,
+                                                 al.collect_smems(recs)))
+    assert isinstance(regs, list) and all(
+        isinstance(a, extend_mod.AlnReg) for r in regs for a in r)
+    TPROF.counts.pop("extend.objects", None)
+    sam = al.align_batch(reads)
+    assert "extend.objects" not in TPROF.counts
+    al.n_processed = 0
+    assert al._finalize_se(recs, regs) == sam
+    jax_reads = [JaxRead(r.name, r.seq, r.qual, None) for r in reads]
+    assert sam == JaxAligner(jidx, JaxMemOptions()).align_batch(jax_reads)
+    assert all(s.split("\t")[2] == "c" for s in sam)

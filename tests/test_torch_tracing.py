@@ -165,6 +165,20 @@ def test_span_counts_follow_batches_not_reads(runs, kind):
     assert 3 * batches < LANES
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_region_objects_only_for_pairs(runs, kind):
+    """``extend.objects`` (RegTable.to_lists, an AlnReg a region) runs
+    inside ``extend.finish`` once a lane batch of a paired-end chunk, for
+    the dedup and pairing, and never in a single-end stream through the
+    flat path, whose finalize reads the region table's arrays."""
+    _, t, c, _, batches = runs[kind]
+    if kind == "se":
+        assert "extend.objects" not in c
+    else:
+        assert c["extend.objects"] == batches
+        assert t["extend.objects"] <= t["extend.finish"]
+
+
 def test_io_parse_leaves_out_the_consumer(tmp_path):
     """read_chunks times each chunk's parse, not a consumer that sleeps
     50 ms between chunks; at no stage's depth it is all of ``spanned``."""
