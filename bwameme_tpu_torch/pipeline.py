@@ -45,6 +45,11 @@ from bwameme_tpu_torch.utils.timer import tstage
 from bwameme_tpu_torch.align import extend as extend_mod
 from bwameme_tpu_torch.index.device import DeviceText
 
+# the stage of a batch that outgrew the packed SMEM buffer: its whole slot
+# planes fetched, an Smem an emission (the benchmark reads it as 0 where
+# seeding ran and it did not)
+UNPACKED = "seed.unpacked"
+
 
 @dataclasses.dataclass
 class ReadRec:
@@ -118,8 +123,9 @@ class Aligner:
         with tstage("seed.finish"):
             smems = self.engine.finish_batch_flat(token)
             if smems is None:
-                smems = [sorted(sm, key=lambda s: (s.start, s.end))
-                         for sm in self.engine.finish_batch(token)]
+                with tstage(UNPACKED):
+                    smems = [sorted(sm, key=lambda s: (s.start, s.end))
+                             for sm in self.engine.finish_batch(token)]
             return smems
 
     def _kernel2_submit(self, recs, smems_per_read):

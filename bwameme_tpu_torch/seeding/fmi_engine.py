@@ -264,10 +264,10 @@ class FmiDeviceEngine:
     On the card an emission that finds none of a read's ``max_smems`` slots
     is counted, not lost: the batch's reads that outgrew their slots are
     seeded again, on the card, with room for all of their emissions
-    (``reruns`` counts those launches). The reference and the JAX package
-    have no read-length cap on this path, and neither has this engine: a
-    batch with reads past the packed transfer's 1023 bases is fetched as
-    whole slot planes."""
+    (``reruns`` counts those launches, each under the stage ``seed.rerun``).
+    The reference and the JAX package have no read-length cap on this path,
+    and neither has this engine: a batch with reads past the packed
+    transfer's 1023 bases is fetched as whole slot planes."""
 
     def __init__(self, idx, opt, fm: FmIndex | None = None,
                  device="cuda") -> None:
@@ -557,7 +557,8 @@ class FmiDeviceEngine:
         if packed is None:
             return None
         R = len(codes_list)
-        flat = packed.cpu().numpy()
+        with tstage("seed.fetch"):
+            flat = packed.cpu().numpy()
         counts = flat[1: 1 + R]
         total = int(counts.sum())
         if flat[0] or total > cap:
@@ -582,7 +583,8 @@ class FmiDeviceEngine:
         if kind == "lists":
             return tok
         codes_list, slots, nsm, M, _packed, _cap = tok
-        s, n = slots.cpu().numpy(), nsm.cpu().numpy()
+        with tstage("seed.fetch"):
+            s, n = slots.cpu().numpy(), nsm.cpu().numpy()
         out = [[Smem(int(s[0, i, k]), int(s[1, i, k]), int(s[2, i, k]),
                      int(s[3, i, k])) for k in range(min(int(n[i]), M))]
                for i in range(len(codes_list))]
@@ -595,8 +597,10 @@ class FmiDeviceEngine:
             self.reruns += 1
             print(f"seeding: {len(todo)} read(s) outgrew their emission "
                   f"slots; seeded again with {M}", file=sys.stderr)
-            s2, n2 = (x.cpu().numpy() for x in self._launch(
-                [codes_list[i] for i in todo], M))
+            with tstage("seed.rerun"):
+                again = self._launch([codes_list[i] for i in todo], M)
+            with tstage("seed.fetch"):
+                s2, n2 = (x.cpu().numpy() for x in again)
             fits = n2 <= M
             for j in np.flatnonzero(fits):
                 out[todo[j]] = [Smem(int(s2[0, j, k]), int(s2[1, j, k]),

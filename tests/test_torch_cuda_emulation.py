@@ -1137,6 +1137,37 @@ def test_fmi_smem_kernel_in_the_host_engines_order(fmi_world, on_emulation,
     assert sum(map(len, want)) > 100 and max(map(len, want)) > 2 * 3
 
 
+def test_fmi_fallback_is_timed(fmi_world, on_emulation, monkeypatch):
+    """Through the Aligner's seeding stages, an fmi_smem batch that outgrew
+    the packed buffer (a cap of one entry a read) and reads that outgrew
+    their slots (3): the whole-plane fetch under ``seed.unpacked`` (in
+    ``seed.finish``), each rerun's launch under ``seed.rerun``, every
+    readback under ``seed.fetch``; the SMEMs are FmiHostEngine's."""
+    from bwameme_tpu_torch.pipeline import Aligner, ReadRec
+    from bwameme_tpu_torch.utils.timer import TPROF
+
+    idx, fm, reads = fmi_world
+    monkeypatch.setattr(fmi_search, "_on_cuda", lambda x: True)
+    opt = MemOptions()
+    eng = FmiDeviceEngine(idx, opt, fm=fm, device="cpu")
+    eng.max_smems, eng.pack_cap_per_read = 3, 1
+    al = Aligner(idx, opt, seeding_engine=eng, device="cpu")
+    TPROF.totals.clear()
+    TPROF.counts.clear()
+    got = al.collect_smems([ReadRec(str(i), r, None, None)
+                            for i, r in enumerate(reads)])
+    t, c = dict(TPROF.totals), dict(TPROF.counts)
+    host = FmiHostEngine(idx, opt, fm=fm)
+    assert [[(s.start, s.end, s.sa_lo, s.hitcount) for s in x]
+            for x in got] == [[(s.start, s.end, s.sa_lo, s.hitcount)
+                               for s in host.sorted_smems(r)] for r in reads]
+    assert c["seed.unpacked"] == 1
+    assert t["seed.unpacked"] <= t["seed.finish"]
+    assert c["seed.rerun"] == eng.reruns >= 1
+    # the pack, the slot planes, and each rerun's planes
+    assert c["seed.fetch"] == 2 + eng.reruns
+
+
 @pytest.fixture(scope="module")
 def fmi_family():
     """A genome with a repeat family, 40 copies of a 200 bp unit, copy i

@@ -179,6 +179,22 @@ def test_region_objects_only_for_pairs(runs, kind):
         assert t["extend.objects"] <= t["extend.finish"]
 
 
+def test_outgrown_pack_is_timed_as_unpacked(setup, runs, monkeypatch):
+    """A batch with more SMEMs than the packed buffer holds (here one entry
+    a read) is fetched as its whole slot planes under ``seed.unpacked``,
+    nested in ``seed.finish``, each readback (the pack, then a round's
+    planes) under ``seed.fetch``; the SAM is the packed path's. A stream
+    that fits the pack never enters the stage."""
+    engine = setup[2]
+    monkeypatch.setattr(engine, "pack_cap_per_read", 1)
+    sam, t, c, _, batches = _align(setup, "se")
+    assert sam == runs["se"][0]
+    assert c["seed.unpacked"] == batches
+    assert t["seed.unpacked"] <= t["seed.finish"]
+    assert c["seed.fetch"] == 4 * batches
+    assert "seed.unpacked" not in runs["se"][2]
+
+
 def test_io_parse_leaves_out_the_consumer(tmp_path):
     """read_chunks times each chunk's parse, not a consumer that sleeps
     50 ms between chunks; at no stage's depth it is all of ``spanned``."""
