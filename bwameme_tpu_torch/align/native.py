@@ -1,11 +1,14 @@
-"""ctypes bindings for the native host alignment kernels
-(native/hostkernels.cpp, built by ops/build.host_library into the port's own
-build directory). Falls back to the Python reference implementations in
+"""ctypes bindings for the native host alignment kernels: the port's one
+host library, csrc/hostkernels_port.cpp (native/hostkernels.cpp, shared with
+bwameme_tpu and included whole, and the single-end finalize split around
+the card's CIGAR kernel), built by ops/build.host_library into the port's
+own build directory. Falls back to the Python reference implementations in
 align/sw_scalar.py when no C++ toolchain is available."""
 
 from __future__ import annotations
 
 import ctypes
+import os
 import sys
 
 import numpy as np
@@ -27,7 +30,10 @@ def _load():
     if _lib is not None or _error is not None:
         return _lib
     try:
-        lib = ctypes.CDLL(build.host_library("hostkernels", GXX_FLAGS))
+        lib = ctypes.CDLL(build.host_library(
+            "hostkernels_port", (*GXX_FLAGS, f"-I{build.NATIVE_DIR}"),
+            src=os.path.join(build.PKG_DIR, "csrc", "hostkernels_port.cpp"),
+            deps=(os.path.join(build.NATIVE_DIR, "hostkernels.cpp"),)))
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i8p = ctypes.POINTER(ctypes.c_int8)
         i32p = ctypes.POINTER(ctypes.c_int32)
@@ -105,6 +111,7 @@ def _load():
                                      ctypes.c_int32, ctypes.c_int32,
                                      i64p, f32p, f32p, i32p, i32p]
         lib.train_prmi_c.restype = None
+        _bind_split(lib)
         _lib = lib
     except (OSError, RuntimeError, AttributeError) as e:
         print(f"[native] the host library did not load: "
@@ -504,6 +511,106 @@ def finalize_se_native(opt, bns, text, recs, regs, rg_id, n_processed):
         return None
     raw = buf.raw[:total]
     return [raw[out_off[i]: out_off[i + 1]].decode() for i in range(R)]
+
+
+def _bind_split(lib) -> None:
+    """The split single-end finalize's C calls (SePlan)."""
+    P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.fin_se_plan_c.argtypes = [I32] + [P] * 17 + [I64, I32] + \
+        [P] * 7 + [P]
+    lib.fin_se_plan_c.restype = P
+    lib.fin_se_jobs_c.argtypes = [P, P]
+    lib.fin_se_jobs_c.restype = None
+    lib.fin_se_cigar_host_c.argtypes = [P, P, I32]
+    lib.fin_se_cigar_host_c.restype = I64
+    lib.fin_se_emit_c.argtypes = [P, P, I32, ctypes.c_char_p, P,
+                                  ctypes.c_char_p, P, ctypes.c_char_p, P,
+                                  ctypes.c_char_p, I32]
+    lib.fin_se_emit_c.restype = I64
+    lib.fin_se_copy_c.argtypes = [P, ctypes.c_char_p, P]
+    lib.fin_se_copy_c.restype = None
+    lib.fin_se_free_c.argtypes = [P]
+    lib.fin_se_free_c.restype = None
+
+
+class SePlan:
+    """finalize_se_c split in two around the card's CIGARs
+    (csrc/hostkernels_port.cpp): the plan of a batch (dedup, primary
+    marking, and the regions reg2aln will align, as jobs), then the host's
+    share of the CIGARs and the SAM text. The constructor flattens the
+    batch as finalize_se_native does; ``plan``, ``cigar_host`` and ``emit``
+    are the C++ calls, in that order. Holds the C++ plan and every array it
+    points into until ``close``."""
+
+    def __init__(self, opt, bns, text, recs, regs, n_processed):
+        self.lib = _load()
+        if self.lib is None:
+            raise RuntimeError("native finalization unavailable")
+        self.R = len(recs)
+        self.f = _flatten_finalize_inputs(recs, regs)
+        self.l_pac, self.n_ctg = int(bns.l_pac), len(bns.contigs)
+        self.keep = (np.ascontiguousarray(text, dtype=np.uint8), *_fin_blobs(
+            bns), np.ascontiguousarray(opt.mat, dtype=np.int8),
+            *_fin_opts(opt, 0, int(n_processed)))
+        self.h = None
+
+    def plan(self) -> np.ndarray:
+        """The C++ plan; returns its jobs, (5, n) int64 rows rb, qstart,
+        qlen, rlen, w (ops/sw_global.py)."""
+        f = self.f
+        text, ctg_names, ctg_name_off, ctg_off, ctg_is_alt, mat, iopt, dopt \
+            = self.keep
+        n_jobs = ctypes.c_int64(0)
+        cols = [f[k] for k in ("reg_off", "rb", "re", "qb", "qe", "rid",
+                               "score", "truesc", "sub", "csub", "w",
+                               "seedcov", "frac_rep", "is_alt", "qcodes",
+                               "qoff")]
+        self.h = self.lib.fin_se_plan_c(
+            self.R, *(a.ctypes.data for a in cols), text.ctypes.data,
+            self.l_pac, self.n_ctg, ctg_off.ctypes.data,
+            ctypes.cast(ctypes.c_char_p(ctg_names), ctypes.c_void_p),
+            ctg_name_off.ctypes.data, ctg_is_alt.ctypes.data,
+            mat.ctypes.data, iopt.ctypes.data, dopt.ctypes.data,
+            ctypes.byref(n_jobs))
+        jobs = np.empty((5, n_jobs.value), np.int64)
+        self.lib.fin_se_jobs_c(self.h, jobs.ctypes.data)
+        return jobs
+
+    def cigar_host(self, res: np.ndarray) -> int:
+        """gen_cigar on the host for the jobs the kernel's results ``res``
+        (n_jobs, 2 + slots) leave to it; returns how many it ran."""
+        res = np.ascontiguousarray(res, np.int32)
+        return int(self.lib.fin_se_cigar_host_c(self.h, res.ctypes.data,
+                                                res.shape[1]))
+
+    def emit(self, res: np.ndarray, rg_id) -> tuple[bytes, np.ndarray]:
+        """The batch's SAM text after cigar_host, and the offsets of each
+        read's block in it (R + 1)."""
+        res = np.ascontiguousarray(res, np.int32)
+        f = self.f
+        rg = (rg_id or "").encode()
+        total = self.lib.fin_se_emit_c(
+            self.h, res.ctypes.data, res.shape[1], f["names"],
+            f["name_off"].ctypes.data, f["quals"], f["qual_off"].ctypes.data,
+            f["comms"], f["comm_off"].ctypes.data, rg, len(rg))
+        if total < 0:
+            raise RuntimeError("fin_se_emit_c: the jobs do not follow the "
+                               "plan's regions")
+        buf = ctypes.create_string_buffer(max(int(total), 1))
+        out_off = np.zeros(self.R + 1, np.int64)
+        self.lib.fin_se_copy_c(self.h, buf, out_off.ctypes.data)
+        return buf.raw[:total], out_off
+
+    def close(self) -> None:
+        if self.h is not None:
+            self.lib.fin_se_free_c(self.h)
+            self.h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 def _flatten_finalize_inputs(recs, regs):

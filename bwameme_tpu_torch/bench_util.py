@@ -312,6 +312,44 @@ def simulated_reads(text, l_pac: int, n: int, read_len: int, rng,
     return reads
 
 
+def wgsim_reads(text, l_pac: int, n: int, read_len: int, rng,
+                error_rate: float = 0.02, mutation_rate: float = 0.001,
+                indel_fraction: float = 0.15, indel_extend: float = 0.3):
+    """Single-end reads by wgsim's model at its defaults (github.com/lh3/
+    wgsim: -e 0.02 -r 0.001 -R 0.15 -X 0.3), each read mutated on its own:
+    a base mutates with probability ``mutation_rate``, a mutation is an
+    indel with probability ``indel_fraction``, else a substitution; an indel
+    is a deletion or an insertion of random bases with even odds, extended
+    base by base with probability ``indel_extend`` (an insertion to 4
+    bases). Then each base becomes one of the three others with probability
+    ``error_rate``; every other read is reverse-complemented. Returns the
+    code arrays."""
+    import numpy as np
+
+    reads = []
+    for i in range(n):
+        st = int(rng.integers(0, l_pac - 2 * read_len))
+        c = np.array(text[st: st + 2 * read_len])
+        k = min(int(rng.poisson(mutation_rate * read_len)), read_len)
+        for p in np.sort(rng.choice(read_len, k, replace=False))[::-1]:
+            if rng.random() >= indel_fraction:
+                c[p] = (c[p] + rng.integers(1, 4)) % 4
+                continue
+            ln = int(rng.geometric(1 - indel_extend))
+            if rng.random() < 0.5:
+                c = np.delete(c, np.arange(p, p + ln))
+            else:
+                c = np.insert(c, p + 1,
+                              rng.integers(0, 4, min(ln, 4)).astype(np.uint8))
+        c = c[:read_len]
+        hit = rng.random(read_len) < error_rate
+        c[hit] = (c[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+        if i % 2:
+            c = np.where(c < 4, 3 - c, c)[::-1].astype(np.uint8)
+        reads.append(c)
+    return reads
+
+
 def planted_repeats(mbp: float):
     """(destination, length) of the bench genome's planted repeats: the
     generator of get_index, replayed."""

@@ -10,7 +10,8 @@ module without nvcc. A failed build raises.
   (``LIBRARIES``).
 * The host libraries: g++ builds ``native/*.cpp`` (sources shared with
   bwameme_tpu, which builds them into ``native/build/``, a directory the
-  port never writes).
+  port never writes) and the port's own C++ under ``csrc/``
+  (``hostkernels_port.cpp``, which includes ``native/hostkernels.cpp``).
 
 Every build writes a file of its own and renames it into place
 (``os.replace``): a process never loads a half-written library, and never
@@ -52,6 +53,7 @@ LIBRARIES = {
         "seed_smem", ("-fmad=false", f"-DSEED_MODE={m}", "-DSEED_SHARDED"))
        for m in (1, 2, 3, 4)},
     "sw_full": ("sw_full", ()),
+    "sw_global": ("sw_global", ()),
 }
 
 
@@ -124,13 +126,15 @@ def build() -> BuildResult:
     return BuildResult(paths, time.perf_counter() - t0, "\n".join(log))
 
 
-def host_library(source: str, flags: tuple, build_dir: str = BUILD_DIR) -> str:
-    """The shared library g++ builds from ``native/<source>.cpp`` with
-    ``flags``, in ``build_dir``: built when missing or older than its
-    source, and returned as a path."""
-    src = os.path.join(NATIVE_DIR, f"{source}.cpp")
+def host_library(source: str, flags: tuple, build_dir: str = BUILD_DIR,
+                 src: str | None = None, deps: tuple = ()) -> str:
+    """The shared library g++ builds from ``native/<source>.cpp`` (or
+    ``src``) with ``flags``, in ``build_dir``: built when missing or older
+    than its source or one of ``deps`` (the files it includes), and
+    returned as a path."""
+    src = src or os.path.join(NATIVE_DIR, f"{source}.cpp")
     lib = os.path.join(build_dir, f"lib{source}.so")
-    if not _stale(lib, src):
+    if not any(_stale(lib, f) for f in (src, *deps)):
         return lib
     os.makedirs(build_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=f"lib{source}.", suffix=".tmp",

@@ -65,7 +65,7 @@ KERNELS = ("banded_sw_pairs", "banded_sw_coord", "gather_flat",
              for v in variants(k, r)),
            *(v for r in ("prmi", "kmer") for k in SEEDING[1:]
              for v in variants(k, r, sharded=True)),
-           "sw_full", *FMI)
+           "sw_full", *FMI, "sw_global_coord")
 
 
 @dataclasses.dataclass

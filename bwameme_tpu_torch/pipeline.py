@@ -7,6 +7,7 @@ mem_process_seqs):
             engine), chaining in C++                             [worker_bwt]
   kernel 2: banded-SW extension on the device                   [worker_aln]
   kernel 3: dedup, primary marking, mapq, CIGAR, SAM in C++     [worker_sam]
+            (single-end: the CIGARs' DP on the device)
 
 Paired-end reads (align_pairs) run kernels 1-2 in batches of the engine's
 lanes, dedup each read's regions in C++, take the insert-size statistics
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from bwameme_tpu_torch.align import chain as chain_mod
-from bwameme_tpu_torch.align import native, pairing
+from bwameme_tpu_torch.align import finalize_split, native, pairing
 from bwameme_tpu_torch.index.build import MemeIndex
 from bwameme_tpu_torch.index.packing import NT4_TABLE
 from bwameme_tpu_torch.io.fastq import Read
@@ -159,15 +160,14 @@ class Aligner:
             self.device)
 
     def _finalize_se(self, recs, regs) -> list[str]:
-        """Kernel 3 in C++ (native.finalize_se_c): dedup, primary marking,
-        XA, SAM. ``regs``: the flat path's RegTable or AlnReg lists per
-        read (the dataclass path's)."""
+        """Kernel 3 in C++, split around the CIGARs' DP on the device, one
+        launch a batch (align/finalize_split.py): dedup, primary marking,
+        XA, SAM, finalize_se_c's byte for byte. ``regs``: the flat path's
+        RegTable or AlnReg lists per read (the dataclass path's)."""
         with tstage("finalize"):
-            out = native.finalize_se_native(
-                self.opt, self.idx.bns, self.idx.text, recs, regs,
-                self.rg_id, self.n_processed)
-        if out is None:
-            raise RuntimeError("native finalization unavailable")
+            out = finalize_split.finalize_se_split(
+                self.opt, self.idx.bns, self.idx.text, self.text.text32,
+                recs, regs, self.rg_id, self.n_processed)
         self.n_processed += len(recs)
         return out
 

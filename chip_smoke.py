@@ -206,6 +206,9 @@ KERNELS = {
                          "bwameme_tpu/ops/fmi_search.py:133"),
     "fmi_smem": ("fmi_search.cu", "bwameme_tpu/seeding/fmi_engine.py:265"),
     "fmi_sa_lookup": ("fmi_search.cu", "bwameme_tpu/ops/fmi_search.py:167"),
+    # no TPU program: the JAX package runs this DP on the host
+    "sw_global_coord": ("sw_global.cu", "native/hostkernels.cpp:28 "
+                        "sw_global_c, in finalize_se_c (host)"),
 }
 # the one run whose launches a kernel's "launches" counts, from 0
 MEM_PATH = "mem, default engine, 151 bp reads"
@@ -222,6 +225,7 @@ LAUNCH_PATH = {
     "fmi_smem": "mem --backend fmi, 151 bp reads",
     "fmi_backward_ext": "one call, 2^20 units",
     "fmi_sa_lookup": "one call, 2^16 ranks",
+    "sw_global_coord": MEM_PATH,
 }
 ERT_PATH = "mem -Z, 151 bp reads"
 # the sharded index's variants: the counterparts of the JAX package's owned
@@ -290,6 +294,8 @@ RESCUE_SHAPE = (1024, 151, 529)
 LONG_INSERT_SHAPE = (16, 151, 12000)
 WIDE_QUERY_SHAPE = (8, 1100, 1400)
 N_SCALAR = 16
+# the CIGAR jobs held against sw_global_c one by one (phase_sw_global)
+N_SCALAR_JOBS = 1024
 # phase 3: a 1 GiB table at both row widths; lanes; window rows; chain rounds
 GATHER_BYTES = 1 << 30
 GATHER_WIDTHS = (128, 4)
@@ -2069,7 +2075,8 @@ def trace_kernel_name(name: str) -> str:
              "banded_sw_pairs": "banded_sw_pairs",
              "fmi_smem": "fmi_smem_kernel",
              "fmi_backward_ext": "fmi_backward_ext_kernel",
-             "fmi_sa_lookup": "fmi_sa_lookup_kernel"}
+             "fmi_sa_lookup": "fmi_sa_lookup_kernel",
+             "sw_global_coord": "sw_global_coord"}
     check(base in names, f"{name}: no kernel name known for the trace")
     return names[base]
 
@@ -2271,6 +2278,145 @@ def library_seqs(text, l_pac: int, n: int, rng):
             c = rng.integers(0, 4, 160).astype(np.uint8)
         out.append((kind, "".join("ACGT"[x] for x in c[:151])))
     return out
+
+
+def scalar_cigars(idx, codes, jobs, res, opt) -> int:
+    """How many of the first N_SCALAR_JOBS jobs the kernel kept (its count
+    of runs >= 0) differ from sw_global_c's score and CIGAR as gen_cigar
+    calls it (band, reversal, the no-DP branch)."""
+    import numpy as np
+
+    from bwameme_tpu_torch.align import native
+
+    bad = 0
+    for n in range(min(N_SCALAR_JOBS, jobs.shape[1])):
+        rb, qs, ql, rl, w = (int(x) for x in jobs[:, n])
+        if res[n, 1] < 0:
+            continue
+        q = np.minimum(codes[qs: qs + ql], 4)
+        t = np.asarray(idx.text[rb: rb + rl])
+        if rb >= idx.l_pac:
+            q, t = q[::-1], t[::-1]
+        if ql == rl and w == 0:
+            want = (int(opt.mat[t, q].sum()), [(0, ql)])
+        else:
+            half = ((ql + 1) >> 1) * int(opt.mat[0, 0])
+            gap = max(int((half - opt.o_ins) / opt.e_ins + 1.0),
+                      int((half - opt.o_del) / opt.e_del + 1.0), 1)
+            ww = max(min((gap + abs(rl - ql) + 1) >> 1, w), abs(rl - ql) + 3)
+            want = native.sw_global_native(q, t, opt.mat, opt.o_del,
+                                           opt.e_del, opt.o_ins, opt.e_ins,
+                                           ww)
+        runs = [(int(c & 15), int(c >> 4)) for c in res[n, 2: 2 + res[n, 1]]]
+        bad += (int(res[n, 0]), runs) != want
+    return bad
+
+
+def phase_sw_global(dev, mbp: float, n_reads: int, build_log: str):
+    """The single-end finalize's CIGAR kernel on a main-path batch: the
+    jobs that the C++ plan lists for n_reads wgsim reads of the bench
+    genome at ``mbp`` (seeded and extended on the card), through the
+    kernel and through its plain version on the card, every value equal;
+    one launch a call; the batch's SAM through the split path equal to
+    finalize_se_c's. Times the kernel alone and with the host out of the
+    way, and its bound: the band's cells at about 20 int32 operations a
+    cell (sw_global_c's inner loop: the score lookup, three maxima with
+    their direction bits, the gap updates) over the card's int32 rate, or
+    the bytes (the job table, the read codes, the packed text of the
+    targets and the results) over HBM's."""
+    import numpy as np
+    import torch
+
+    from bwameme_tpu_torch.align import finalize_split, native
+    from bwameme_tpu_torch.bench_util import (cuda_ms, get_index,
+                                              ptxas_usage, queued_us,
+                                              wgsim_reads)
+    from bwameme_tpu_torch.index.build import load_index
+    from bwameme_tpu_torch.io.fastq import Read
+    from bwameme_tpu_torch.ops import sw_global, sw_global_cuda
+    from bwameme_tpu_torch.ops.launch import stats
+    from bwameme_tpu_torch.pipeline import Aligner
+    from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+    from bwameme_tpu_torch.utils.config import MemOptions
+
+    idx = load_index(get_index(mbp))
+    opt = MemOptions()
+    qual = "2" * 151    # wgsim's one quality at -e 0.02
+    reads = [Read(f"w{i}", "".join("ACGTN"[b] for b in c), qual, None)
+             for i, c in enumerate(wgsim_reads(
+                 idx.text, idx.l_pac, n_reads, 151,
+                 np.random.default_rng(20)))]
+    eng = DeviceSeedingEngine(idx, opt, lanes=n_reads, device=dev)
+    al = Aligner(idx, opt, seeding_engine=eng, device=dev)
+    recs = al._encode_batch(reads)
+    regs = al._kernel2_finish(al._kernel2_submit(recs,
+                                                 al.collect_smems(recs)))
+    with native.SePlan(opt, idx.bns, idx.text, recs, regs, 0) as plan:
+        jobs, codes = plan.plan(), plan.f["qcodes"]
+        N = jobs.shape[1]
+        text32 = al.text.text32
+        args = (text32, torch.from_numpy(codes).to(dev),
+                torch.from_numpy(jobs).to(dev),
+                torch.from_numpy(opt.mat.astype(np.int32)).to(dev),
+                int(idx.l_pac), opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+                sw_global.SLOTS, sw_global.BUDGET_WORDS)
+        stats.reset()
+        got = sw_global_cuda.sw_global_coord(*args)
+        a_call = stats.launches["sw_global_coord"]
+        check(a_call == 1, f"sw_global_coord: {a_call} launches a call")
+        want = sw_global.sw_global_coord_torch(*args)
+        err = int((got.long() - want.long()).abs().max()) if N else 0
+        check(err == 0, f"sw_global_coord != its plain version ({err})")
+        res = got.cpu().numpy()
+        scalar_err = scalar_cigars(idx, codes, jobs, res, opt)
+        check(scalar_err == 0, f"sw_global_coord != sw_global_c on "
+              f"{scalar_err} of the first {N_SCALAR_JOBS} jobs")
+        n_host = plan.cigar_host(res)
+    # the split path's SAM == finalize_se_c's on the same regions
+    sam = finalize_split.finalize_se_split(opt, idx.bns, idx.text, text32,
+                                           recs, regs, None, 0)
+    check(sam == native.finalize_se_native(opt, idx.bns, idx.text, recs,
+                                           regs, None, 0),
+          "the split finalize's SAM differs from finalize_se_c's")
+    qlen, rlen, w = jobs[2], jobs[3], jobs[4]
+    flag = res[:, 1]
+    nodp = (qlen == rlen) & (w == 0) & (qlen > 0)
+    dp = (flag > 0) & ~nodp
+    ww = sw_global.band_width(*(torch.from_numpy(a) for a in (
+        qlen, rlen, w)), int(opt.mat[0, 0]), opt.o_del, opt.e_del,
+        opt.o_ins, opt.e_ins).numpy()
+    cells = 0
+    for ql, rl, b in zip(qlen[dp], rlen[dp], ww[dp]):
+        i = np.arange(rl)
+        cells += int((np.minimum(i + b + 1, ql)
+                      - np.maximum(i - b, 0)).clip(min=0).sum())
+    n_bytes = 40 * N + int(qlen.sum()) + int(rlen.sum()) // 4 \
+        + 4 * res.size
+    by_ops, by_bytes = 20 * cells / INT32_OPS * 1e3, n_bytes / HBM_BPS * 1e3
+    usage = ptxas_usage(build_log, "sw_global_coord")
+    log(f"sw_global_coord: {N} jobs of {n_reads} wgsim reads at {mbp} Mbp "
+        f"({int(nodp.sum())} without DP, {int(dp.sum())} with, flagged "
+        f"{int((flag < 0).sum())}: over budget {int((flag == -1).sum())}, "
+        f"over slots {int((flag == -2).sum())}, off band "
+        f"{int((flag == -3).sum())}; the host ran {n_host} with the "
+        f"ladder); {cells} band cells; bound {max(by_ops, by_bytes):.4f} ms;"
+        f" ptxas {usage}")
+    report = dict(
+        max_abs_err=err, library_ms=None, bound_ms=max(by_ops, by_bytes),
+        bound_by="operations" if by_ops >= by_bytes else "bytes",
+        jobs=N, cells=cells, host_jobs=n_host, launches_a_call=a_call,
+        **usage)
+
+    def fn():
+        return sw_global_cuda.sw_global_coord(*args)
+
+    report.update(ms=cuda_ms(fn, 20), device_ms=queued_us(fn, 50) / 1e3,
+                  plain_ms=cuda_ms(
+                      lambda: sw_global.sw_global_coord_torch(*args), 2))
+    log(f"sw_global_coord: {report['ms']:.4f} ms a call alone, "
+        f"{report['device_ms']:.4f} ms on the card, plain "
+        f"{report['plain_ms']:.1f} ms (median)")
+    return {"sw_global_coord": report}
 
 
 def phase_library(dev, batch: int):
@@ -3540,6 +3686,8 @@ def main() -> int:
         timed("jumbo", phase_jumbo, dev)
         by_path.update(timed("single_end", phase_end_to_end, GENOME_MBP,
                              N_READS, N_LONG, BATCH, N_CMP, main_fq))
+        report.update(timed("sw_global", phase_sw_global, dev, GENOME_MBP,
+                            BATCH, build_log))
         by_path.update(timed("profile", phase_profile, GENOME_MBP, BATCH,
                              main_fq))
         by_path.update(timed("library", phase_library, dev, BATCH))
@@ -3565,7 +3713,7 @@ def main() -> int:
     # the default mem run's counts; the pair form runs on the long reads'
     # path; mode 1's rounds on mem --mode 1
     for name in ("banded_sw_coord", "seed_round1", "seed_round2",
-                 "seed_round3"):
+                 "seed_round3", "sw_global_coord"):
         report[name]["launches"] = by_path["device"][name]
     for k in (1, 2, 3):
         name = variant(f"seed_round{k}", 1, False)
@@ -3591,13 +3739,16 @@ def main() -> int:
                          replaces=(SHARDED_REPLACES[name.rstrip("123")]
                                    if v.endswith("shard]") else repl),
                          launch_path=launch_path(v), **report[v])
-            if name.startswith("fmi_"):
+            if name == "sw_global_coord":
+                usage = report[v]
+            elif name.startswith("fmi_"):
                 usage = ptxas_usage(build_log, f"{name}_kernel")
             elif name in SEEDING or name == "kmer_window":
                 usage = ptxas_usage(library_log(build_log,
                                                 variant_library(v)),
                                     mangled(v))
-            if name in SEEDING or name.startswith(("kmer_", "fmi_")):
+            if name in SEEDING or name.startswith(("kmer_", "fmi_",
+                                                    "sw_global")):
                 entry.update(registers=usage["registers"],
                              spill_stores=usage["spill_stores"],
                              stack_frame=usage["stack_frame"])

@@ -39,6 +39,8 @@ from bwameme_tpu_torch.ops import fmi_search, fmi_search_cuda
 from bwameme_tpu_torch.ops import sa_search as ss
 from bwameme_tpu_torch.ops import seed_smem, seed_smem_cuda
 from bwameme_tpu_torch.ops import sw_full, sw_full_cuda
+from bwameme_tpu_torch.ops import sw_global, sw_global_cuda
+from bwameme_tpu_torch.align import native as host_native
 from bwameme_tpu_torch.index.fmindex import build_fm_index
 from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
 from bwameme_tpu_torch.seeding.fmi_engine import FmiDeviceEngine, FmiHostEngine
@@ -273,6 +275,7 @@ EMULATED = {"seed_smem": (5, ("-DEMU_FIBERS",)), "gather_bench": (2, ()),
             "fmi_search": (3, ("-DEMU_FIBERS",)),
             "banded_sw": (2, ("-DEMU_FIBERS",)),
             "sw_full": (2, ("-DEMU_FIBERS",)),
+            "sw_global": (1, ("-DEMU_FIBERS",)),
             "seed_smem_sharded": (5, ("-DEMU_FIBERS", "-DSEED_SHARDED"))}
 
 
@@ -317,7 +320,7 @@ def on_emulation(emulated_libs, monkeypatch):
     monkeypatch.setattr(launch, "raw_stream", lambda index: None)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
     for mod in (seed_smem_cuda, banded_sw_cuda, sw_full_cuda,
-                fmi_search_cuda):
+                fmi_search_cuda, sw_global_cuda):
         monkeypatch.setattr(mod, "cuda_device", lambda x, what: x.device)
     before = dict(launch.stats.launches)
     yield
@@ -1843,3 +1846,254 @@ def test_sw_full_scores_at_and_past_the_register_profile(on_emulation, a, b):
                               min_sc=a * 19)
     assert torch.equal(got, want)
     assert int((got[0] > 10 * a).sum()) > 5
+
+
+
+# ---------------------------------------------------------------- sw_global
+# The single-end finalize's CIGAR kernel (csrc/sw_global.cu): a warp a job,
+# held against its plain version and against sw_global_c (native/
+# hostkernels.cpp) as gen_cigar calls it, score and runs, job for job.
+
+GL_LEN = 8000   # the forward strand of the jobs' text
+
+
+@pytest.fixture(scope="module")
+def gl_text():
+    rng = np.random.default_rng(2020)
+    fwd = rng.integers(0, 4, GL_LEN).astype(np.uint8)
+    fwd[3000:3060] = 0                        # a homopolymer: tied gaps
+    fwd[3100:3160] = np.tile([0, 1], 30)      # a dinucleotide repeat
+    text = np.concatenate([fwd, (3 - fwd[::-1]).astype(np.uint8)])
+    text32 = np.concatenate([pack_words(text, pad_code=3),
+                             np.full(12, 0xFFFFFFFF, np.uint32)])
+    return text, torch.from_numpy(text32.view(np.int32).copy())
+
+
+def _gl_band(ql, rl, w, opt):
+    """gen_cigar's band, in Python floats."""
+    half = ((ql + 1) >> 1) * int(opt.mat[0, 0])
+    gap = max(int((half - opt.o_ins) / opt.e_ins + 1.0),
+              int((half - opt.o_del) / opt.e_del + 1.0), 1)
+    diff = abs(rl - ql)
+    return max(min((gap + diff + 1) >> 1, w), diff + 3)
+
+
+def _gl_scalar(text, codes, jobs, opt):
+    """(score, [(op, len), ...]) of each job as gen_cigar gets it from
+    sw_global_c."""
+    out = []
+    for rb, qs, ql, rl, w in jobs.T.tolist():
+        q = np.minimum(codes[qs: qs + ql], 4)
+        t = text[rb: rb + rl]
+        if rb >= GL_LEN:
+            q, t = q[::-1], t[::-1]
+        if ql == rl and w == 0:
+            out.append((int(opt.mat[t, q].sum()), [(0, ql)]))
+        else:
+            out.append(host_native.sw_global_native(
+                q, t, opt.mat, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+                _gl_band(ql, rl, w, opt)))
+    return out
+
+
+def _gl_jobs(text, rng, n, qlen, edits, w, strand="both", indel_at=None,
+             n_codes=0):
+    """n jobs of a query of qlen bases copied from the text, then mutated:
+    `edits` substitutions, and an indel of 1-3 bases at `indel_at` (a
+    fraction of the query) or nowhere; the target is the source's span.
+    Returns the concatenated codes and the (5, n) job table."""
+    codes, jobs, off = [], [], 0
+    for b in range(n):
+        st = int(rng.integers(0, GL_LEN - qlen - 8))
+        rev = strand == "rev" or (strand == "both" and b % 2)
+        src = text[st: st + qlen + 8].copy()
+        q = src[:qlen].copy()
+        rl = qlen
+        if indel_at is not None:
+            p = int(indel_at * qlen) if indel_at >= 0 else \
+                int(rng.integers(1, qlen - 4))
+            p = min(max(p, 1), qlen - 4)
+            k = int(rng.integers(1, 4))
+            if b % 3 == 0:     # deletion from the query: longer target
+                q = np.concatenate([src[:p], src[p + k: qlen + k]])
+                rl = qlen + k
+            else:              # insertion into the query: shorter target
+                q = np.concatenate([src[:p], rng.integers(0, 4, k),
+                                    src[p: qlen - k]]).astype(np.uint8)
+                rl = qlen - k
+        for _ in range(edits):
+            p = int(rng.integers(0, qlen))
+            q[p] = (q[p] + int(rng.integers(1, 4))) % 4
+        for _ in range(n_codes):
+            q[int(rng.integers(0, qlen))] = 4
+        rb = st
+        if rev:    # the same span on the reverse strand, the query as read
+            rb = 2 * GL_LEN - (st + rl)
+            q = np.where(q < 4, 3 - q, 4)[::-1].astype(np.uint8)
+        codes.append(q)
+        jobs.append((rb, off, qlen, rl, w if np.isscalar(w) else w[b]))
+        off += qlen
+    return (np.concatenate(codes).astype(np.uint8),
+            np.ascontiguousarray(np.array(jobs, np.int64).T))
+
+
+def _gl_run(text32, codes, jobs, opt, slots=sw_global.SLOTS,
+            budget=sw_global.BUDGET_WORDS):
+    args = (text32, torch.from_numpy(codes), torch.from_numpy(jobs),
+            torch.from_numpy(opt.mat.astype(np.int32)), GL_LEN, opt.o_del,
+            opt.e_del, opt.o_ins, opt.e_ins, slots, budget)
+    before = launch.stats.launches["sw_global_coord"]
+    got = sw_global_cuda.sw_global_coord(*args)
+    assert launch.stats.launches["sw_global_coord"] == before + 1
+    want = sw_global.sw_global_coord_torch(*args)
+    assert torch.equal(got, want)
+    return got.numpy()
+
+
+def _gl_check(gl_text, codes, jobs, opt, slots=sw_global.SLOTS,
+              budget=sw_global.BUDGET_WORDS):
+    """kernel == plain, and every job the kernel kept == sw_global_c.
+    Returns the kernel's rows."""
+    text, text32 = gl_text
+    got = _gl_run(text32, codes, jobs, opt, slots, budget)
+    for row, (score, cig) in zip(got, _gl_scalar(text, codes, jobs, opt)):
+        if row[1] < 0:
+            continue
+        runs = [(int(c & 15), int(c >> 4)) for c in row[2: 2 + row[1]]]
+        assert (int(row[0]), runs) == (score, cig)
+        assert not row[2 + row[1]:].any()
+    return got
+
+
+GL_CASES = {
+    # name: (qlen, edits, band, strand, indel_at, N codes)
+    "151bp_mismatches": (151, 4, 11, "both", None, 0),
+    "indels_near_the_5_end": (151, 1, 9, "both", 0.02, 0),
+    "indels_near_the_3_end": (151, 1, 9, "both", 0.97, 0),
+    "indels_anywhere_reverse_strand": (151, 2, 12, "rev", -1, 0),
+    "n_codes_in_the_query": (151, 2, 7, "fwd", -1, 3),
+    "short_queries": (20, 1, 5, "both", -1, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(GL_CASES))
+def test_sw_global_kernel_cases(gl_text, on_emulation, case):
+    qlen, edits, w, strand, indel_at, n_codes = GL_CASES[case]
+    rng = np.random.default_rng(len(case))
+    codes, jobs = _gl_jobs(gl_text[0], rng, 12, qlen, edits, w, strand,
+                           indel_at, n_codes)
+    got = _gl_check(gl_text, codes, jobs, MemOptions())
+    assert (got[:, 1] > 0).all()        # nothing left to the host
+    if indel_at is not None:
+        assert (got[:, 1] >= 3).sum() >= 6   # the indels are in the CIGARs
+
+
+def test_sw_global_kernel_band_zero_and_no_dp(gl_text, on_emulation):
+    """w == 0: gen_cigar's no-DP branch where the query is as long as its
+    target (one M run, the score a sum), the narrowest DP band (|rlen -
+    qlen| + 3) where it is not."""
+    rng = np.random.default_rng(7)
+    c1, j1 = _gl_jobs(gl_text[0], rng, 6, 151, 3, 0)
+    c2, j2 = _gl_jobs(gl_text[0], rng, 6, 151, 1, 0, indel_at=-1)
+    j2[1] += len(c1)
+    codes, jobs = np.concatenate([c1, c2]), np.concatenate([j1, j2], 1)
+    got = _gl_check(gl_text, codes, jobs, MemOptions())
+    assert (got[:6, 1] == 1).all() and (got[:6, 2] == 151 << 4).all()
+    assert (got[6:, 1] >= 3).all()
+
+
+@pytest.mark.parametrize("w", [3, 11, 40, 100, 400])
+def test_sw_global_kernel_bands_up_to_four_w(gl_text, on_emulation, w):
+    """First bands from 3 to 4 * w (the ladder's last): gen_cigar clamps
+    them to half the query's gap reach; rows of one to several passes of
+    32 cells, for queries of 151 and 90 bases."""
+    rng = np.random.default_rng(w)
+    c1, j1 = _gl_jobs(gl_text[0], rng, 4, 151, 3, w, indel_at=-1)
+    c2, j2 = _gl_jobs(gl_text[0], rng, 4, 90, 2, w, indel_at=-1)
+    j2[1] += len(c1)
+    opt = MemOptions(o_del=2, e_del=1, o_ins=2, e_ins=1) if w == 400 \
+        else MemOptions()   # cheap gaps: bands past 32 cells a row
+    got = _gl_check(gl_text, np.concatenate([c1, c2]),
+                    np.concatenate([j1, j2], 1), opt)
+    assert (got[:, 1] > 0).all()
+
+
+def test_sw_global_kernel_ties_between_m_e_and_f(gl_text, on_emulation):
+    """Deletions and insertions inside a homopolymer and a dinucleotide
+    repeat, where many paths tie: the kernel takes the scalar code's
+    (m >= e, h < f, e > t, f > t)."""
+    text = gl_text[0]
+    codes, jobs, off = [], [], 0
+    for st, cut, k in ((2980, 40, 2), (2990, 30, 1), (3080, 50, 2),
+                       (3090, 41, 4), (2985, 35, 3), (3095, 33, 1)):
+        src = text[st: st + 160]
+        for ins in (False, True):
+            if ins:
+                q = np.concatenate([src[:cut], src[cut - k: cut],
+                                    src[cut: 120 - k]])
+                rl = 120 - k
+            else:
+                q = np.concatenate([src[:cut], src[cut + k: 120 + k]])
+                rl = 120 + k
+            codes.append(q.astype(np.uint8))
+            jobs.append((st, off, 120, rl, 10))
+            off += 120
+    jobs = np.ascontiguousarray(np.array(jobs, np.int64).T)
+    got = _gl_check(gl_text, np.concatenate(codes), jobs, MemOptions())
+    assert (got[:, 1] >= 3).all()
+
+
+@pytest.mark.parametrize("gaps", [(1, 1, 1, 1), (2, 1, 2, 1)],
+                         ids=["open1_extend1", "open2_extend1"])
+def test_sw_global_kernel_ties_under_cheap_gaps(gl_text, on_emulation, gaps):
+    """Queries of 120 bases with three indels and two substitutions, half
+    of them in the homopolymer and the repeat, against targets of 114-126
+    bases, with gaps as cheap as a mismatch or two: opening a gap ties with
+    extending one (the scalar code's e > t and f > t keep the opening)."""
+    text = gl_text[0]
+    rng = np.random.default_rng(sum(gaps))
+    codes, jobs, off = [], [], 0
+    for b in range(40):
+        st = int(rng.integers(2900, 3200)) if b % 2 else \
+            int(rng.integers(0, GL_LEN - 200))
+        q = text[st: st + 120].copy()
+        for _ in range(3):
+            p, k = int(rng.integers(5, 110)), int(rng.integers(1, 4))
+            if rng.random() < 0.5:
+                q = np.concatenate([q[:p], rng.integers(0, 4, k), q[p:]])
+            else:
+                q = np.concatenate([q[:p], q[p + k:], rng.integers(0, 4, k)])
+            q = q[:120].astype(np.uint8)
+        for _ in range(2):
+            p = int(rng.integers(0, 120))
+            q[p] = (q[p] + 1) % 4
+        codes.append(q)
+        jobs.append((st, off, 120, int(rng.integers(114, 127)), 20))
+        off += 120
+    opt = MemOptions(o_del=gaps[0], e_del=gaps[1], o_ins=gaps[2],
+                     e_ins=gaps[3])
+    jobs = np.ascontiguousarray(np.array(jobs, np.int64).T)
+    got = _gl_check(gl_text, np.concatenate(codes), jobs, opt)
+    assert (got[:, 1] >= 3).sum() >= 30
+
+
+def test_sw_global_kernel_flags_what_it_cannot_hold(gl_text, on_emulation):
+    """An 800 bp job's state passes a warp's slice (OVER_BUDGET, by its
+    shape alone: the same job with a smaller slice or a shorter query
+    decides the same way in the plain version), and a CIGAR of more runs
+    than the slot holds is OVER_SLOTS; the jobs beside them are kept."""
+    rng = np.random.default_rng(11)
+    c1, j1 = _gl_jobs(gl_text[0], rng, 3, 800, 6, 30)
+    c2, j2 = _gl_jobs(gl_text[0], rng, 3, 151, 2, 10, indel_at=0.5)
+    c3, j3 = _gl_jobs(gl_text[0], rng, 3, 151, 2, 10)
+    j2[1] += len(c1)
+    j3[1] += len(c1) + len(c2)
+    codes = np.concatenate([c1, c2, c3])
+    jobs = np.concatenate([j1, j2, j3], 1)
+    got = _gl_check(gl_text, codes, jobs, MemOptions(), slots=2)
+    assert (got[:3, 1] == sw_global.OVER_BUDGET).all()
+    assert (got[3:6, 1] == sw_global.OVER_SLOTS).all()
+    assert (got[6:, 1] == 1).all()
+    # with room for them, the same jobs run, and equal sw_global_c
+    got = _gl_check(gl_text, codes, jobs, MemOptions(), budget=12 * 1024)
+    assert (got[:, 1] > 0).all()

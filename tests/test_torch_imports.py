@@ -106,7 +106,7 @@ assert regs and regs[0].rb == 5000, regs
 assert reg2ovlp(idx.bns, 151, regs)[0].rb == 5000
 maps = open("/proc/self/maps").read()
 assert "/native/build/" not in maps
-assert "/bwameme_tpu_torch/build/libhostkernels.so" in maps
+assert "/bwameme_tpu_torch/build/libhostkernels_port.so" in maps
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "bwameme_tpu"))
 assert not loaded, loaded

@@ -19,6 +19,7 @@ from bwameme_tpu_torch.index import bntseq
 from bwameme_tpu_torch.index.build import build_index
 from bwameme_tpu_torch.io import fastq
 from bwameme_tpu_torch.io.fastq import Read
+from bwameme_tpu_torch.ops import sw_global
 from bwameme_tpu_torch.pipeline import Aligner
 from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
 from bwameme_tpu_torch.utils import timer
@@ -155,7 +156,9 @@ def test_span_counts_follow_batches_not_reads(runs, kind):
     _, _, c, _, batches = runs[kind]
     chunks = 1 if kind == "pe" else batches     # align_pairs: one chunk
     assert c["encode"] == chunks
-    assert c["finalize.native"] == chunks       # its retry inside the span
+    # PE: its retry inside the span; SE: the plan, then the host's CIGARs
+    # and the emit (align/finalize_split.py)
+    assert c["finalize.native"] == (2 if kind == "se" else 1) * chunks
     assert c["extend.native"] == 2 * batches    # prepare and finalize
     assert c["extend.fetch"] <= 3 * batches     # round 1 and two retries
     assert c["seed.fetch"] <= 3 * batches
@@ -177,6 +180,50 @@ def test_region_objects_only_for_pairs(runs, kind):
     else:
         assert c["extend.objects"] == batches
         assert t["extend.objects"] <= t["extend.finish"]
+
+
+def test_split_finalize_spans_once_a_batch(setup, runs, monkeypatch):
+    """The single-end finalize with its CIGARs on the device (here the
+    kernel's plain version in the card's step): ``finalize.cigar``
+    (upload, launch, readback) once a batch in ``finalize`` and outside
+    ``finalize.native``, which times the plan and then the host's share
+    and the emit, twice a batch; ``finalize.cigar_host`` inside the second.
+    No job is left to the host here, and the SAM is the CPU's, where the
+    host aligns every job."""
+    monkeypatch.setattr(sw_global, "cigars", sw_global.align_jobs)
+    sw_global.stats.reset()
+    sam, t, c, _, batches = _align(setup, "se")
+    assert sam == runs["se"][0]
+    assert c["finalize.cigar"] == c["finalize.cigar_host"] == batches
+    assert c["finalize.native"] == 2 * batches
+    assert t["finalize.cigar_host"] <= t["finalize.native"]
+    assert t["finalize.native"] + t["finalize.cigar"] <= t["finalize"]
+    assert sw_global.stats.jobs >= len(setup[3]) and sw_global.stats.host == 0
+
+
+def test_split_finalize_counts_the_jobs_it_leaves_to_the_host(
+        setup, runs, monkeypatch):
+    """No CIGAR run fits a job's output row: the kernel flags every job,
+    the host runs each one, the counter says so, and the SAM is the
+    same."""
+    monkeypatch.setattr(sw_global, "cigars", sw_global.align_jobs)
+    monkeypatch.setattr(sw_global, "SLOTS", 0)
+    sw_global.stats.reset()
+    sam, _, c, _, batches = _align(setup, "se")
+    assert sam == runs["se"][0]
+    assert sw_global.stats.host == sw_global.stats.jobs >= len(setup[3])
+    assert c["finalize.cigar_host"] == batches
+
+
+def test_cpu_finalize_leaves_every_job_to_the_host(setup, runs):
+    """On the CPU the card's step flags every job: the host's span runs
+    once a batch and counts them all, with the same spans around it."""
+    sw_global.stats.reset()
+    sam, t, c, _, batches = _align(setup, "se")
+    assert sam == runs["se"][0]
+    assert c["finalize.cigar"] == c["finalize.cigar_host"] == batches
+    assert t["finalize.native"] + t["finalize.cigar"] <= t["finalize"]
+    assert sw_global.stats.host == sw_global.stats.jobs >= len(setup[3])
 
 
 def test_outgrown_pack_is_timed_as_unpacked(setup, runs, monkeypatch):
