@@ -42,11 +42,10 @@ class OvlpHit:
 def align1(idx, opt, seq: str, engine=None, device="cuda"):
     """Align one sequence; returns the deduped, primary-marked region list
     (mem_align1 semantics: full kernel-1/2 pipeline, no SAM conversion).
-    ``engine``: any seeding engine with ``sorted_smems`` (the host engine
-    by default, as in the JAX package; ``DeviceSeedingEngine`` and
-    ``FmiDeviceEngine`` also serve). The extension runs on ``device``: the
-    card unless the caller asks for the CPU; a missing CUDA device is an
-    error, never a move to the CPU."""
+    ``engine``: any seeding engine (seeding/host_engine.SeedingEngine; the
+    host engine by default, as in the JAX package). The extension runs on
+    ``device``: the card unless the caller asks for the CPU; a missing CUDA
+    device is an error, never a move to the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not "
@@ -57,8 +56,8 @@ def align1(idx, opt, seq: str, engine=None, device="cuda"):
 
         engine = HostSeedingEngine(idx, opt)
     smems = engine.sorted_smems(codes)
-    sa_pos = getattr(engine, "sa_positions", idx.sa)
-    chains = chain_mod.chain_seeds(opt, idx.bns, len(codes), smems, sa_pos)
+    chains = chain_mod.chain_seeds(opt, idx.bns, len(codes), smems,
+                                   engine.sa_positions)
     chains = chain_mod.filter_chains(opt, chains)
     chain_mod.filter_chained_seeds(opt, idx.bns, idx.text, codes, len(codes),
                                    chains)

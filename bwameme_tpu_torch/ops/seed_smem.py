@@ -31,11 +31,14 @@ from the second, the least a launch can move.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from bwameme_tpu_torch.index.device import DeviceIndex
 from bwameme_tpu_torch.ops import sa_search as ss
 from bwameme_tpu_torch.ops import seed_smem_cuda
+from bwameme_tpu_torch.seeding.host_engine import FlatSmems
+from bwameme_tpu_torch.utils.timer import tstage
 
 I64 = torch.int64
 DONE, RIGHT0, LEFT, RIGHT_Z = 0, 1, 2, 3
@@ -410,3 +413,29 @@ def pack_rounds(rounds, cap: int) -> torch.Tensor:
     counts = valid.sum(1, dtype=slots.dtype)
     dropped = sum(d.sum(dtype=slots.dtype) for _, _, d in rounds)
     return torch.cat([dropped.reshape(1), counts, body[:, :cap].reshape(-1)])
+
+
+def unpack(packed: torch.Tensor, R: int, cap: int):
+    """pack_rounds' buffer of R reads, fetched to the host: the batch's
+    SMEMs as FlatSmems, each read's run sorted by (start, end), ties in
+    emission order, or None where the reads hold more entries than ``cap``;
+    and the count of emissions that found no slot."""
+    with tstage("seed.fetch"):
+        flat = packed.cpu().numpy()
+    counts = flat[1: 1 + R]
+    total = int(counts.sum())
+    if total > cap:
+        return None, int(flat[0])
+    sten, lb, cn = (flat[1 + R + k * cap: 1 + R + k * cap + total]
+                    for k in range(3))
+    start = (sten >> 10).astype(np.int32)
+    end = (sten & 1023).astype(np.int32)
+    off = np.zeros(R + 1, np.int32)
+    np.cumsum(counts, out=off[1:])
+    # the device compaction kept emission order inside each read: restore
+    # the (read, start, end) order chaining consumes; lexsort is stable
+    read_ids = np.repeat(np.arange(R, dtype=np.int32), counts)
+    order = np.lexsort((end, start, read_ids))
+    return FlatSmems(off, start[order], end[order],
+                     lb[order].astype(np.int64),
+                     cn[order].astype(np.int64)), int(flat[0])

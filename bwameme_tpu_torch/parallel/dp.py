@@ -100,23 +100,16 @@ class DataParallelAligner:
     def align_batch(self, reads) -> list[str]:
         """A single-end chunk: every row's seeding is submitted first, then
         each row chains, extends and finalizes its slice in order."""
-        sl = slices(len(reads), self.n_dp)
         pend = []
-        for (b, e), row in zip(sl, self.rows):
-            recs = [row._encode(r) for r in reads[b:e]]
-            tok = row._submit_seed(recs) if recs else None
-            pend.append((row, b, recs, tok))
+        for (b, e), row in zip(slices(len(reads), self.n_dp), self.rows):
+            recs = row.encode(reads[b:e])
+            pend.append((row, b, recs, row.seed(recs) if recs else None))
         out: list[str] = []
-        chunk_base = self.n_processed
         for row, b, recs, tok in pend:
-            if not recs:
-                continue
-            smems = row._finish_seed(tok)
-            k2 = row._kernel2_submit(recs, smems)
-            regs_per_read = row._kernel2_finish(k2)
-            row.n_processed = chunk_base + b  # global ids for hash ties
-            out.extend(row._finalize_se(recs, regs_per_read))
-        self.n_processed = chunk_base + len(reads)
+            if recs:    # global ids for hash ties
+                out.extend(row.sam_se(recs, row.regions(recs, tok),
+                                      self.n_processed + b))
+        self.n_processed += len(reads)
         return out
 
     def align_stream(self, batches):
@@ -132,22 +125,19 @@ class DataParallelAligner:
         if len(reads) % 2:
             raise ValueError(f"{len(reads)} reads: paired-end reads come "
                              "in pairs")
-        sl = slices(len(reads), self.n_dp, even=True)
         parts = []
-        for (b, e), row in zip(sl, self.rows):
-            recs = [row._encode(r) for r in reads[b:e]]
-            deduped = row._pe_kernels(recs) if recs else []
-            parts.append((row, b, recs, deduped))
+        for (b, e), row in zip(slices(len(reads), self.n_dp, even=True),
+                               self.rows):
+            recs = row.encode(reads[b:e])
+            parts.append((row, b, recs, row.pe_regions(recs)))
         all_regs = [regs for _, _, _, dd in parts for regs in dd]
         pes = (self.rows[0].pes0 if self.rows[0].pes0 is not None
                else pairing.pestat(self.opt, self.rows[0].idx.bns.l_pac,
                                    all_regs))
         out: list[str] = []
-        chunk_base = self.n_processed
         for row, b, recs, deduped in parts:
-            if not recs:
-                continue
-            row.n_processed = chunk_base + b  # global pair ids
-            out.extend(row._pe_finalize(recs, deduped, pes))
-        self.n_processed = chunk_base + len(reads)
+            if recs:    # global pair ids
+                out.extend(row.sam_pe(recs, deduped, pes,
+                                      self.n_processed + b))
+        self.n_processed += len(reads)
         return out

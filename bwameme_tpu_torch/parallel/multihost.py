@@ -168,14 +168,14 @@ def worker_main(pid: int, n_procs: int, workdir: str, port: int,
                 workdir, f"chunk_{tag}_{pid}.fq")))
             with open(os.path.join(workdir, f"base_{tag}_{pid}")) as f:
                 base = int(f.read())
+            # base: the slice's global offset, for hash ties and pair ids
             al = Aligner(idx, opt, seeding_engine=eng, device=dev)
-            al.n_processed = base   # global read ids for hash-tie ordering
+            recs = al.encode(reads)
             if tag == "se":
-                return al.align_batch(reads)
-            recs = [al._encode(r) for r in reads]
-            deduped = al._pe_kernels(recs)
+                return al.sam_se(recs, al.regions(recs), base)
+            deduped = al.pe_regions(recs)
             pes = _gathered_pestat(opt, idx.bns.l_pac, deduped, comm)
-            return al._pe_finalize(recs, deduped, pes)
+            return al.sam_pe(recs, deduped, pes, base)
 
         for tag, o in (("se", opt), ("pe", _pe_options())):
             sam = run(tag, o)

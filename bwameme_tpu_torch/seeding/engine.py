@@ -36,7 +36,8 @@ that repeats one device is one slice, one launch a round. Its SMEMs are the
 unsharded engine's.
 
 Produces the SMEM sets of ``HostSeedingEngine`` (the scalar contract), which
-stays the independent oracle and is never called from here. The read length
+stays the independent oracle and is never called from here; implements the
+seeding contract (host_engine.SeedingEngine). The read length
 is a runtime argument up to the learned path's 500 bp cap; none of the
 reference's compile tiers, straggler compaction or fused/host-driven
 fallbacks exists here. A kernel that fails to build or launch raises.
@@ -59,7 +60,8 @@ import torch
 
 from bwameme_tpu_torch.index.device import DeviceIndex
 from bwameme_tpu_torch.ops import seed_smem
-from bwameme_tpu_torch.seeding.host_engine import FlatSmems, Smem
+from bwameme_tpu_torch.seeding.host_engine import (FlatSmems, SeedingEngine,
+                                                   Smem)
 from bwameme_tpu_torch.utils.timer import tstage
 
 # the learned seeding path's read-length cap (reference:
@@ -80,7 +82,7 @@ def cut_batch(n: int, devices) -> list[tuple]:
     return cut or [(devices[0], 0, n)]
 
 
-class DeviceSeedingEngine:
+class DeviceSeedingEngine(SeedingEngine):
     def __init__(self, idx, opt, lanes: int = 1024, device="cuda",
                  mode: int | None = None, wide: bool | None = None,
                  root: str = "prmi", ert_bits: int = 0, shards=None):
@@ -137,19 +139,6 @@ class DeviceSeedingEngine:
         return self.idx.sa
 
     # ------------------------------------------------------------- batches
-    @staticmethod
-    def _batch_matrix(codes_list):
-        """(R, maxlen) uint8 code matrix padded with T, and the lengths."""
-        R = len(codes_list)
-        lens = np.fromiter((len(c) for c in codes_list), np.int64, R)
-        maxlen = int(lens.max()) if R and lens.max() > 0 else 1
-        mat = np.full((R, maxlen), 3, dtype=np.uint8)
-        if R and lens.sum():
-            flat = np.concatenate([np.asarray(c) for c in codes_list])
-            mat[np.arange(maxlen)[None, :] < lens[:, None]] = \
-                np.minimum(flat, 4)
-        return mat, lens, maxlen
-
     def submit_batch(self, codes_list, devices=None):
         """Enqueue prep, the three rounds and the pack for a batch and return
         a token without waiting for the device. Pair with finish_batch_flat
@@ -224,7 +213,7 @@ class DeviceSeedingEngine:
             flat, d = self._flat(tok)
             if flat is None:
                 lists, d = self._lists(tok)
-                flat = _flat_of(lists)
+                flat = FlatSmems.from_lists(lists)
             parts.append(flat)
             n_dropped += d
         self._note_dropped(n_dropped)
@@ -232,28 +221,10 @@ class DeviceSeedingEngine:
 
     @staticmethod
     def _flat(token):
-        """A slice's packed result as FlatSmems, and the SMEMs it dropped;
-        (None, 0) when it overflowed the packed buffer."""
+        """A slice's packed result as FlatSmems (None when it overflowed
+        the packed buffer), and the SMEMs it dropped."""
         R, _rounds, packed, cap = token
-        with tstage("seed.fetch"):
-            flat = packed.cpu().numpy()
-        counts = flat[1: 1 + R]
-        total = int(counts.sum())
-        if total > cap:
-            return None, 0
-        sten, lb, cn = (flat[1 + R + k * cap: 1 + R + k * cap + total]
-                        for k in range(3))
-        start = (sten >> 10).astype(np.int32)
-        end = (sten & 1023).astype(np.int32)
-        smem_off = np.zeros(R + 1, np.int32)
-        np.cumsum(counts, out=smem_off[1:])
-        # the device compaction kept emission order inside each read: restore
-        # the (read, start, end) order chaining consumes; lexsort is stable
-        read_ids = np.repeat(np.arange(R, dtype=np.int32), counts)
-        order = np.lexsort((end, start, read_ids))
-        return FlatSmems(smem_off, start[order], end[order],
-                         lb[order].astype(np.int64),
-                         cn[order].astype(np.int64)), int(flat[0])
+        return seed_smem.unpack(packed, R, cap)
 
     def finish_batch(self, token) -> list[list[Smem]]:
         """Fetch a submit_batch token as per-read SMEM lists in emission
@@ -283,34 +254,6 @@ class DeviceSeedingEngine:
                     Smem(int(s[0, i, k]), int(s[1, i, k]), int(s[2, i, k]),
                          int(s[3, i, k])) for k in range(int(n[i])))
         return smems, n_dropped
-
-    # ----------------------------------------------------------- interface
-    def collect_smems_batch(self, codes_list) -> list[list[Smem]]:
-        return self.finish_batch(self.submit_batch(codes_list))
-
-    def sorted_smems_batch(self, codes_list) -> list[list[Smem]]:
-        return [sorted(sm, key=lambda s: (s.start, s.end))
-                for sm in self.collect_smems_batch(codes_list)]
-
-    def sorted_smems_batch_flat(self, codes_list) -> FlatSmems | None:
-        return self.finish_batch_flat(self.submit_batch(codes_list))
-
-    def sorted_smems(self, codes: np.ndarray) -> list[Smem]:
-        return self.sorted_smems_batch([codes])[0]
-
-
-def _flat_of(lists) -> FlatSmems:
-    """Per-read SMEM lists in emission order as FlatSmems, each read's run
-    sorted by (start, end), ties in emission order."""
-    runs = [sorted(sm, key=lambda s: (s.start, s.end)) for sm in lists]
-    off = np.zeros(len(runs) + 1, np.int32)
-    np.cumsum([len(r) for r in runs], out=off[1:])
-    flat = [s for r in runs for s in r]
-    return FlatSmems(off, *(np.array([getattr(s, f) for s in flat], dt)
-                            for f, dt in (("start", np.int32),
-                                          ("end", np.int32),
-                                          ("sa_lo", np.int64),
-                                          ("hitcount", np.int64))))
 
 
 def _merge_flat(parts) -> FlatSmems:

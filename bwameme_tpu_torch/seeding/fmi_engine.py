@@ -25,9 +25,10 @@ the per-read state machines on the host and each wave of extensions one
 batched call of the plain ``backward_ext`` (``collect_smems_waves``, also
 what the kernel is held against on the card).
 
-Both emit the Smem tuples of the learned-index engines (start, end, sa_lo,
-hitcount) with sa_lo in THIS index's suffix-array coordinates; hit positions
-come from ``FmIndex.sa`` (``sa_positions``), so chaining is shared.
+Both implement the seeding contract (host_engine.SeedingEngine) and emit
+the Smem tuples of the learned-index engines (start, end, sa_lo, hitcount)
+with sa_lo in THIS index's suffix-array coordinates; hit positions come from
+``FmIndex.sa`` (``sa_positions``), so chaining is shared.
 """
 
 from __future__ import annotations
@@ -39,12 +40,15 @@ import torch
 
 from bwameme_tpu_torch.index.fmindex import FmIndex, build_fm_index
 from bwameme_tpu_torch.ops import fmi_search
-from bwameme_tpu_torch.ops.seed_smem import pack_rounds
-from bwameme_tpu_torch.seeding.host_engine import FlatSmems, Smem
+from bwameme_tpu_torch.ops.seed_smem import pack_rounds, unpack
+from bwameme_tpu_torch.seeding.host_engine import (FlatSmems, SeedingEngine,
+                                                   Smem)
 from bwameme_tpu_torch.utils.timer import tstage
 
 
-class FmiHostEngine:
+class FmiHostEngine(SeedingEngine):
+    scalar_oracle = True
+
     def __init__(self, idx, opt, fm: FmIndex | None = None) -> None:
         self.idx = idx
         self.opt = opt
@@ -190,12 +194,6 @@ class FmiHostEngine:
                                     opt.min_seed_len + 1, out)
         return out
 
-    def sorted_smems(self, codes: np.ndarray) -> list[Smem]:
-        return sorted(self.collect_smems(codes), key=lambda s: (s.start, s.end))
-
-    def sorted_smems_batch(self, codes_list):
-        return [self.sorted_smems(c) for c in codes_list]
-
 
 # ---------------------------------------------------------------------------
 # Device engine
@@ -256,7 +254,7 @@ class FmiWork:
         return fmi_search.block_sectors(self.blocks())
 
 
-class FmiDeviceEngine:
+class FmiDeviceEngine(SeedingEngine):
     """Batched FM-index seeding on one device (see the module's docstring).
     Produces FmiHostEngine's SMEM multisets; a batch is submitted and
     finished as DeviceSeedingEngine's is, so the pipeline overlaps it.
@@ -489,18 +487,6 @@ class FmiDeviceEngine:
         return outs
 
     # ------------------------------------------------- the kernel (card)
-    @staticmethod
-    def _batch_matrix(codes_list):
-        """(R, maxlen) uint8 codes clipped to 4 (N), and the lengths."""
-        R = len(codes_list)
-        lens = np.fromiter((len(c) for c in codes_list), np.int64, R)
-        maxlen = max(int(lens.max()) if R else 0, 1)
-        mat = np.full((R, maxlen), 4, dtype=np.uint8)
-        if R and lens.sum():
-            mat[np.arange(maxlen)[None, :] < lens[:, None]] = np.minimum(
-                np.concatenate([np.asarray(c) for c in codes_list]), 4)
-        return mat, lens, maxlen
-
     def _upload(self, codes_list):
         """A batch's code matrix and read lengths on the engine's device."""
         mat, lens, _ = self._batch_matrix(codes_list)
@@ -551,29 +537,13 @@ class FmiDeviceEngine:
         1023 bases): the caller then uses finish_batch."""
         kind, tok = token
         if kind == "lists":
-            return _flat([sorted(sm, key=lambda s: (s.start, s.end))
-                          for sm in tok])
+            return FlatSmems.from_lists(tok)
         codes_list, _slots, _nsm, _M, packed, cap = tok
         if packed is None:
             return None
-        R = len(codes_list)
-        with tstage("seed.fetch"):
-            flat = packed.cpu().numpy()
-        counts = flat[1: 1 + R]
-        total = int(counts.sum())
-        if flat[0] or total > cap:
-            return None
-        sten, lb, cn = (flat[1 + R + k * cap: 1 + R + k * cap + total]
-                        for k in range(3))
-        start = (sten >> 10).astype(np.int32)
-        end = (sten & 1023).astype(np.int32)
-        off = np.zeros(R + 1, np.int32)
-        np.cumsum(counts, out=off[1:])
-        read_ids = np.repeat(np.arange(R, dtype=np.int32), counts)
-        order = np.lexsort((end, start, read_ids))
-        return FlatSmems(off, start[order], end[order],
-                         lb[order].astype(np.int64),
-                         cn[order].astype(np.int64))
+        flat, dropped = unpack(packed, len(codes_list), cap)
+        # a read that outgrew its slots is seeded again (finish_batch)
+        return None if dropped else flat
 
     def finish_batch(self, token) -> list[list[Smem]]:
         """A submit_batch token as per-read SMEM lists in emission order,
@@ -608,28 +578,3 @@ class FmiDeviceEngine:
                                 for k in range(int(n2[j]))]
             todo, need = todo[~fits], n2[~fits]
         return out
-
-    # ------------------------------------------------------------ interface
-    def collect_smems_batch(self, codes_list) -> list[list[Smem]]:
-        return self.finish_batch(self.submit_batch(codes_list))
-
-    def sorted_smems_batch(self, codes_list):
-        res = self.collect_smems_batch(codes_list)
-        return [sorted(sm, key=lambda s: (s.start, s.end)) for sm in res]
-
-    def sorted_smems_batch_flat(self, codes_list) -> FlatSmems | None:
-        return self.finish_batch_flat(self.submit_batch(codes_list))
-
-    def sorted_smems(self, codes):
-        return self.sorted_smems_batch([codes])[0]
-
-
-def _flat(lists) -> FlatSmems:
-    """Per-read sorted SMEM lists as FlatSmems."""
-    off = np.zeros(len(lists) + 1, np.int32)
-    np.cumsum([len(x) for x in lists], out=off[1:])
-    allm = [s for x in lists for s in x]
-    col = lambda f, dt: np.fromiter((getattr(s, f) for s in allm), dt,
-                                    len(allm))
-    return FlatSmems(off, col("start", np.int32), col("end", np.int32),
-                     col("sa_lo", np.int64), col("hitcount", np.int64))

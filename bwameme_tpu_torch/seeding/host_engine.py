@@ -1,8 +1,15 @@
-"""Host (numpy) reference implementation of learned-index SMEM seeding.
+"""The seeding contract of the port's engines, and the host (numpy)
+reference implementation of learned-index SMEM seeding.
 
-This is the scalar semantic model of the seeding stage — the exact contract
-the batched JAX/Pallas engine must reproduce, and the differential-test oracle
-(the analog of the reference's test/compare_result.sh FMI-vs-Learned fuzzing).
+``SeedingEngine`` is the one surface between the Aligner and its four
+engines: ``DeviceSeedingEngine`` (learned index and ERT, seeding/engine.py),
+``FmiDeviceEngine`` and the two scalar oracles, ``HostSeedingEngine`` (here)
+and ``FmiHostEngine`` (seeding/fmi_engine.py).
+
+``HostSeedingEngine`` is the scalar semantic model of the seeding stage — the
+exact contract the batched JAX/Pallas engine must reproduce, and the
+differential-test oracle (the analog of the reference's
+test/compare_result.sh FMI-vs-Learned fuzzing).
 
 Semantics replicated from the reference (file:line cites):
 * zigzag step-1 sweep: Learned_getSMEMsOnePosOneThread_step1
@@ -41,7 +48,7 @@ class Smem:
 class FlatSmems:
     """A batch's SMEMs as flat arrays (the layout native chaining consumes
     directly): per-read runs delimited by ``off``, each run sorted by
-    (start, end). Produced by DeviceSeedingEngine.finish_batch_flat."""
+    (start, end). Produced by every engine's finish_batch_flat."""
 
     off: "object"       # int32[R+1] prefix offsets
     start: "object"     # int32[n]
@@ -57,8 +64,98 @@ class FlatSmems:
             for i in range(len(self.off) - 1)
         ]
 
+    @classmethod
+    def from_lists(cls, lists) -> "FlatSmems":
+        """Per-read SMEM lists in emission order as FlatSmems, each read's
+        run sorted by (start, end), ties in emission order."""
+        runs = [sorted_by_span(sm) for sm in lists]
+        off = np.zeros(len(runs) + 1, np.int32)
+        np.cumsum([len(r) for r in runs], out=off[1:])
+        flat = [s for r in runs for s in r]
+        return cls(off, *(np.fromiter((getattr(s, f) for s in flat), dt,
+                                      len(flat))
+                          for f, dt in (("start", np.int32), ("end", np.int32),
+                                        ("sa_lo", np.int64),
+                                        ("hitcount", np.int64))))
 
-class HostSeedingEngine:
+
+def sorted_by_span(smems) -> list[Smem]:
+    """SMEMs sorted by (start, end), ties in their order — the order
+    chaining consumes (reference: src/bwamem.cpp:53
+    mem_smem_sort_lt_learned)."""
+    return sorted(smems, key=lambda s: (s.start, s.end))
+
+
+class SeedingEngine:
+    """The seeding contract. An engine implements
+
+    * ``submit_batch(codes_list) -> token``: start a batch's search; a
+      device engine enqueues it and returns without waiting for the device,
+      a scalar oracle runs it here;
+    * ``finish_batch_flat(token) -> FlatSmems | None``: the batch's SMEMs,
+      each read's run sorted by (start, end), ties in emission order; None
+      where the batch outgrew a device engine's packed buffer (the caller
+      then calls finish_batch);
+    * ``finish_batch(token) -> list[list[Smem]]``: per-read lists in
+      emission order;
+    * ``sa_positions``: the suffix array that turns an SMEM's sa_lo into
+      text positions (chaining reads it);
+
+    and may set the attributes below. Everything else is defined once,
+    here. The defaults of the three methods are the scalar oracles': the
+    search runs read by read in ``submit_batch`` (``collect_smems``)."""
+
+    # the batch size the engine is made for; None: a chunk is one batch
+    lanes: int | None = None
+    # the engine's DeviceIndex, whose packed text extension reads; None:
+    # the engine holds no device index
+    di = None
+    # a scalar oracle: the Aligner then rescues mates pair by pair, as bwa
+    # 0.7.17's mem_sam_pe, instead of a chunk's rescue in one batch
+    # (bwa-mem2's mem_sam_pe_batch); the two can differ where rescues
+    # cascade
+    scalar_oracle = False
+    sa_positions: np.ndarray
+
+    def submit_batch(self, codes_list):
+        return [self.collect_smems(c) for c in codes_list]
+
+    def finish_batch(self, token) -> list[list[Smem]]:
+        return token
+
+    def finish_batch_flat(self, token) -> FlatSmems | None:
+        return FlatSmems.from_lists(self.finish_batch(token))
+
+    def collect_smems_batch(self, codes_list) -> list[list[Smem]]:
+        return self.finish_batch(self.submit_batch(codes_list))
+
+    def sorted_smems_batch(self, codes_list) -> list[list[Smem]]:
+        return [sorted_by_span(sm)
+                for sm in self.collect_smems_batch(codes_list)]
+
+    def sorted_smems_batch_flat(self, codes_list) -> FlatSmems | None:
+        return self.finish_batch_flat(self.submit_batch(codes_list))
+
+    def sorted_smems(self, codes: np.ndarray) -> list[Smem]:
+        return self.sorted_smems_batch([codes])[0]
+
+    @staticmethod
+    def _batch_matrix(codes_list):
+        """(R, maxlen) uint8 codes clipped to 4 (N), padded with T past
+        each read's end, and the lengths."""
+        R = len(codes_list)
+        lens = np.fromiter((len(c) for c in codes_list), np.int64, R)
+        maxlen = max(int(lens.max()) if R else 0, 1)
+        mat = np.full((R, maxlen), 3, dtype=np.uint8)
+        if R and lens.sum():
+            mat[np.arange(maxlen)[None, :] < lens[:, None]] = np.minimum(
+                np.concatenate([np.asarray(c) for c in codes_list]), 4)
+        return mat, lens, maxlen
+
+
+class HostSeedingEngine(SeedingEngine):
+    scalar_oracle = True
+
     def __init__(self, idx, opt) -> None:
         self.idx = idx
         self.opt = opt
@@ -67,7 +164,7 @@ class HostSeedingEngine:
         self.textp = np.concatenate(
             [idx.text, np.full(1024, 3, dtype=np.uint8)]
         )
-        self.sa = idx.sa
+        self.sa = self.sa_positions = idx.sa
         self.n = len(idx.sa)
 
     # ----- comparators ---------------------------------------------------
@@ -312,8 +409,3 @@ class HostSeedingEngine:
                     lb, cnt = self.interval_at(pat, cur_l)
                 p += advance
         return smems
-
-    def sorted_smems(self, codes: np.ndarray) -> list[Smem]:
-        """SMEMs sorted by (start, end) — the order chaining consumes
-        (reference: src/bwamem.cpp:53 mem_smem_sort_lt_learned)."""
-        return sorted(self.collect_smems(codes), key=lambda s: (s.start, s.end))

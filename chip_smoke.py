@@ -2348,9 +2348,8 @@ def phase_sw_global(dev, mbp: float, n_reads: int, build_log: str):
                  np.random.default_rng(20)))]
     eng = DeviceSeedingEngine(idx, opt, lanes=n_reads, device=dev)
     al = Aligner(idx, opt, seeding_engine=eng, device=dev)
-    recs = al._encode_batch(reads)
-    regs = al._kernel2_finish(al._kernel2_submit(recs,
-                                                 al.collect_smems(recs)))
+    recs = al.encode(reads)
+    regs = al.regions(recs)
     with native.SePlan(opt, idx.bns, idx.text, recs, regs, 0) as plan:
         jobs, codes = plan.plan(), plan.f["qcodes"]
         N = jobs.shape[1]

@@ -1145,7 +1145,8 @@ def test_fmi_fallback_is_timed(fmi_world, on_emulation, monkeypatch):
     the packed buffer (a cap of one entry a read) and reads that outgrew
     their slots (3): the whole-plane fetch under ``seed.unpacked`` (in
     ``seed.finish``), each rerun's launch under ``seed.rerun``, every
-    readback under ``seed.fetch``; the SMEMs are FmiHostEngine's."""
+    readback under ``seed.fetch``; the regions give FmiHostEngine's
+    SAM."""
     from bwameme_tpu_torch.pipeline import Aligner, ReadRec
     from bwameme_tpu_torch.utils.timer import TPROF
 
@@ -1155,15 +1156,16 @@ def test_fmi_fallback_is_timed(fmi_world, on_emulation, monkeypatch):
     eng = FmiDeviceEngine(idx, opt, fm=fm, device="cpu")
     eng.max_smems, eng.pack_cap_per_read = 3, 1
     al = Aligner(idx, opt, seeding_engine=eng, device="cpu")
+    recs = [ReadRec(str(i), r, None, None) for i, r in enumerate(reads)]
     TPROF.totals.clear()
     TPROF.counts.clear()
-    got = al.collect_smems([ReadRec(str(i), r, None, None)
-                            for i, r in enumerate(reads)])
+    got = al.regions(recs)
     t, c = dict(TPROF.totals), dict(TPROF.counts)
-    host = FmiHostEngine(idx, opt, fm=fm)
-    assert [[(s.start, s.end, s.sa_lo, s.hitcount) for s in x]
-            for x in got] == [[(s.start, s.end, s.sa_lo, s.hitcount)
-                               for s in host.sorted_smems(r)] for r in reads]
+    host = Aligner(idx, opt, seeding_engine=FmiHostEngine(idx, opt, fm=fm),
+                   device="cpu")
+    sam = al.sam_se(recs, got, 0)
+    assert sam == host.sam_se(recs, host.regions(recs), 0)
+    assert sum(b.split("\t")[1] != "4" for b in sam) >= len(reads) // 2
     assert c["seed.unpacked"] == 1
     assert t["seed.unpacked"] <= t["seed.finish"]
     assert c["seed.rerun"] == eng.reruns >= 1

@@ -113,10 +113,8 @@ def world():
 
 def _regions(idx, opt, reads, rg_id=None):
     al = Aligner(idx, opt, rg_id=rg_id, copy_comment=True, device="cpu")
-    recs = al._encode_batch(reads)
-    regs = al._kernel2_finish(al._kernel2_submit(recs,
-                                                 al.collect_smems(recs)))
-    return al, recs, regs
+    recs = al.encode(reads)
+    return al, recs, al.regions(recs)
 
 
 def _both(idx, opt, al, recs, regs, n_processed=0, card="plain"):
@@ -234,9 +232,8 @@ def _stream(world, card):
     batches = [reads[:20], reads[20:]]
     want, ref = [], Aligner(idx, opt, device="cpu")
     for batch in batches:
-        recs = ref._encode_batch(batch)
-        regs = ref._kernel2_finish(ref._kernel2_submit(
-            recs, ref.collect_smems(recs)))
+        recs = ref.encode(batch)
+        regs = ref.regions(recs)
         want += native.finalize_se_native(opt, idx.bns, idx.text, recs,
                                           regs, None, len(want))
     sw_global.stats.reset()

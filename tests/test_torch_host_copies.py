@@ -383,8 +383,8 @@ def pe_regs(indexes):
     opt = t_config.MemOptions()
     opt.flag |= t_config.MEM_F_PE
     al = Aligner(idx, opt, device="cpu")
-    recs = [al._encode(r) for r in reads]
-    regs = al._pe_kernels(recs)
+    recs = al.encode(reads)
+    regs = al.pe_regions(recs)
     j_regs = [[j_extend.AlnReg(**{f.name: getattr(r, f.name)
                                   for f in dataclasses.fields(r)})
                for r in lst] for lst in regs]

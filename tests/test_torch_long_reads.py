@@ -134,17 +134,15 @@ def test_dataclass_path_hands_over_lists(setup):
              for i, c in enumerate(_sample(idx, rng, 800, k=4))]
     opt = MemOptions()
     al = Aligner(idx, opt, device="cpu")
-    recs = al._encode_batch(reads)
+    recs = al.encode(reads)
     assert not extend_mod.rescore_is_noop(opt, [r.codes for r in recs])
-    regs = al._kernel2_finish(al._kernel2_submit(recs,
-                                                 al.collect_smems(recs)))
+    regs = al.regions(recs)
     assert isinstance(regs, list) and all(
         isinstance(a, extend_mod.AlnReg) for r in regs for a in r)
     TPROF.counts.pop("extend.objects", None)
     sam = al.align_batch(reads)
     assert "extend.objects" not in TPROF.counts
-    al.n_processed = 0
-    assert al._finalize_se(recs, regs) == sam
+    assert al.sam_se(recs, regs, 0) == sam
     jax_reads = [JaxRead(r.name, r.seq, r.qual, None) for r in reads]
     assert sam == JaxAligner(jidx, JaxMemOptions()).align_batch(jax_reads)
     assert all(s.split("\t")[2] == "c" for s in sam)

@@ -324,9 +324,9 @@ def test_cli_profile_writes_a_trace(golden_dir, tmp_path, monkeypatch,
                   if e.get("cat") == "user_annotation"]
     stages = {"align", "write", "extend.submit", "extend.finish",
               "finalize"}
-    stages |= {"seed.collect"} if engine else {
-        "seed.submit", "seed.finish", "seed.round1", "seed.round2",
-        "seed.round3"}
+    stages |= {"seed.submit", "seed.finish"}
+    if not engine:
+        stages |= {"seed.round1", "seed.round2", "seed.round3"}
     assert stages <= set(ranges)
     assert ranges.count("align") == 1
 

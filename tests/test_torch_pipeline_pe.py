@@ -15,6 +15,7 @@ from bwameme_tpu.index import bntseq
 from bwameme_tpu.index.build import build_index
 from bwameme_tpu.io.fastq import Read
 from bwameme_tpu.pipeline import Aligner as JaxAligner
+from bwameme_tpu_torch.align import pairing
 from bwameme_tpu_torch.io.sam import (
     FLAG_MREVERSE, FLAG_PAIRED, FLAG_PROPER_PAIR, FLAG_READ1, FLAG_READ2,
     FLAG_REVERSE, FLAG_UNMAP,
@@ -86,15 +87,15 @@ def _parse_all(blocks):
     return recs
 
 
-def _aligned(setup, engine, reads, batched=None):
+def _aligned(setup, engine, reads):
     """The port's SAM blocks, the same from the host engine (serial rescue)
     and the device engine (batched rescue), and equal to bwameme_tpu's."""
     idx, opt, _ = setup
     want = JaxAligner(idx, opt).align_pairs(reads)
-    host = Aligner(idx, opt, device="cpu", batched_rescue=batched)
+    host = Aligner(idx, opt, device="cpu")
     assert host.align_pairs(reads) == want
     dev = Aligner(idx, opt, seeding_engine=engine, device="cpu")
-    assert dev.batched_rescue
+    assert not engine.scalar_oracle
     assert dev.align_pairs(reads) == want
     assert launch.stats.launches["sw_full"] == 0     # plain versions only
     return want
@@ -159,7 +160,9 @@ def test_one_end_unmapped(setup, engine):
 def test_batched_mate_rescue_matches_serial(setup, engine):
     """The batched rescue (the coordinate form of the full SW, then the C++
     pair finalization) gives the serial path's SAM on a chunk without
-    cascading rescues, on the host engine as on the device engine."""
+    cascading rescues: the production path of the device engine against
+    pairing.sam_pe called pair by pair on the same deduplicated regions,
+    those of the host engine as those of the device engine."""
     idx, opt, rng = setup
     reads = []
     n = idx.l_pac
@@ -175,12 +178,16 @@ def test_batched_mate_rescue_matches_serial(setup, engine):
                           None))
         reads.append(Read(f"p{i}", "".join("ACGT"[x] for x in c2), "I" * 100,
                           None))
-    serial = Aligner(idx, opt, device="cpu", batched_rescue=False)
-    assert _aligned(setup, engine, reads, batched=True) == serial.align_pairs(
-        reads)
-    dev_serial = Aligner(idx, opt, seeding_engine=engine, device="cpu",
-                         batched_rescue=False)
-    assert dev_serial.align_pairs(reads) == serial.align_pairs(reads)
+    got = _aligned(setup, engine, reads)
+    for eng in (None, engine):
+        al = Aligner(idx, opt, seeding_engine=eng, device="cpu")
+        recs = al.encode(reads)
+        deduped = al.pe_regions(recs)
+        pes = pairing.pestat(opt, idx.bns.l_pac, deduped)
+        serial = [b for i in range(0, len(recs), 2)
+                  for b in pairing.sam_pe(opt, idx.bns, idx.text, pes, i >> 1,
+                                          recs[i: i + 2], deduped[i: i + 2])]
+        assert got == serial
 
 
 def test_device_engine_pairs_in_several_batches(setup, engine):

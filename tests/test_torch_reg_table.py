@@ -115,9 +115,8 @@ def test_table_and_lists_give_one_sam(world, ov):
     if {"a", "b"} & set(ov):
         opt.mat = fill_scmat(opt.a, opt.b)
     al = Aligner(idx, opt, rg_id="rg7", copy_comment=True, device="cpu")
-    recs = al._encode_batch(reads)
-    table = al._kernel2_finish(al._kernel2_submit(recs,
-                                                  al.collect_smems(recs)))
+    recs = al.encode(reads)
+    table = al.regions(recs)
     assert isinstance(table, RegTable)
     assert len(table.off) == len(reads) + 1
     assert table.off[-1] == len(table.rb)
@@ -134,9 +133,8 @@ def test_table_and_lists_give_one_sam(world, ov):
         assert cols[k].dtype == v.dtype and cols[k].flags.c_contiguous, k
         np.testing.assert_array_equal(cols[k], v, err_msg=k)
 
-    got = al._finalize_se(recs, table)
-    al.n_processed = 0
-    want = al._finalize_se(recs, lists)
+    got = al.sam_se(recs, table, 0)
+    want = al.sam_se(recs, lists, 0)
     assert got == want
     assert any("chrB_alt" in block for block in got)
     assert all("\tRG:Z:rg7" in block for block in got)
@@ -148,14 +146,12 @@ def test_empty_table_gives_unmapped_reads(world):
     it does from empty lists."""
     idx, reads = world
     al = Aligner(idx, MemOptions(), device="cpu")
-    recs = al._encode_batch(reads[:3])
-    table = al._kernel2_finish(al._kernel2_submit(recs,
-                                                  al.collect_smems(recs)))
+    recs = al.encode(reads[:3])
+    table = al.regions(recs)
     empty = RegTable(off=np.zeros(4, np.int32),
                      **{k: getattr(table, k)[:0] for k in RegTable.COLUMNS},
                      is_alt=table.is_alt[:0])
     assert empty.to_lists() == [[], [], []]
-    got = al._finalize_se(recs, empty)
-    al.n_processed = 0
-    assert got == al._finalize_se(recs, [[], [], []])
+    got = al.sam_se(recs, empty, 0)
+    assert got == al.sam_se(recs, [[], [], []], 0)
     assert all(block.split("\t")[1] == "4" for block in got)

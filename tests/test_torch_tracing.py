@@ -1,13 +1,17 @@
-"""The port's host spans on the CPU (plain versions, the device engine's
-path): inside the host stages, ``<layer>.native`` times a call into the C++
+"""The port's host spans on the CPU (plain versions, the device engines'
+paths): inside the host stages, ``<layer>.native`` times a call into the C++
 host library and ``<layer>.fetch`` a blocking readback; ``encode`` the reads'
 encoding, ``io.parse`` the FASTQ parse, ``spanned`` the time under any
-stage, and, while a trace runs, ``gc`` the garbage collector. One
-single-end stream of three batches and one paired-end chunk of three
-batches: every span is there, nests inside its stage, counts batches and
-not reads, and leaves the SAM as it was."""
+stage, and, while a trace runs, ``gc`` the garbage collector. With each of
+the two benchmarked engines, the learned one and the FM-index one on its
+card path (a stand-in for ``fmi_smem``), one single-end stream of three
+batches and one paired-end chunk (three batches of the learned engine's
+lanes, one of the FM-index engine, which has none): every span is there,
+nests inside its stage, counts batches and not reads, and leaves the SAM as
+it was."""
 
 import contextlib
+import dataclasses
 import gc
 import time
 
@@ -17,17 +21,23 @@ import torch
 
 from bwameme_tpu_torch.index import bntseq
 from bwameme_tpu_torch.index.build import build_index
+from bwameme_tpu_torch.index.fmindex import build_fm_index
 from bwameme_tpu_torch.io import fastq
 from bwameme_tpu_torch.io.fastq import Read
-from bwameme_tpu_torch.ops import sw_global
+from bwameme_tpu_torch.ops import fmi_search, sw_global
 from bwameme_tpu_torch.pipeline import Aligner
 from bwameme_tpu_torch.seeding.engine import DeviceSeedingEngine
+from bwameme_tpu_torch.seeding.fmi_engine import FmiDeviceEngine, FmiHostEngine
 from bwameme_tpu_torch.utils import timer
 from bwameme_tpu_torch.utils.config import MEM_F_PE, MemOptions
 from bwameme_tpu_torch.utils.timer import SPANNED, TPROF
 
 LANES = 32
 KINDS = ("se", "pe")
+ENGINES = ("learned", "fmi")
+# the readbacks of a batch fetched whole: the pack, then the slot planes (a
+# round's of the learned engine, the one launch's of the FM-index engine)
+UNPACKED_FETCHES = {"learned": 4, "fmi": 2}
 # the spans each kind's path gains
 NEW = {
     "se": ("encode", "seed.fetch", "extend.native", "extend.fetch",
@@ -57,12 +67,30 @@ def _seq(codes) -> str:
     return "".join("ACGTN"[c] for c in codes)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    """A 60 kbp contig with planted repeats, its device engine on the CPU,
-    96 single-end reads of 151 bp (three batches of the engine's lanes) and
-    40 pairs (80 reads, three batches), four of whose second mates have no
-    19-mer seed, so that only the rescue places them."""
+class CardFmi(FmiDeviceEngine):
+    """FmiDeviceEngine on its card path (the launch, the pack, the flat
+    finish, the whole-plane fetch) with a stand-in for ``fmi_smem``:
+    FmiHostEngine's SMEMs, in its emission order as the kernel's, in the
+    kernel's slot planes."""
+
+    def _smem(self, codes, lens, M, steps=False):
+        host = FmiHostEngine(self.idx, self.opt, fm=self.fm)
+        lists = [host.collect_smems(c[:n])
+                 for c, n in zip(codes.numpy(), lens.tolist())]
+        slots = np.zeros((4, len(lists), M), np.int32)
+        for i, sm in enumerate(lists):
+            for k, sme in enumerate(sm[:M]):
+                slots[:, i, k] = dataclasses.astuple(sme)
+        return (torch.from_numpy(slots),
+                torch.tensor([len(sm) for sm in lists], dtype=torch.int32))
+
+
+@pytest.fixture(scope="module", params=ENGINES)
+def setup(request):
+    """A 60 kbp contig with planted repeats, a device engine on the CPU,
+    96 single-end reads of 151 bp (three batches of LANES) and 40 pairs (80
+    reads), four of whose second mates have no 19-mer seed, so that only
+    the rescue places them."""
     rng = np.random.default_rng(1717)
     n = 60000
     code = rng.integers(0, 4, n).astype(np.uint8)
@@ -73,7 +101,13 @@ def setup():
                         ambs=[], code=code)
     idx = build_index(bns, rmi_bits=11)
     opt = MemOptions()
-    engine = DeviceSeedingEngine(idx, opt, lanes=LANES, device="cpu")
+    if request.param == "learned":
+        engine = DeviceSeedingEngine(idx, opt, lanes=LANES, device="cpu")
+    else:
+        engine = CardFmi(idx, opt, fm=build_fm_index(code), device="cpu")
+        mp = pytest.MonkeyPatch()
+        mp.setattr(fmi_search, "_on_cuda", lambda x: True)
+        request.addfinalizer(mp.undo)
     se = []
     for i in range(3 * LANES):
         st = int(rng.integers(0, n - 151))
@@ -111,7 +145,8 @@ def _align(setup, kind):
         sam = al.align_pairs(pe)
     wall = time.perf_counter() - t0
     n = len(se) if kind == "se" else len(pe)
-    return sam, dict(TPROF.totals), dict(TPROF.counts), wall, -(-n // LANES)
+    lanes = LANES if kind == "se" else engine.lanes or n
+    return sam, dict(TPROF.totals), dict(TPROF.counts), wall, -(-n // lanes)
 
 
 @pytest.fixture(scope="module")
@@ -229,16 +264,17 @@ def test_cpu_finalize_leaves_every_job_to_the_host(setup, runs):
 def test_outgrown_pack_is_timed_as_unpacked(setup, runs, monkeypatch):
     """A batch with more SMEMs than the packed buffer holds (here one entry
     a read) is fetched as its whole slot planes under ``seed.unpacked``,
-    nested in ``seed.finish``, each readback (the pack, then a round's
-    planes) under ``seed.fetch``; the SAM is the packed path's. A stream
-    that fits the pack never enters the stage."""
+    nested in ``seed.finish``, each readback (the pack, then the planes)
+    under ``seed.fetch``; the SAM is the packed path's. A stream that fits
+    the pack never enters the stage."""
     engine = setup[2]
     monkeypatch.setattr(engine, "pack_cap_per_read", 1)
     sam, t, c, _, batches = _align(setup, "se")
     assert sam == runs["se"][0]
     assert c["seed.unpacked"] == batches
     assert t["seed.unpacked"] <= t["seed.finish"]
-    assert c["seed.fetch"] == 4 * batches
+    name = "fmi" if isinstance(engine, FmiDeviceEngine) else "learned"
+    assert c["seed.fetch"] == UNPACKED_FETCHES[name] * batches
     assert "seed.unpacked" not in runs["se"][2]
 
 
